@@ -54,7 +54,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 SEED = 0
 
