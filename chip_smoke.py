@@ -11,9 +11,11 @@ Phases, each printing JSON lines:
               ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
               at once) into ``build/repro_torch_ext/``.
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the shapes the slice's main path gives it (K6 on 2×2^17
-              ids, K7 at P=2^17 with ~70% overlap, K3/K5 at M=3,
-              N=49,000, d=11, K=14); median time over 20 launches with
+              at the shapes the main paths give it (K6 on 2×2^17 ids, K7
+              at P=2^17 with ~70% overlap, K3/K5 at M=3, N=49,000, d=11,
+              K=14, K1 at an eval block M=3, B=512, d=11, o=8 and at lr's
+              o=1, K2 at a train step of 700 seeded rows with duplicates
+              out of a (3, 49,000, 11) slab); median time over 20 launches with
               CUDA events beside the plain version, the library yardstick
               and the bound.  Integer outputs must match bit for bit; an
               assignment may differ only on a near tie (best/second-best
@@ -21,6 +23,9 @@ Phases, each printing JSON lines:
               rtol=1e-5 of Σ|p| of the float64 sums of the kernel's own
               assignment; sqd within 1e-5 + 1e-5·(‖p‖²+‖c‖²) of the plain
               version, the size of the terms the f32 formula cancels.
+              K1/K2 outputs within 1e-6 + 1e-5·(Σ_k|x_k w_k| + |b|) of the
+              plain version, and K2 bitwise equal to K1 on the gathered
+              rows.
 4. pipeline — ``run_pipeline(model="knn")`` at the paper's full HI size
               (70,000 train / 30,000 test rows, 3 clients, k=14,
               25 iterations, OPRF on the device) for ``treecss`` and
@@ -33,6 +38,26 @@ Phases, each printing JSON lines:
               where every differing assignment is a near tie (the f32
               distances of the kernel and of cuBLAS sum in other orders);
               two kernel fits must give the same bits.
+5. train    — ``run_pipeline`` for the SplitNN jobs at full HI with the
+              paper's Table-2 settings (batches of max(8, 70,000 // 100) =
+              700 rows, lr 0.05 for lr and 0.01 for mlp, k=14, OPRF on the
+              device): treecss × {mlp, lr} and starall × mlp (49,000 rows,
+              70 steps an epoch), each to the 200-epoch cap or convergence,
+              each traced, with the kernels and with every plain version.
+              MPSI and n_train must be identical, steps and comm_bytes too
+              unless the convergence window stopped at another epoch
+              (reported), the loss at the last common epoch within rtol
+              1e-3 (within 1e-3 of the first epoch's loss where the two
+              coreset fits parted at a near tie), accuracy within 0.005
+              and in (0.5, 1]; K2 launches = train steps, K1 launches =
+              eval batches, no launch in the plain runs.
+6. serve    — ``VFLScoringEngine(slots=64)`` over the 30,000 HI test rows
+              as seeded requests of 1-256 rows with the treecss-mlp params:
+              outputs within tolerance of ``score_partition``, ServeStats
+              equal between the kernel and plain engines, K1 launches =
+              dispatches.
+7. profile  — spans, device busy share and top device ops of one traced
+              full-HI treecss run, k-NN and mlp.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -317,9 +342,80 @@ def kernel_phase(dev):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.cdist(pts, cents).argmin(-1)),
         shape=[m, n, d, k]))
+    rows += bottom_kernel_rows(dev, tr, rng)
     for r in rows:
         emit({"phase": "kernel", **r})
     return rows
+
+
+def bottom_kernel_rows(dev, tr, rng):
+    """K1 at the eval block (and at lr's o=1 without ReLU), K2 at a
+    full-HI train step, each against its plain version; K2 bitwise
+    against K1 on the gathered rows."""
+    from repro_torch.kernels.padding import stack_padded
+    from repro_torch.kernels.splitnn_bottom import ref as sb_ref
+    from repro_torch.kernels.splitnn_bottom.kernel import (
+        splitnn_bottom_cuda, splitnn_bottom_gather_cuda)
+
+    m, n, d = 3, 49_000, 11
+    slab = stack_padded([torch.from_numpy(f[:n]).to(dev)
+                         for f in tr.client_features], n, d)
+    g = lambda *shape, scale=1.0: (torch.from_numpy(rng.normal(
+        size=shape).astype(np.float32)) * scale).to(dev)
+
+    def scale_of(x, w, b):          # Σ_k |x_k w_k| + |b|, per output
+        return torch.bmm(x.abs(), w.abs()) + b.abs()[:, None, :]
+
+    def row(name, x, w, b, relu, idx=None, **extra):
+        o = w.shape[2]
+        xg = x if idx is None else x.index_select(1, idx).contiguous()
+        if idx is None:
+            call = lambda: splitnn_bottom_cuda(x, w, b, relu)
+        else:
+            call = lambda: splitnn_bottom_gather_cuda(idx, x, w, b, relu)
+        got, want = call(), sb_ref.splitnn_bottom(xg, w, b, relu)
+        torch.cuda.synchronize()
+        err = check_close(name, got, want, scale_of(xg, w, b), rtol=1e-5,
+                          atol=1e-6)
+        if idx is not None:
+            k1 = splitnn_bottom_cuda(xg, w, b, relu)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k1):
+                raise AssertionError("splitnn_bottom_gather: K2 differs "
+                                     "from K1 on the gathered rows")
+            extra["k2_equals_k1_bitwise"] = True
+        bsz = xg.shape[1]
+        rows_read = bsz if idx is None else int(torch.unique(idx).numel())
+        nbytes = 4 * (m * rows_read * d + m * d * o + m * o + m * bsz * o
+                      + (0 if idx is None else bsz))
+        b_ms, b_by = bound(nbytes, m * bsz * o * (2 * d + 2))
+        bb = b[:, None, :]
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/splitnn_bottom.cu",
+            max_abs_err=err, ms=cuda_ms(call),
+            device_ms=kernel_device_ms(call, ["bottom_kernel"]),
+            plain_ms=cuda_ms(lambda: sb_ref.splitnn_bottom(x, w, b, relu,
+                                                           idx)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.baddbmm(bb, xg, w)),
+            library="torch.baddbmm on the same (gathered) operands, "
+                    "without the ReLU",
+            shape=[m, bsz, d, o], relu=relu, **extra)
+
+    eval_x = slab[:, :512].contiguous()
+    w8, b8 = g(m, d, 8, scale=d ** -0.5), g(m, 8, scale=0.1)
+    w1, b1 = g(m, d, 1, scale=0.1 * d ** -0.5), g(m, 1, scale=0.1)
+    idx = torch.from_numpy(rng.integers(0, n, 700).astype(np.int32)).to(dev)
+    idx[1::50] = idx[0]                      # duplicates, as a schedule
+    return [
+        row("splitnn_bottom", eval_x, w8, b8, True,
+            replaces="src/repro/kernels/splitnn_bottom/kernel.py:40"),
+        row("splitnn_bottom", eval_x, w1, b1, False, check_only="lr",
+            replaces="src/repro/kernels/splitnn_bottom/kernel.py:40"),
+        row("splitnn_bottom_gather", slab, w8, b8, True, idx=idx,
+            replaces="src/repro/kernels/splitnn_bottom/kernel.py:141"),
+    ]
 
 
 # ---------------------------------------------------------- pipeline phase
@@ -455,6 +551,183 @@ def pipeline_phase(dev):
     return runs["treecss", "kernel"][1]["launches"], rows
 
 
+# (variant, model, lr, max_epochs): the paper's 200-epoch cap for all
+# three; starall × mlp (70 steps an epoch) stops at convergence well
+# inside the script's time (PERF.md §4)
+TRAIN_JOBS = (("treecss", "mlp", 0.01, 200), ("treecss", "lr", 0.05, 200),
+              ("starall", "mlp", 0.01, 200))
+
+
+def train_cfg(model, lr, n_rows, max_epochs):
+    """The paper's Table-2 SplitNN settings for HI
+    (``benchmarks/table2_framework.py``)."""
+    from repro_torch.core.splitnn import SplitNNConfig
+    return SplitNNConfig(model=model, n_classes=2, lr=lr,
+                         batch_size=max(8, n_rows // 100),
+                         max_epochs=max_epochs, seed=SEED)
+
+
+def drive_split(tr, te, dev, variant, cfg, impl, trace=None):
+    from repro_torch.config import AlignOptions, EngineOptions
+    from repro_torch.core.treecss import run_pipeline
+    return run_pipeline(
+        tr, te, cfg, variant=variant, clusters_per_client=14,
+        kmeans_impl=impl, seed=SEED,
+        options=EngineOptions(device=dev, bottom_impl=impl, trace=trace),
+        align=AlignOptions(protocol="oprf", psi_backend="device", impl=impl))
+
+
+def train_phase(dev):
+    """The SplitNN jobs at full HI, kernels against plain versions."""
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+
+    tr, te = hi_partitions()
+    n_eval_batches = -(-te.n_samples // 512)
+    # untimed, both models: first use of autograd, of each model's
+    # GEMM shapes and of pinned host memory would otherwise land in the
+    # first timed run of that model
+    for model in ("mlp", "lr"):
+        drive_split(tr, te, dev, "treecss",
+                    train_cfg(model, 0.01, tr.n_samples, 2), None)
+    runs, rows = {}, []
+    for variant, model, lr, epochs in TRAIN_JOBS:
+        cfg = train_cfg(model, lr, tr.n_samples, epochs)
+        for impl in ("kernel", "ref"):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = drive_split(tr, te, dev, variant, cfg, impl, trace=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            row = dict(phase="train", variant=variant, model=model,
+                       impl=impl, max_epochs=cfg.max_epochs,
+                       batch_size=cfg.batch_size, lr=lr,
+                       n_align=int(rep.mpsi.intersection.shape[0]),
+                       n_train=rep.n_train, metric=rep.metric,
+                       epochs=rep.train.epochs, steps=rep.train.steps,
+                       final_loss=rep.train.losses[-1],
+                       comm_bytes=rep.train.comm_bytes,
+                       align_wall_s=rep.align_wall_seconds,
+                       coreset_wall_s=rep.coreset_wall_seconds,
+                       train_wall_s=rep.train_wall_seconds,
+                       train_engine_s=rep.train.train_seconds,
+                       ms_per_step=rep.train.train_seconds * 1e3
+                       / rep.train.steps,
+                       eval_wall_s=rep.tracer.total_seconds(
+                           "pipeline.serve"),
+                       total_wall_s=wall, launches=launches)
+            emit(row)
+            runs[variant, model, impl] = (rep, row)
+            rows.append(row)
+    for variant, model, _, _ in TRAIN_JOBS:
+        (rk, row_k), (rr, row_r) = (runs[variant, model, "kernel"],
+                                    runs[variant, model, "ref"])
+        tag = f"{variant}/{model}"
+        if not np.array_equal(rk.mpsi.intersection, rr.mpsi.intersection):
+            raise AssertionError(f"{tag}: intersections differ")
+        if rk.n_train != rr.n_train:
+            raise AssertionError(f"{tag}: n_train {rk.n_train} vs "
+                                 f"{rr.n_train}")
+        common = min(rk.train.epochs, rr.train.epochs)
+        if rk.train.epochs == rr.train.epochs:
+            if (rk.train.steps, rk.train.comm_bytes) != (
+                    rr.train.steps, rr.train.comm_bytes):
+                raise AssertionError(f"{tag}: steps or comm_bytes differ")
+        else:
+            emit({"phase": "train_note", "job": tag,
+                  "epochs_kernel": rk.train.epochs,
+                  "epochs_ref": rr.train.epochs,
+                  "note": "the convergence window stopped at another "
+                          "epoch"})
+        # the loss at the last common epoch within rtol 1e-3; where the
+        # two coreset fits parted at a near tie (fit_divergence) the runs
+        # train on other weights, and a converged loss four orders below
+        # its start is then held within 1e-3 of the first epoch's loss
+        same_data = rk.coreset is None or (
+            np.array_equal(rk.coreset.indices, rr.coreset.indices)
+            and np.array_equal(rk.coreset.weights, rr.coreset.weights))
+        row_k["same_train_data"] = same_data
+        lk, lr_ = rk.train.losses[common - 1], rr.train.losses[common - 1]
+        lim = 1e-3 * (abs(lr_) if same_data else rr.train.losses[0])
+        if abs(lk - lr_) > lim:
+            raise AssertionError(f"{tag}: loss {lk} vs {lr_} at epoch "
+                                 f"{common} (same train data: {same_data})")
+        if abs(rk.metric - rr.metric) > 0.005:
+            raise AssertionError(f"{tag}: accuracy {rk.metric} vs "
+                                 f"{rr.metric}")
+        if not 0.5 < rk.metric <= 1.0:
+            raise AssertionError(f"{tag}: implausible accuracy {rk.metric}")
+        if any(row_r["launches"].values()):
+            raise AssertionError(f"{tag}: the plain run launched kernels")
+        launched = row_k["launches"]
+        if launched["splitnn_bottom_gather"] != rk.train.steps:
+            raise AssertionError(f"{tag}: K2 launched "
+                                 f"{launched['splitnn_bottom_gather']} "
+                                 f"times in {rk.train.steps} train steps")
+        if launched["splitnn_bottom"] != n_eval_batches:
+            raise AssertionError(f"{tag}: K1 launched "
+                                 f"{launched['splitnn_bottom']} times for "
+                                 f"{n_eval_batches} eval batches")
+    return runs, rows
+
+
+def serve_phase(dev, params, cfg):
+    """The test set as seeded requests through ``VFLScoringEngine``,
+    kernel and plain engines, against ``score_partition``."""
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.serve.vfl import VFLScoringEngine, score_partition
+
+    _, te = hi_partitions()
+    feats = te.client_features
+    want = torch.from_numpy(score_partition(params, cfg, te, block_b=512))
+    g = np.random.default_rng(SEED + 2)
+    bounds, s = [], 0
+    while s < te.n_samples:
+        e = min(s + int(g.integers(1, 257)), te.n_samples)
+        bounds.append((s, e))
+        s = e
+    requests = [(rid, [f[a:b] for f in feats])
+                for rid, (a, b) in enumerate(bounds)]
+    out = {}
+    for impl in ("kernel", "ref"):
+        eng = VFLScoringEngine(params, cfg, slots=64, bottom_impl=impl)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.score_requests(requests)
+        wall = time.perf_counter() - t0
+        got = torch.from_numpy(np.concatenate([res[r] for r in
+                                               range(len(bounds))]))
+        out[impl] = (eng.stats, dict(LAUNCHES), wall, got)
+    # the K1 tolerance, with each output's term magnitudes carried
+    # through the top layers: (|a|·|w1| + |b1|)·|w2| + |b2|
+    p = {k: v.detach().double().abs().cpu() for k, v in params["top"].items()}
+    acts = [torch.from_numpy(np.abs(f)).double() @ bp["w"].double().abs().cpu()
+            + bp["b"].double().abs().cpu()
+            for f, bp in zip(feats, params["bottoms"])]
+    scale = ((torch.cat(acts, 1) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
+    rows = []
+    for impl, (stats, launches, wall, got) in out.items():
+        err = check_close(f"serve[{impl}] vs score_partition", got, want,
+                          scale, rtol=1e-5, atol=1e-6)
+        row = dict(phase="serve", impl=impl, requests=len(bounds),
+                   rows=te.n_samples, wall_s=wall, max_abs_err=err,
+                   stats=stats.to_dict(), launches=launches)
+        emit(row)
+        rows.append(row)
+    (sk, lk, _, _), (sr, _, _, _) = out["kernel"], out["ref"]
+    fields = sk.CONTRACT_FIELDS
+    if [getattr(sk, f) for f in fields] != [getattr(sr, f) for f in fields]:
+        raise AssertionError("serve: ServeStats differ between engines")
+    if lk["splitnn_bottom"] != sk.dispatches:
+        raise AssertionError(f"serve: K1 launched {lk['splitnn_bottom']} "
+                             f"times in {sk.dispatches} dispatches")
+    if any(out["ref"][1].values()):
+        raise AssertionError("serve: the plain engine launched kernels")
+    return rows
+
+
 def profile_phase(dev):
     """Where the time of one full-HI treecss run goes: the obs spans of a
     traced run (host wall per stage), then, under torch.profiler, the
@@ -469,19 +742,25 @@ def profile_phase(dev):
         clusters_per_client=14, seed=SEED,
         options=EngineOptions(device=dev, trace=trace),
         align=AlignOptions(protocol="oprf", psi_backend="device"))
-    tracer = run(trace=True).tracer
-    spans = {}
-    for sp in tracer.finished():
-        spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration * 1e3
-    per_name, device_ms, wall_ms = profile_device(run, reps=1)
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
-    row = {"phase": "profile", "variant": "treecss", "span_ms": spans,
-           "wall_ms_profiled":
-           wall_ms, "device_ms": device_ms,
-           "device_busy_share": None if device_ms is None else
-           device_ms / wall_ms, "top_device_ops_ms": top}
-    emit(row)
-    return row
+    cfg = train_cfg("mlp", 0.01, tr.n_samples, 200)
+    mlp = lambda trace=None: drive_split(tr, te, dev, "treecss", cfg, None,
+                                         trace)
+    rows = []
+    for model, fn in (("knn", run), ("mlp", mlp)):
+        tracer = fn(trace=True).tracer
+        spans = {}
+        for sp in tracer.finished():
+            spans[sp.name] = spans.get(sp.name, 0.0) + sp.duration * 1e3
+        per_name, device_ms, wall_ms = profile_device(fn, reps=1)
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+        row = {"phase": "profile", "variant": "treecss", "model": model,
+               "span_ms": spans, "wall_ms_profiled": wall_ms,
+               "device_ms": device_ms,
+               "device_busy_share": None if device_ms is None else
+               device_ms / wall_ms, "top_device_ops_ms": top}
+        emit(row)
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -502,9 +781,19 @@ def main() -> int:
                     build.PTXAS_REPORT.items()}})
     rows = kernel_phase(dev)
     launches, pipe_rows = pipeline_phase(dev)
-    pipe_rows.append(profile_phase(dev))
+    train_runs, train_rows = train_phase(dev)
+    rep, mlp_row = train_runs["treecss", "mlp", "kernel"]
+    # K1 and K2 count on their own main path, the treecss-mlp job
+    launches = launches | {k: mlp_row["launches"][k] for k in
+                           ("splitnn_bottom", "splitnn_bottom_gather")}
+    pipe_rows += train_rows
+    pipe_rows += serve_phase(dev, rep.train.params, train_cfg(
+        "mlp", 0.01, 70_000, 200))
+    pipe_rows += profile_phase(dev)
     kernels = []
     for r in rows:
+        if "check_only" in r:
+            continue
         kernels.append({key: r[key] for key in (
             "name", "route", "source", "replaces")} | {
             "launches": launches[r["name"]]} | {key: r[key] for key in (

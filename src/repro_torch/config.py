@@ -11,7 +11,13 @@ defaults.  Two differences follow from the platform:
 - ``AlignOptions.impl`` names the port's kernel implementations,
   ``"kernel"`` (the hand-written CUDA kernels) or ``"ref"`` (their
   plain PyTorch versions).  ``None`` picks by device: ``"kernel"`` on
-  CUDA, ``"ref"`` on the CPU.
+  CUDA, ``"ref"`` on the CPU.  ``EngineOptions.bottom_impl`` does the
+  same for the SplitNN bottom layer and also takes ``"loop"`` (the
+  per-client parity oracle); the reference's ``"pallas"`` means
+  ``"kernel"``.
+- ``mesh``/``shard_axis`` sharding waits for the multi-GPU slice
+  (ROADMAP.md, queue 6): ``EngineOptions`` has no such fields, so asking
+  for them raises ``TypeError``.
 
 The reference's legacy-kwarg shim (``_coerce_options``) is not ported:
 the port has no legacy callers, so every entry point takes the option
@@ -24,12 +30,22 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["EngineOptions", "AlignOptions", "resolve_device", "resolve_impl"]
+__all__ = ["EngineOptions", "AlignOptions", "resolve_device", "resolve_impl",
+           "resolve_bottom_impl"]
 
 
 def resolve_device(device: Any = None) -> torch.device:
-    """``None`` → the CUDA device; anything else through ``torch.device``."""
-    return torch.device("cuda") if device is None else torch.device(device)
+    """``None`` → the CUDA device; anything else through ``torch.device``.
+
+    Every entry point places its work through here, so this is also
+    where f32 is made to mean f32 on the card: for a CUDA device it
+    turns TF32 off for both matrix products and cuDNN convolutions
+    (PyTorch's default lets cuDNN use TF32, which keeps ~3 digits)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
 
 
 def resolve_impl(impl: Optional[str], device: torch.device) -> str:
@@ -43,17 +59,28 @@ def resolve_impl(impl: Optional[str], device: torch.device) -> str:
     return impl
 
 
+def resolve_bottom_impl(impl: Optional[str], device: torch.device) -> str:
+    """The SplitNN bottom-layer implementation: ``"loop"`` (per-client
+    GEMMs, the parity oracle) is kept, ``"pallas"`` means ``"kernel"``,
+    and the rest resolves as ``resolve_impl``."""
+    if impl == "loop":
+        return impl
+    return resolve_impl("kernel" if impl == "pallas" else impl, device)
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """Execution-layer options.  ``device`` places every device stage;
     ``trace`` turns on the obs layer (a ``repro_torch.obs.Tracer`` or
-    any truthy value).  ``train_engine``/``bottom_impl``/
-    ``fuse_gather``/``block_b``/``quant`` keep the reference's names and
-    defaults for the SplitNN training slice; the k-NN pipeline reads
-    none of them."""
+    any truthy value).  ``train_engine``/``fuse_gather``/``block_b``/
+    ``quant`` keep the reference's names and defaults; ``bottom_impl``
+    resolves by device (module docstring).  ``block_b`` is the row count
+    of an evaluation batch (the CUDA kernels pick their own tiles), and
+    a non-``None`` ``quant`` raises until the quant slice.  The k-NN
+    pipeline reads none of them."""
     device: Any = None
     train_engine: str = "scan"
-    bottom_impl: str = "ref"
+    bottom_impl: Optional[str] = None
     fuse_gather: bool = True
     block_b: int = 512
     quant: Optional[str] = None

@@ -1,24 +1,53 @@
-"""SplitNN configuration and the VFL k-NN: the part of
-``repro.core.splitnn`` that the k-NN pipeline runs.
+"""SplitNN VFL model zoo (paper §3) with instance-wise communication
+accounting, and the VFL k-NN: the port of ``repro.core.splitnn``.
+
+Roles: M clients (bottom models f_b^m over local feature slices), an
+aggregation server (top model f_t), and the label owner (loss).  Per
+step: ① clients run bottoms on their slices → activations, ② the server
+concatenates them and runs the top model, ③ the label owner computes
+the (optionally Eq.2-weighted) loss, ④ the server backprops and returns
+per-client bottom grads.  On the device this is one partitioned
+forward/backward; the VFL structure shows up as the block-diagonal
+bottom layer (one slab pass, ``kernels/splitnn_bottom``) and as the
+counted activation/gradient bytes per sample per step.
+
+Training lives in ``repro_torch.train.vfl`` (the epoch engine and the
+per-step loop oracle); ``train_splitnn`` is the stage entry point the
+pipeline calls, and ``predict``/``evaluate`` score through
+``repro_torch.serve.vfl.score_partition``.
 
 k-NN is distributed distance aggregation: ‖x−z‖² = Σ_m ‖x^m−z^m‖²
 decomposes per client, so every client contributes its local partial
 Gram/norm terms (plain f32 GEMMs on the device, outside any kernel, as
-the reference leaves them to XLA) and the label owner votes.  The
-SplitNN training zoo (lr/mlp/linreg) comes with the training slice.
+the reference leaves them to XLA) and the label owner votes.
+
+Params are the reference's tree, with tensors for arrays:
+``{"bottoms": [{"w": (d_m, o)[, "b": (o,)]}, ...], "top": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.config import resolve_device
+from repro_torch import rng
+from repro_torch.config import EngineOptions, resolve_device
 from repro_torch.data.vertical import VerticalPartition
+from repro_torch.quant import require_f32, wire_bytes
+from repro_torch.train.losses import (weighted_binary_xent, weighted_mse,
+                                      weighted_softmax_xent)
+from repro_torch.train.vfl import EngineStats, TrainReport  # re-export
 
-__all__ = ["SplitNNConfig", "TrainReport", "knn_predict"]
+ACT_BYTES = 4  # f32 activation/gradient element on the wire
+
+__all__ = [
+    "ACT_BYTES", "SplitNNConfig", "TrainReport", "EngineStats",
+    "init_splitnn", "splitnn_forward", "activation_width",
+    "activation_bytes_per_sample", "train_splitnn", "predict", "evaluate",
+    "knn_predict",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,19 +64,147 @@ class SplitNNConfig:
     seed: int = 0
 
 
-@dataclasses.dataclass
-class TrainReport:
-    """The training stage's report (``repro.train.vfl.TrainReport``);
-    the k-NN stage fills it with zero epochs and steps."""
-    losses: List[float]
-    epochs: int
-    steps: int
-    train_seconds: float
-    comm_bytes: int
-    simulated_comm_seconds: float
-    params: Any
-    engine_stats: Any = None
+# ----------------------------------------------------------------- modeling
 
+def init_splitnn(cfg: SplitNNConfig, feature_dims: Sequence[int], *,
+                 device=None):
+    """The reference's initial params, drawn with the port's threefry
+    (``rng.normal``, within a few ulps of ``jax.random.normal``) in
+    numpy float32, then placed on ``device``."""
+    dev = resolve_device(device)
+    f32 = np.float32
+    ks = rng.split(rng.PRNGKey(cfg.seed), len(feature_dims) + 2)
+    m = len(feature_dims)
+    t = lambda a: torch.as_tensor(np.asarray(a, f32), device=dev)
+    zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
+    if cfg.model in ("lr", "linreg"):
+        # bottoms are the local linear partial sums; top is sum + bias
+        n_out = (1 if cfg.model == "linreg" or cfg.n_classes == 2
+                 else max(cfg.n_classes, 1))
+        bottoms = [{"w": t(rng.normal(ks[i], (d, n_out)) * f32(d ** -0.5)
+                           * f32(0.1))}
+                   for i, d in enumerate(feature_dims)]
+        return {"bottoms": bottoms, "top": {"b": zeros(n_out)}}
+    if cfg.model == "mlp":
+        n_out = cfg.n_classes if cfg.n_classes > 2 else 1
+        bd, hd = cfg.bottom_dim, cfg.hidden_dim
+        bottoms = [{"w": t(rng.normal(ks[i], (d, bd)) * f32(d ** -0.5)),
+                    "b": zeros(bd)} for i, d in enumerate(feature_dims)]
+        top = {"w1": t(rng.normal(ks[m], (m * bd, hd))
+                       * f32((m * bd) ** -0.5)),
+               "b1": zeros(hd),
+               "w2": t(rng.normal(ks[m + 1], (hd, n_out)) * f32(hd ** -0.5)),
+               "b2": zeros(n_out)}
+        return {"bottoms": bottoms, "top": top}
+    raise ValueError(cfg.model)
+
+
+def splitnn_forward(params, cfg: SplitNNConfig,
+                    xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """xs: per-client feature slices [(B, d_m)] -> outputs (B, o).  The
+    per-client loop form; the slab form is
+    ``repro_torch.train.vfl.forward_slab_packed``."""
+    acts = []
+    for bp, x in zip(params["bottoms"], xs):
+        a = x @ bp["w"]
+        if "b" in bp:
+            a = torch.relu(a + bp["b"])
+        acts.append(a)
+    if cfg.model in ("lr", "linreg"):
+        return sum(acts) + params["top"]["b"]
+    h = torch.cat(acts, dim=1)
+    h = torch.relu(h @ params["top"]["w1"] + params["top"]["b1"])
+    return h @ params["top"]["w2"] + params["top"]["b2"]
+
+
+def _loss_from_out(out: torch.Tensor, cfg: SplitNNConfig, y: torch.Tensor,
+                   w: Optional[torch.Tensor]) -> torch.Tensor:
+    """Eq.(2) weighted loss from model output (shared by both engines)."""
+    if cfg.n_classes == 0:
+        return weighted_mse(out[:, 0:1], y[:, None], w)
+    if cfg.n_classes == 2 and out.shape[-1] == 1:
+        return weighted_binary_xent(out[:, 0], y, w)
+    return weighted_softmax_xent(out, y, w)
+
+
+def _loss_fn(params, cfg: SplitNNConfig, xs, y, w) -> torch.Tensor:
+    return _loss_from_out(splitnn_forward(params, cfg, xs), cfg, y, w)
+
+
+def activation_width(cfg: SplitNNConfig) -> int:
+    """Per-client activation elements per sample on the wire."""
+    if cfg.model in ("lr", "linreg"):
+        return 1 if cfg.n_classes in (0, 2) else cfg.n_classes
+    return cfg.bottom_dim
+
+
+def activation_bytes_per_sample(cfg: SplitNNConfig, m_clients: int,
+                                quant: Optional[str] = None) -> int:
+    """Instance-wise communication per sample per step (forward
+    activation in the wire dtype + f32 backward gradient)."""
+    return (wire_bytes(quant) + ACT_BYTES) * activation_width(cfg) * m_clients
+
+
+# ------------------------------------------------------------------ training
+
+def train_splitnn(partition: VerticalPartition, cfg: SplitNNConfig, *,
+                  sample_weights: Optional[np.ndarray] = None,
+                  bandwidth: float = 10e9 / 8, latency: float = 2e-4,
+                  verbose: bool = False,
+                  options: Optional[EngineOptions] = None) -> TrainReport:
+    """Mini-batch Adam training to the paper's convergence criterion.
+
+    ``options.train_engine="scan"`` (default): the epoch engine, one
+    host sync per epoch, ``bottom_impl`` picking the CUDA kernels
+    ("kernel"), their plain versions ("ref") or per-client GEMMs
+    ("loop"), ``fuse_gather`` fusing the step's row gather into the
+    bottom pass.  ``"loop"``: the per-minibatch host loop (the parity
+    oracle, one sync per step)."""
+    from repro_torch.train import vfl
+
+    options = options or EngineOptions()
+    if options.train_engine == "loop":
+        require_f32(options.quant)
+        return vfl.train_loop(partition, cfg, sample_weights=sample_weights,
+                              bandwidth=bandwidth, latency=latency,
+                              verbose=verbose, device=options.device)
+    if options.train_engine != "scan":
+        raise ValueError(options.train_engine)
+    return vfl.train_scan(partition, cfg, sample_weights=sample_weights,
+                          bandwidth=bandwidth, latency=latency,
+                          options=options, verbose=verbose)
+
+
+# ---------------------------------------------------------------- evaluation
+
+def predict(params, cfg: SplitNNConfig, partition: VerticalPartition, *,
+            block_b: int = 512, bottom_impl: Optional[str] = None,
+            quant: Optional[str] = None) -> np.ndarray:
+    """Batched prediction through the serving score path
+    (``score_partition``: ``block_b``-row slab batches through K1)."""
+    from repro_torch.serve.vfl import score_partition
+
+    out = score_partition(params, cfg, partition, block_b=block_b,
+                          bottom_impl=bottom_impl, quant=quant)
+    if cfg.n_classes == 0:
+        return out[:, 0]
+    if cfg.n_classes == 2 and out.shape[-1] == 1:
+        return (out[:, 0] > 0).astype(np.int64)
+    return out.argmax(axis=1)
+
+
+def evaluate(params, cfg: SplitNNConfig, partition: VerticalPartition, *,
+             block_b: int = 512, bottom_impl: Optional[str] = None,
+             quant: Optional[str] = None) -> float:
+    """Accuracy for classification, MSE for regression."""
+    pred = predict(params, cfg, partition, block_b=block_b,
+                   bottom_impl=bottom_impl, quant=quant)
+    if cfg.n_classes == 0:
+        return float(np.mean((pred - partition.labels) ** 2))
+    return float(np.mean(pred == partition.labels))
+
+
+# --------------------------------------------------------------- VFL k-NN
 
 def _sortable(d: torch.Tensor) -> torch.Tensor:
     """f32 -> int64 keys in the same order (negatives flip their
@@ -81,8 +238,6 @@ def knn_predict(train_part: VerticalPartition, test_part: VerticalPartition,
     (rows, k) neighbour grid, nearest neighbour first, as the
     reference)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
     n_tr = train_part.n_samples
     n_te = test_part.n_samples
     w = (np.asarray(sample_weights, np.float64)

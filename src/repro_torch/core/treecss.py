@@ -1,5 +1,6 @@
-"""TreeCSS end-to-end pipeline (Fig. 1): the port of
-``repro.core.treecss`` for the k-NN jobs of Table 2.
+"""TreeCSS end-to-end pipeline (Fig. 1): align → coreset → weighted
+training → batched evaluation, the port of ``repro.core.treecss`` for
+the Table-2 jobs.
 
 The four framework variants are combinations of
   MPSI topology ∈ {star, tree(ours), path}  ×  data ∈ {ALL, CSS(ours)}:
@@ -9,10 +10,11 @@ The four framework variants are combinations of
   STARCSS  = Star-MPSI + Cluster-Coreset
   TREECSS  = Tree-MPSI + Cluster-Coreset (the paper's framework)
 
-With ``model="knn"`` nothing is trained: the pipeline aligns, builds the
-coreset and predicts with the (coreset-weighted) k-NN vote.  The SplitNN
-models (lr/mlp/linreg) come with the training slice (ROADMAP.md, queue
-1) and raise ``NotImplementedError`` here.
+The SplitNN models (lr/mlp/linreg) train with the epoch engine
+(``train_splitnn``, K2 in every step) and evaluate through the batched
+score path (``evaluate``, K1 in every batch).  With ``model="knn"``
+nothing is trained: the pipeline predicts with the (coreset-weighted)
+k-NN vote.
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from repro_torch.config import AlignOptions, EngineOptions, resolve_device
+from repro_torch.config import (AlignOptions, EngineOptions,
+                                resolve_bottom_impl, resolve_device)
 from repro_torch.core.coreset import CoresetResult, cluster_coreset
 from repro_torch.core.mpsi import MPSI, MPSIStats
-from repro_torch.core.splitnn import SplitNNConfig, TrainReport, knn_predict
+from repro_torch.core.splitnn import (SplitNNConfig, TrainReport, evaluate,
+                                      knn_predict, train_splitnn)
 from repro_torch.data.synthetic import make_id_universe
 from repro_torch.data.vertical import VerticalPartition
 from repro_torch.obs.metrics import MetricsRegistry
@@ -54,9 +58,12 @@ class PipelineReport:
 
     def emit_metrics(self, registry: MetricsRegistry) -> None:
         """Emit every stage's numbers into ``registry``.  Namespaces:
-        ``align.*`` (MPSIStats), ``train.*``, ``coreset.*``,
-        ``pipeline.*`` (stage wall/simulated times, metric, n_train)."""
+        ``align.*`` (MPSIStats), ``train.*`` (EngineStats + TrainReport
+        scalars), ``coreset.*``, ``pipeline.*`` (stage wall/simulated
+        times, metric, n_train)."""
         self.mpsi.emit(registry, "align.")
+        if self.train.engine_stats is not None:
+            self.train.engine_stats.emit(registry, "train.")
         registry.counter("train.epochs").inc(self.train.epochs)
         registry.counter("train.steps").inc(self.train.steps)
         registry.counter("train.comm_bytes").inc(self.train.comm_bytes)
@@ -123,23 +130,23 @@ def run_pipeline(train_part: VerticalPartition,
                  knn_k: int = 5,
                  options: Optional[EngineOptions] = None,
                  align: Optional[AlignOptions] = None) -> PipelineReport:
-    """Align → (coreset) → k-NN vote, stage by stage.
+    """Align → (coreset) → weighted training → batched evaluation (or
+    the k-NN vote), stage by stage.
 
     ``options.device`` places every device stage (default CUDA);
-    ``align`` inherits it unless it names its own.  ``kmeans_impl`` and
-    ``align.impl`` pick the kernels ("kernel") or their plain versions
-    ("ref"); ``None`` means the kernels on CUDA and the plain versions on
-    the CPU.  ``options.trace`` turns on the obs layer (a ``Tracer``, or
-    any truthy value to self-create one; it comes back on the report).
+    ``align`` inherits it unless it names its own.  ``kmeans_impl``,
+    ``align.impl`` and ``options.bottom_impl`` pick the kernels
+    ("kernel") or their plain versions ("ref"); ``None`` means the
+    kernels on CUDA and the plain versions on the CPU.  Training takes
+    ``options`` whole; evaluation scores ``options.block_b`` rows a
+    batch with the training stage's bottom implementation (the plain
+    slab version after ``bottom_impl="loop"``, as the reference).
+    ``options.trace`` turns on the obs layer (a ``Tracer``, or any
+    truthy value to self-create one; it comes back on the report).
     """
     options = options or EngineOptions()
     align = (align or AlignOptions()).with_engine_defaults(options)
     device = resolve_device(options.device)
-    if cfg.model != "knn":
-        raise NotImplementedError(
-            f"model={cfg.model!r}: the SplitNN models come with the "
-            "training slice of the port (ROADMAP.md, queue 1); this slice "
-            "runs model='knn'")
     variant = variant.lower()
     topology = "tree" if variant.startswith("tree") else (
         "path" if variant.startswith("path") else "star")
@@ -179,20 +186,46 @@ def run_pipeline(train_part: VerticalPartition,
             train_data = aligned
             coreset_secs = 0.0
 
-        t0 = now()
-        with span("pipeline.train", model="knn", rows=train_data.n_samples):
-            pred = knn_predict(train_data, test_part, knn_k,
-                               sample_weights=weights, device=device)
-        train_secs = now() - t0
-        metric = float(np.mean(pred == test_part.labels))
-        train_report = TrainReport(losses=[], epochs=0, steps=0,
-                                   train_seconds=train_secs, comm_bytes=0,
-                                   simulated_comm_seconds=0.0, params=None)
+        if cfg.model == "knn":
+            t0 = now()
+            with span("pipeline.train", model="knn",
+                      rows=train_data.n_samples):
+                pred = knn_predict(train_data, test_part, knn_k,
+                                   sample_weights=weights, device=device)
+            train_secs = now() - t0
+            train_wall = train_secs
+            metric = float(np.mean(pred == test_part.labels))
+            train_report = TrainReport(losses=[], epochs=0, steps=0,
+                                       train_seconds=train_secs,
+                                       comm_bytes=0,
+                                       simulated_comm_seconds=0.0,
+                                       params=None)
+        else:
+            tr_sp = span("pipeline.train", model=cfg.model,
+                         engine=options.train_engine,
+                         rows=train_data.n_samples)
+            t0 = now()
+            with tr_sp:
+                train_report = train_splitnn(
+                    train_data, cfg, sample_weights=weights,
+                    options=options)
+            train_wall = now() - t0
+            tr_sp.set(comm_bytes=train_report.comm_bytes,
+                      epochs=train_report.epochs)
+            train_secs = (train_report.train_seconds
+                          + train_report.simulated_comm_seconds)
+            eval_impl = resolve_bottom_impl(options.bottom_impl, device)
+            if eval_impl == "loop":
+                eval_impl = "ref"
+            with span("pipeline.serve", rows=test_part.n_samples):
+                metric = evaluate(train_report.params, cfg, test_part,
+                                  block_b=options.block_b,
+                                  bottom_impl=eval_impl)
 
     return PipelineReport(
         variant=variant, mpsi=mpsi_stats, coreset=coreset_res,
         train=train_report, metric=metric, align_seconds=align_secs,
         coreset_seconds=coreset_secs, train_seconds=train_secs,
         n_train=train_data.n_samples, align_wall_seconds=align_wall,
-        coreset_wall_seconds=coreset_wall, train_wall_seconds=train_secs,
+        coreset_wall_seconds=coreset_wall, train_wall_seconds=train_wall,
         tracer=tracer)

@@ -1,5 +1,6 @@
 """Carry the JAX package's state into the port (tests and tools feed
-the reference's own keys and clusterings through these)."""
+the reference's own keys, clusterings and SplitNN params through
+these), and the port's params back out as numpy."""
 from __future__ import annotations
 
 import numpy as np
@@ -7,6 +8,7 @@ import torch
 
 from repro_torch.config import resolve_device
 from repro_torch.core.coreset import ClientClustering
+from repro_torch.train.optimizer import tree_map
 
 
 def key_from_jax(key: np.ndarray) -> np.ndarray:
@@ -28,3 +30,17 @@ def clustering_from_jax(assign: np.ndarray, sq_dist: np.ndarray,
         np.asarray(weight, np.float32),
         torch.as_tensor(np.array(centroids, np.float32),
                         device=resolve_device(device)))
+
+
+def params_from_jax(params, device=None):
+    """The reference's SplitNN zoo params (``{"bottoms": [...], "top":
+    {...}}`` of numpy or JAX arrays) -> the port's, f32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.as_tensor(np.array(a, np.float32),
+                                              device=dev), params)
+
+
+def params_to_numpy(params):
+    """The port's params -> the same tree of float32 numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

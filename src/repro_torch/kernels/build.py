@@ -11,11 +11,14 @@ unchanged one is reused.  ``ctypes`` loads the library; the wrappers in
 This route needs neither ninja nor PyTorch's headers (which take
 minutes to compile); the libraries link against nothing but the CUDA
 runtime.  ``build_all`` starts one ``nvcc`` per source at once, so the
-first use costs one compile, not four.  A failed build raises with the
-compiler's output: nothing falls back to the plain versions.
+first use costs one compile's wall time, not one per source.  A failed
+build raises with the compiler's output: nothing falls back to the
+plain versions.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a
-wrapper adds one right where its kernel launched and nowhere else.
+wrapper adds one right where its kernel launched and nowhere else.  A
+source may hold more than one kernel: ``splitnn_bottom.cu`` holds K1
+(``splitnn_bottom``) and K2 (``splitnn_bottom_gather``), counted apart.
 """
 from __future__ import annotations
 
@@ -36,11 +39,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
 SOURCES = {"psi_prf": "psi_prf.cu",
            "sorted_intersect": "sorted_intersect.cu",
            "kmeans_update": "kmeans_update.cu",
-           "kmeans_assign": "kmeans_assign.cu"}
+           "kmeans_assign": "kmeans_assign.cu",
+           "splitnn_bottom": "splitnn_bottom.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES,
+                                                 "splitnn_bottom_gather")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: per kernel, the ``-Xptxas -v`` report of its last build (registers,
 #: shared memory, spills) — printed by chip_smoke.py

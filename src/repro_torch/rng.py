@@ -11,8 +11,14 @@ wraps as the algorithm needs; torch on the CPU has no uint32 add or
 shift) and only the data-dependent ``cumsum``/``searchsorted`` of
 ``choice(p=)`` runs on the device (``repro_torch.core.kmeans``).
 
-Parity with ``jax.random``: ``PRNGKey``, ``split``, ``randint`` and
-``uniform`` are bitwise equal.  ``choice_index`` returns the same index
+Parity with ``jax.random``: ``PRNGKey``, ``split``, ``random_bits``,
+``randint`` and ``uniform`` are bitwise equal.  ``normal`` computes
+``sqrt(2)·erfinv(u)`` with XLA's f32 ``erf_inv``, ``log1p`` and ``log``
+as its CPU backend evaluates them, emulated in numpy float32; where
+the emulated ``log`` rounds differently a draw differs from
+``jax.random.normal`` by up to 2 ulps (7 of 400,000 draws at seed 0;
+tests/test_torch_train.py holds the bound).  ``choice_index`` returns
+the same index
 as ``jax.random.choice(key, n, p=p)`` whenever the draw does not land
 within a few ulps of a boundary of ``cumsum(p)``: the reference computes
 that cumsum as an associative scan on its device, the port as a
@@ -23,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["PRNGKey", "split", "random_bits", "randint", "uniform",
-           "choice_index"]
+           "normal", "choice_index"]
 
 _u32 = np.uint32
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -66,10 +72,15 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     return np.stack([b0, b1], axis=1)
 
 
-def random_bits(key: np.ndarray) -> np.uint32:
-    """32 random bits for a scalar draw (counter (0, 0), lanes xored)."""
-    b0, b1 = threefry2x32(key, np.zeros((), _u32), np.zeros((), _u32))
-    return _u32(b0 ^ b1)
+def random_bits(key: np.ndarray, shape=()) -> np.ndarray:
+    """``jax.random.bits(key, shape)`` (u32): threefry over the flat
+    row-major iota counters, each 64-bit counter as (hi, lo) lanes, the
+    two output lanes xored.  A scalar draw is counter (0, 0)."""
+    shape = tuple(shape)
+    idx = np.arange(int(np.prod(shape, dtype=np.int64)), dtype=np.uint64)
+    b0, b1 = threefry2x32(key, (idx >> np.uint64(32)).astype(_u32),
+                          (idx & np.uint64(0xFFFFFFFF)).astype(_u32))
+    return (b0 ^ b1).reshape(shape)[()]
 
 
 def randint(key: np.ndarray, minval: int, maxval: int) -> int:
@@ -87,11 +98,104 @@ def randint(key: np.ndarray, minval: int, maxval: int) -> int:
     return int(minval) + int(off)
 
 
-def uniform(key: np.ndarray) -> np.float32:
-    """Scalar ``jax.random.uniform(key)`` in [0, 1) as float32: the top
-    23 bits become the mantissa of a float in [1, 2), minus 1."""
-    bits = (random_bits(key) >> _u32(9)) | _u32(0x3F800000)
-    return np.float32(np.array(bits, _u32).view(np.float32) - np.float32(1))
+def uniform(key: np.ndarray, shape=(), minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    top 23 bits become the mantissa of a float in [1, 2), minus 1, then
+    ``max(minval, f·(maxval − minval) + minval)`` in float32."""
+    bits = (random_bits(key, shape) >> _u32(9)) | _u32(0x3F800000)
+    f = np.asarray(bits, _u32).view(np.float32) - np.float32(1)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, f * (hi - lo) + lo)[()]
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """Fused multiply-add in float32 (the product and sum in float64,
+    one rounding to float32), as XLA's CPU code contracts ``a·b + c``."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+# Cephes ``logf`` as XLA's CPU backend evaluates it: frexp, a shift to
+# [sqrt(1/2) - 1, sqrt(2) - 1), a degree-8 polynomial in three FMA chains
+_LOG_P = np.array([7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                   -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                   2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1],
+                  np.float32)
+
+
+def _log(x: np.ndarray) -> np.ndarray:
+    f32 = np.float32
+    m, e = np.frexp(np.maximum(x, f32(1.17549435e-38)))
+    m, e = m.astype(f32), e.astype(f32)
+    low = m < f32(0.707106781186547524)
+    e = e - np.where(low, f32(1), f32(0))
+    m = (m - f32(1)) + np.where(low, m, f32(0))
+    m2 = m * m
+    m3 = m2 * m
+    p = _LOG_P
+    y = _fma(_fma(p[0], m, p[1]), m, p[2])
+    y1 = _fma(_fma(p[3], m, p[4]), m, p[5])
+    y2 = _fma(_fma(p[6], m, p[7]), m, p[8])
+    y = _fma(_fma(y, m3, y1), m3, y2) * m3
+    y = _fma(f32(-2.12194440e-4), e, y)
+    return _fma(f32(0.693359375), e, _fma(f32(-0.5), m2, m) + y)
+
+
+# XLA's ``log1p``: Cephes' rational approximation below |x| = sqrt(2) - 1,
+# ``log(1 + x)`` above
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _log1p(x: np.ndarray) -> np.ndarray:
+    f32 = np.float32
+    num = den = np.zeros_like(x)
+    for a, b in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num, den = _fma(num, x, f32(a)), _fma(den, x, f32(b))
+    x2 = x * x
+    small = x + _fma(f32(-0.5), x2, (x * x2) * (num / den))
+    return np.where(np.abs(x) < f32(0.41421356237309504880), small,
+                    _log(x + f32(1)))
+
+
+# XLA's f32 erf_inv (M. Giles, "Approximating the erfinv function"): a
+# degree-8 polynomial in w = -log1p(-x²), one set of coefficients below
+# w = 5 and one above
+_ERFINV_LT5 = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                        -4.39150654e-06, 0.00021858087, -0.00125372503,
+                        -0.00417768164, 0.246640727, 1.50140941],
+                       np.float32)
+_ERFINV_GE5 = np.array([-0.000200214257, 0.000100950558, 0.00134934322,
+                        -0.00367342844, 0.00573950773, -0.0076224613,
+                        0.00943887047, 1.00167406, 2.83297682], np.float32)
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv`` on its CPU backend, operation for
+    operation in numpy float32 (inputs in (-1, 1))."""
+    x = np.asarray(x, np.float32)
+    w = -_log1p(x * -x)
+    lt = w < np.float32(5)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3))
+    p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, np.where(lt, c_lt, c_ge))
+    return p * x
+
+
+def normal(key: np.ndarray, shape=()) -> np.ndarray:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2)·erf_inv(u)``
+    of a uniform on (nextafter(-1, 0), 1).  See the module docstring for
+    the ulp caveat."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = np.asarray(uniform(key, shape, lo, 1.0), np.float32)
+    return (np.float32(np.sqrt(2)) * erf_inv(u))[()]
 
 
 def choice_index(key: np.ndarray, p: np.ndarray) -> int:

@@ -1,0 +1,59 @@
+"""Per-sample-weighted losses — Eq. (2) of the paper, the port of
+``repro.train.losses``:
+
+    L(D_core, W_core, θ) = Σ_i  w_i · L(x_i, θ)  /  max(Σ_i w_i, 1e-12)
+
+``w=None`` means uniform (vanilla VFL "ALL" training).  The reference's
+token-level ``label_mask`` serves the LLM substrate and is not ported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = ["weighted_softmax_xent", "weighted_mse", "weighted_binary_xent"]
+
+
+def _norm_weights(w: Optional[torch.Tensor], like: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    w = torch.ones_like(like) if w is None else w.float()
+    return w, torch.clamp(w.sum(), min=1e-12)
+
+
+def weighted_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                          w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (..., C), labels (...) integer, w broadcastable to labels
+    -> scalar Σ_i w_i·CE_i / Σ_i w_i."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    ce = logz - gold
+    if w is None:
+        w_full = torch.ones_like(ce)
+    else:
+        w_full = w.float().reshape(
+            w.shape + (1,) * (ce.ndim - w.ndim)).expand(ce.shape)
+    return (w_full * ce).sum() / torch.clamp(w_full.sum(), min=1e-12)
+
+
+def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
+                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """pred/target (B, ...) -> scalar Σ w_i ||p_i - t_i||² / Σ w_i."""
+    err = torch.square(pred.float() - target.float()).sum(
+        dim=tuple(range(1, pred.ndim)))
+    w, z = _norm_weights(w, err)
+    return (w * err).sum() / z
+
+
+def weighted_binary_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B,), labels (B,) in {0, 1}.  ``torch.maximum`` against a
+    zero tensor (not ``relu``) so the gradient at a zero logit splits
+    as ``jnp.maximum``'s does."""
+    logits = logits.float()
+    labels = labels.float()
+    ce = (torch.maximum(logits, logits.new_zeros(())) - logits * labels
+          + torch.log1p(torch.exp(-logits.abs())))
+    w, z = _norm_weights(w, ce)
+    return (w * ce).sum() / z

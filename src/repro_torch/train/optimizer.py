@@ -1,0 +1,77 @@
+"""Adam over a tree of tensors, the port of ``repro.train.optimizer``.
+
+The arithmetic is the reference's: ``m/bc1 / (sqrt(v/bc2) + eps)`` with
+the bias corrections computed from the step count in float32.
+``torch.optim.Adam`` places ``eps`` and the corrections differently, so
+it is not used.  Unlike the reference, ``adam_update`` updates the
+parameters and moments in place (one multi-tensor launch per operation
+on the card, no new buffers each step) and returns them.  The step
+count lives on the host, so the corrections cost no device round trip.
+A tree is a tensor, or a dict or list of trees (the SplitNN zoo's
+``{"bottoms": [...], "top": {...}}`` and the slab form).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["AdamState", "adam_init", "adam_update", "tree_leaves",
+           "tree_map"]
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of ``tree`` in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    """``tree`` with ``fn`` applied to every tensor."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class AdamState(NamedTuple):
+    step: int
+    mu: Any
+    nu: Any
+
+
+def adam_init(params) -> AdamState:
+    return AdamState(step=0, mu=tree_map(torch.zeros_like, params),
+                     nu=tree_map(torch.zeros_like, params))
+
+
+def adam_update(params, grads, state: AdamState, *, lr: float = 1e-3,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+                ) -> Tuple[Any, AdamState]:
+    """One Adam step, in place on ``params`` and ``state``'s moments.
+    ``grads`` is a tree of ``params``'s structure or its leaf list."""
+    step = state.step + 1
+    t = np.float32(step)
+    bc1 = float(np.float32(1) - np.float32(b1) ** t)
+    bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    ps, ms, vs = (tree_leaves(params), tree_leaves(state.mu),
+                  tree_leaves(state.nu))
+    gs = [g.float() for g in tree_leaves(grads)]
+    with torch.no_grad():
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_add_(vs, torch._foreach_mul(
+            torch._foreach_mul(gs, gs), 1.0 - b2))
+        upd = torch._foreach_div(ms, bc1)
+        den = torch._foreach_sqrt(torch._foreach_div(vs, bc2))
+        torch._foreach_add_(den, eps)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(ps, upd)
+    return params, AdamState(step=step, mu=state.mu, nu=state.nu)

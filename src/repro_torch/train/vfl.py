@@ -1,0 +1,452 @@
+"""VFL training engines on one device (paper §3 training stage): the port
+of ``repro.train.vfl``.
+
+``train_scan`` — the epoch engine.  The reference runs an epoch as one
+compiled ``lax.scan``; here it is a Python loop over the epoch's steps
+in which every step is launched asynchronously: the minibatch gather
+fuses into the bottom pass (K2, ``fuse_gather=True``), then the top
+model, the Eq.(2) loss, the backward and Adam, and the step loss adds
+into a device tensor.  The epoch's schedule goes to the device in one
+copy before its first step, and the host syncs exactly once per epoch,
+on the ``float(loss)`` that feeds the paper's convergence window.
+``EngineStats.dispatches`` counts one per epoch-function call, as the
+reference counts its one compiled dispatch.  Remainder batches are
+padded to the step shape and masked out through the Eq.(2) sample
+weights (w = 0 rows contribute exactly 0.0 to every loss sum and
+gradient), so the last ``n mod bs`` rows train.  The M-client bottom
+layer is one block-diagonal slab pass (``kernels/splitnn_bottom``).
+
+``train_loop`` — the per-minibatch host loop (one sync per step), kept
+as the parity oracle, as in the reference.
+
+Left out, being TPU-only: the slab's 128-lane pre-padding (``d_eff``:
+the CUDA kernels take unpadded widths) and the warm-up compile epoch
+with its ``train.compile`` span (nothing compiles: the kernels are
+built once per process, at first use).  Sharding over a mesh waits for
+the multi-GPU slice (ROADMAP.md, queue 6) and quantized activations for
+the quant slice (queue 4).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import (EngineOptions, resolve_bottom_impl,
+                                resolve_device, resolve_impl)
+from repro_torch.kernels.splitnn_bottom.ops import splitnn_bottom
+from repro_torch.obs.metrics import StatsMixin
+from repro_torch.obs.trace import span
+from repro_torch.quant import payload_bytes, require_f32
+from repro_torch.train.optimizer import (adam_init, adam_update, tree_leaves,
+                                         tree_map)
+
+__all__ = ["EngineStats", "TrainReport", "pack_slab", "pack_slab_params",
+           "unpack_slab_params", "forward_slab_packed", "forward_slab_eval",
+           "make_score_step", "epoch_schedule", "train_scan", "train_loop"]
+
+
+# ------------------------------------------------------------------ reports
+
+
+@dataclasses.dataclass
+class EngineStats(StatsMixin):
+    """Measured execution counts for one training run.
+
+    ``dispatches`` counts epoch-function calls in the timed training
+    loop and ``host_syncs`` blocking device→host transfers: one of each
+    per epoch for the epoch engine, one of each per minibatch for the
+    loop.  ``shards``/``model_shards`` stay 1 (no mesh yet); ``quant``
+    is the activation wire dtype and ``gather_payload_bytes`` the
+    modeled per-step forward activation payload at the logical batch
+    size."""
+    dispatches: int = 0
+    host_syncs: int = 0
+    shards: int = 1
+    steps_per_epoch: int = 0
+    padded_batch: int = 0
+    engine: str = "scan"
+    bottom_impl: str = "ref"
+    model_shards: int = 1
+    fused_gather: bool = False
+    quant: str = "none"
+    gather_payload_bytes: int = 0
+
+    CONTRACT_FIELDS = ("dispatches", "host_syncs", "steps_per_epoch")
+
+
+@dataclasses.dataclass
+class TrainReport:
+    losses: List[float]
+    epochs: int
+    steps: int
+    train_seconds: float          # measured compute
+    comm_bytes: int               # instance-wise activation/grad traffic
+    simulated_comm_seconds: float
+    params: Any
+    engine_stats: Optional[EngineStats] = None
+
+
+# ------------------------------------------------------------ slab params
+
+
+def pack_slab(features: Sequence[np.ndarray], m_pad: int = 0) -> np.ndarray:
+    """Stack per-client (N, d_m) slices into the (M, N, d_max) slab;
+    ``m_pad`` > M appends all-zero dummy clients."""
+    m = len(features)
+    n = features[0].shape[0]
+    d_max = max(f.shape[1] for f in features)
+    slab = np.zeros((max(m, m_pad), n, d_max), np.float32)
+    for i, f in enumerate(features):
+        slab[i, :, :f.shape[1]] = f
+    return slab
+
+
+def pack_slab_params(params, d_max: int, m_pad: int = 0):
+    """Model-zoo params → the slab form ``{"bw": (Mp, d_max, o),
+    ["bb": (Mp, o)], "top": {...}}``: the per-client bottom blocks
+    zero-padded to the widest client and stacked.  Zero padding is
+    exact and stays zero through Adam (zero features give zero
+    gradients).  ``bb`` exists only when the zoo model has bottom biases
+    (mlp).  The result owns its tensors (the top leaves are copied), so
+    training it in place leaves ``params`` as they were."""
+    ws = [bp["w"] for bp in params["bottoms"]]
+    m = len(ws)
+    mp = max(m, m_pad)
+    o = ws[0].shape[1]
+    dev = ws[0].device
+    with torch.no_grad():
+        w = torch.zeros((mp, d_max, o), dtype=torch.float32, device=dev)
+        for i, wm in enumerate(ws):
+            w[i, :wm.shape[0], :] = wm
+        packed = {"bw": w, "top": tree_map(
+            lambda t: t.detach().float().clone(), params["top"])}
+        if "b" in params["bottoms"][0]:
+            bb = torch.zeros((mp, o), dtype=torch.float32, device=dev)
+            bb[:m] = torch.stack([bp["b"] for bp in params["bottoms"]])
+            packed["bb"] = bb
+    return packed
+
+
+def unpack_slab_params(packed, feature_dims: Sequence[int]):
+    """Slab-form params → model-zoo params (exact slices, detached
+    copies; the inverse of ``pack_slab_params`` for the real clients)."""
+    own = lambda t: t.detach().clone()
+    bottoms = []
+    for i, d in enumerate(feature_dims):
+        bp = {"w": own(packed["bw"][i, :d, :])}
+        if "bb" in packed:
+            bp["b"] = own(packed["bb"][i])
+        bottoms.append(bp)
+    return {"bottoms": bottoms, "top": tree_map(own, packed["top"])}
+
+
+# ------------------------------------------------------------ slab forward
+
+
+def _bottom_acts(packed, cfg, m: int, x_slab, bottom_impl, idx):
+    w = packed["bw"]
+    b = packed.get("bb")
+    if b is None:     # bias-free models: a constant zero, no phantom param
+        b = torch.zeros((w.shape[0], w.shape[2]), dtype=torch.float32,
+                        device=w.device)
+    acts = splitnn_bottom(x_slab, w, b, cfg.model == "mlp", bottom_impl, idx)
+    return acts[:m]                              # drop dummy-client padding
+
+
+def _top_mlp(top, acts: torch.Tensor) -> torch.Tensor:
+    m, bsz, o = acts.shape
+    # (M, B, o) -> (B, M*o): the layout of concatenating per-client acts
+    h = acts.transpose(0, 1).reshape(bsz, m * o)
+    h = torch.relu(h @ top["w1"] + top["b1"])
+    return h @ top["w2"] + top["b2"]
+
+
+def forward_slab_packed(packed, cfg, m: int, x_slab: torch.Tensor, *,
+                        bottom_impl: Optional[str] = None,
+                        idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SplitNN forward from slab-form params.  ``x_slab`` is the
+    (M, B, d_max) batch slab — or, with ``idx`` (B,) int32, the FULL
+    (M, N, d_max) slab whose minibatch gather fuses into the bottom pass
+    (K2).  Matches ``splitnn_forward`` on the per-client slices up to
+    GEMM summation order."""
+    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, idx)
+    if cfg.model in ("lr", "linreg"):
+        return acts.sum(0) + packed["top"]["b"]
+    return _top_mlp(packed["top"], acts)
+
+
+def forward_slab_eval(packed, cfg, m: int, x_slab: torch.Tensor, *,
+                      bottom_impl: Optional[str] = None) -> torch.Tensor:
+    """Serving/eval slab forward: the same bottom pass (K1), with the
+    lr/linreg client sum unrolled left to right as
+    ``splitnn_forward``'s ``sum`` folds it."""
+    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, None)
+    if cfg.model in ("lr", "linreg"):
+        out = acts[0]
+        for i in range(1, m):
+            out = out + acts[i]
+        return out + packed["top"]["b"]
+    return _top_mlp(packed["top"], acts)
+
+
+def make_score_step(params, cfg, feature_dims: Sequence[int], *,
+                    bottom_impl: Optional[str] = None,
+                    quant: Optional[str] = None):
+    """``TrainReport.params`` (model-zoo form) → ``(packed,
+    score_step)``: the slab-params handoff for serving.  ``packed``
+    reuses ``pack_slab_params``, so serving and training share one
+    parameter layout.  ``score_step(packed, x_slab)`` maps an (M, B,
+    d_max) slab on the params' device to (B, o) outputs, without
+    autograd; ``score_step.bottom_impl`` names the implementation it
+    runs (``None`` picks by that device).  The kernel's tile is its own,
+    so the reference's ``block_b`` is gone."""
+    require_f32(quant)
+    fd = tuple(int(d) for d in feature_dims)
+    packed = pack_slab_params(params, max(fd))
+    impl = resolve_impl(bottom_impl, resolve_device(packed["bw"].device))
+    m = len(fd)
+
+    def score_step(packed, x_slab: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return forward_slab_eval(packed, cfg, m, x_slab,
+                                     bottom_impl=impl)
+    score_step.bottom_impl = impl
+    return packed, score_step
+
+
+# ------------------------------------------------------------- scheduling
+
+
+def epoch_schedule(order: np.ndarray, n: int, bs: int, steps: int,
+                   padded_bs: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(idx (steps, padded_bs) i32, mask (steps, padded_bs) f32) for one
+    epoch's permutation ``order``.  Rows past n point at row 0 with mask
+    0 — they are gathered and forwarded but weighted out of every loss
+    sum and gradient, which is how the remainder batch trains without a
+    second step shape."""
+    idx = np.zeros((steps * bs,), np.int32)
+    idx[:n] = order
+    mask = np.zeros((steps * bs,), np.float32)
+    mask[:n] = 1.0
+    idx = idx.reshape(steps, bs)
+    mask = mask.reshape(steps, bs)
+    if padded_bs > bs:
+        pad = padded_bs - bs
+        idx = np.concatenate(
+            [idx, np.zeros((steps, pad), np.int32)], axis=1)
+        mask = np.concatenate(
+            [mask, np.zeros((steps, pad), np.float32)], axis=1)
+    return idx, mask
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → device, without a sync on CUDA (pinned staging, so
+    the copy queues behind the work already launched)."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _labels(partition, cfg, device) -> torch.Tensor:
+    return torch.as_tensor(
+        np.asarray(partition.labels),
+        dtype=torch.float32 if cfg.n_classes == 0 else torch.int64,
+        device=device)
+
+
+# ---------------------------------------------------------- epoch engine
+
+
+def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
+               bandwidth: float = 10e9 / 8, latency: float = 2e-4,
+               options: Optional[EngineOptions] = None,
+               verbose: bool = False) -> TrainReport:
+    """Mini-batch Adam training to the paper's convergence criterion —
+    one epoch-function call and one host sync per EPOCH.
+
+    ``options.bottom_impl``: ``"kernel"`` (the CUDA kernels, K2 in
+    training), ``"ref"`` (their plain versions), ``"loop"`` (per-client
+    GEMMs on the zoo params, the parity oracle for the slab layout);
+    ``None`` picks ``"kernel"`` on CUDA and ``"ref"`` on the CPU.
+    ``fuse_gather`` fuses the step's ``slab[:, idx]`` gather into the
+    bottom pass (bitwise-equal to ``False``, which gathers first).
+    ``options.device`` places everything (default CUDA)."""
+    from repro_torch.core import splitnn as models
+
+    options = options or EngineOptions()
+    require_f32(options.quant)
+    device = resolve_device(options.device)
+    impl = resolve_bottom_impl(options.bottom_impl, device)
+    use_slab = impl != "loop"
+    fuse = use_slab and bool(options.fuse_gather)
+
+    n = partition.n_samples
+    m = partition.n_clients
+    feature_dims = [f.shape[1] for f in partition.client_features]
+
+    zoo = models.init_splitnn(cfg, feature_dims, device=device)
+    params = pack_slab_params(zoo, max(feature_dims)) if use_slab else zoo
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = adam_init(params)
+
+    y_all = _labels(partition, cfg, device)
+    w_np = (np.asarray(sample_weights, np.float32)
+            if sample_weights is not None else np.ones(n, np.float32))
+    w_all = torch.as_tensor(w_np, device=device)
+    if use_slab:
+        data = [torch.as_tensor(pack_slab(partition.client_features),
+                                device=device)]
+    else:
+        data = [torch.as_tensor(np.asarray(f, np.float32), device=device)
+                for f in partition.client_features]
+
+    bs = min(cfg.batch_size, n)
+    steps_per_epoch = -(-n // bs)
+    padded_bs = bs                                # one device: no padding
+
+    def step_loss(ib: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
+        y = y_all.index_select(0, ib)
+        w = w_all.index_select(0, ib) * mb
+        if not use_slab:
+            out = models.splitnn_forward(
+                params, cfg, [x.index_select(0, ib) for x in data])
+        elif fuse:
+            out = forward_slab_packed(params, cfg, m, data[0],
+                                      bottom_impl=impl, idx=ib)
+        else:
+            out = forward_slab_packed(params, cfg, m,
+                                      data[0].index_select(1, ib),
+                                      bottom_impl=impl)
+        return models._loss_from_out(out, cfg, y, w)
+
+    rng = np.random.default_rng(cfg.seed)
+    per_sample = models.activation_bytes_per_sample(cfg, m, None)
+    per_epoch_bytes = per_sample * n
+    stats = EngineStats(steps_per_epoch=steps_per_epoch,
+                        padded_batch=padded_bs, engine="scan",
+                        bottom_impl=impl, fused_gather=fuse,
+                        gather_payload_bytes=payload_bytes(
+                            models.activation_width(cfg), bs, m, None))
+    losses: List[float] = []
+    comm_bytes = 0
+    total_steps = 0
+    epoch = 0
+    t0 = time.perf_counter()
+    for epoch in range(1, cfg.max_epochs + 1):
+        order = rng.permutation(n)
+        idx, mask = epoch_schedule(order, n, bs, steps_per_epoch, padded_bs)
+        # the epoch span brackets the ONE epoch call + ONE host sync; it
+        # reads the host clock only, so the counts are the same traced
+        # or not
+        with span("train.epoch", epoch=epoch, engine="scan",
+                  steps=steps_per_epoch, comm_bytes=per_epoch_bytes) as sp:
+            idx_d, mask_d = _to_device(idx, device), _to_device(mask, device)
+            acc = torch.zeros((), dtype=torch.float32, device=device)
+            for s in range(steps_per_epoch):
+                loss = step_loss(idx_d[s], mask_d[s])
+                grads = torch.autograd.grad(loss, leaves)
+                params, opt = adam_update(params, grads, opt, lr=cfg.lr)
+                acc = acc + loss.detach()
+            stats.dispatches += 1
+            losses.append(float(acc / steps_per_epoch))  # the one sync
+            stats.host_syncs += 1
+            sp.set(loss=losses[-1])
+        total_steps += steps_per_epoch
+        comm_bytes += per_epoch_bytes   # every row trains, remainder too
+        if verbose and epoch % 10 == 0:
+            print(f"  epoch {epoch}: loss {losses[-1]:.5f}")
+        wlen = cfg.convergence_window
+        if len(losses) > wlen:
+            if abs(losses[-1 - wlen] - losses[-1]) < cfg.convergence_eps:
+                break
+    train_seconds = time.perf_counter() - t0
+    sim_comm = comm_bytes / bandwidth + latency * 2 * total_steps * m
+    out_params = (unpack_slab_params(params, feature_dims) if use_slab
+                  else tree_map(lambda t: t.detach().clone(), params))
+    return TrainReport(losses=losses, epochs=epoch, steps=total_steps,
+                       train_seconds=train_seconds, comm_bytes=comm_bytes,
+                       simulated_comm_seconds=sim_comm, params=out_params,
+                       engine_stats=stats)
+
+
+# ----------------------------------------------------------- legacy loop
+
+
+def train_loop(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
+               bandwidth: float = 10e9 / 8, latency: float = 2e-4,
+               verbose: bool = False, device=None) -> TrainReport:
+    """Per-minibatch host loop: one blocking sync per step, per-client
+    GEMMs on the zoo params.  The epoch engine's parity oracle; every
+    row trains (the last ``n mod bs`` rows as a short batch) and
+    ``comm_bytes`` counts the rows actually shipped."""
+    from repro_torch.core import splitnn as models
+
+    device = resolve_device(device)
+    n = partition.n_samples
+    m = partition.n_clients
+    feature_dims = [f.shape[1] for f in partition.client_features]
+    params = models.init_splitnn(cfg, feature_dims, device=device)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = adam_init(params)
+
+    y_all = _labels(partition, cfg, device)
+    xs_all = [torch.as_tensor(np.asarray(f, np.float32), device=device)
+              for f in partition.client_features]
+    w_all = (torch.as_tensor(np.asarray(sample_weights, np.float32),
+                             device=device)
+             if sample_weights is not None else None)
+
+    rng = np.random.default_rng(cfg.seed)
+    bs = min(cfg.batch_size, n)
+    per_sample = models.activation_bytes_per_sample(cfg, m, None)
+    stats = EngineStats(steps_per_epoch=-(-n // bs), padded_batch=bs,
+                        engine="loop", bottom_impl="loop",
+                        gather_payload_bytes=payload_bytes(
+                            models.activation_width(cfg), bs, m, None))
+    losses: List[float] = []
+    comm_bytes = 0
+    total_steps = 0
+    t0 = time.perf_counter()
+    epoch = 0
+    for epoch in range(1, cfg.max_epochs + 1):
+        order = rng.permutation(n)
+        ep_loss, nb = 0.0, 0
+        with span("train.epoch", epoch=epoch, engine="loop") as sp:
+            for s in range(0, n, bs):
+                idx = torch.as_tensor(order[s:s + bs], device=device)
+                xs = [x.index_select(0, idx) for x in xs_all]
+                w = w_all.index_select(0, idx) if w_all is not None else None
+                loss = models._loss_fn(params, cfg, xs,
+                                       y_all.index_select(0, idx), w)
+                grads = torch.autograd.grad(loss, leaves)
+                params, opt = adam_update(params, grads, opt, lr=cfg.lr)
+                stats.dispatches += 1
+                ep_loss += float(loss.detach())  # blocking sync EVERY step
+                stats.host_syncs += 1
+                nb += 1
+                total_steps += 1
+                comm_bytes += per_sample * int(idx.shape[0])
+            sp.set(steps=nb)
+        losses.append(ep_loss / max(nb, 1))
+        if verbose and epoch % 10 == 0:
+            print(f"  epoch {epoch}: loss {losses[-1]:.5f}")
+        wlen = cfg.convergence_window
+        if len(losses) > wlen:
+            if abs(losses[-1 - wlen] - losses[-1]) < cfg.convergence_eps:
+                break
+    train_seconds = time.perf_counter() - t0
+    sim_comm = comm_bytes / bandwidth + latency * 2 * total_steps * m
+    return TrainReport(losses=losses, epochs=epoch, steps=total_steps,
+                       train_seconds=train_seconds, comm_bytes=comm_bytes,
+                       simulated_comm_seconds=sim_comm,
+                       params=tree_map(lambda t: t.detach().clone(), params),
+                       engine_stats=stats)

@@ -17,6 +17,7 @@ from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 from repro_torch.kernels.kmeans_update.ops import kmeans_update
 from repro_torch.kernels.psi_prf.ops import prf_tags
 from repro_torch.kernels.sorted_intersect.ops import sorted_intersect
+from repro_torch.kernels.splitnn_bottom.ops import splitnn_bottom
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -53,9 +54,12 @@ def _cpu_operands():
 
 
 @pytest.mark.parametrize("op", ["psi_prf", "sorted_intersect",
-                                "kmeans_update", "kmeans_assign"])
+                                "kmeans_update", "kmeans_assign",
+                                "splitnn_bottom", "splitnn_bottom_gather"])
 def test_kernel_impl_on_cpu_raises(op):
     ids, keys, pts = _cpu_operands()
+    w, b = torch.ones(2, 3, 4), torch.zeros(2, 4)
+    idx = torch.tensor([0, 3, 3], dtype=torch.int32)
     call = {
         "psi_prf": lambda: prf_tags(ids, torch.zeros(2, 2, dtype=torch.int64),
                                     impl="kernel"),
@@ -65,6 +69,9 @@ def test_kernel_impl_on_cpu_raises(op):
                                                impl="kernel"),
         "kmeans_assign": lambda: kmeans_assign(pts, pts[:, :4].contiguous(),
                                                impl="kernel"),
+        "splitnn_bottom": lambda: splitnn_bottom(pts, w, b, True, "kernel"),
+        "splitnn_bottom_gather": lambda: splitnn_bottom(
+            pts, w, b, True, "kernel", idx),
     }[op]
     with pytest.raises(ValueError, match="CUDA"):
         call()
@@ -78,9 +85,18 @@ def test_unknown_impl_raises():
 
 @pytest.mark.parametrize("model", ["lr", "mlp", "linreg"])
 def test_splitnn_models_wait_for_the_training_slice(model):
+    """The training slice has come: every SplitNN model runs the
+    pipeline on the CPU; what still waits is the quantized wire (the
+    quant slice)."""
     x = np.random.default_rng(0).normal(size=(30, 6)).astype(np.float32)
-    part = partition_features(x, np.arange(30) % 2, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        run_pipeline(part, part, SplitNNConfig(model=model, n_classes=2),
-                     options=EngineOptions(device="cpu"),
-                     align=AlignOptions(protocol="oprf"))
+    n_classes = 0 if model == "linreg" else 2
+    y = x[:, 0] if model == "linreg" else np.arange(30) % 2
+    part = partition_features(x, y, 3)
+    cfg = SplitNNConfig(model=model, n_classes=n_classes, max_epochs=2)
+    rep = run_pipeline(part, part, cfg, options=EngineOptions(device="cpu"),
+                       align=AlignOptions(protocol="oprf"))
+    assert rep.train.epochs == 2 and rep.train.steps > 0
+    assert np.isfinite(rep.metric)
+    with pytest.raises(NotImplementedError, match="quant slice"):
+        run_pipeline(part, part, cfg, options=EngineOptions(
+            device="cpu", quant="int8"), align=AlignOptions(protocol="oprf"))
