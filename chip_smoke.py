@@ -25,7 +25,17 @@ Phases, each printing JSON lines:
               version, the size of the terms the f32 formula cancels.
               K1/K2 outputs within 1e-6 + 1e-5·(Σ_k|x_k w_k| + |b|) of the
               plain version, and K2 bitwise equal to K1 on the gathered
-              rows.
+              rows.  The same checks at the YP job's shapes: K3/K5 at
+              M=3, N=249,900, d=30, K=12; K1 at an eval block of 512 rows
+              and K2 over a coreset-sized slab of 300 rows and at a
+              3,570-row step out of (3, 249,900, 30), o=1 without ReLU.
+              K4 at a YP minibatch step (1,024 seeded indices with
+              duplicates into a (1, 357,000, 30) client, K=12): bitwise
+              equal to K3 on the pre-gathered rows, and within K3's
+              tolerances of its plain version.  K8 (the merge kernel past
+              the reference's single-pass bound) at P=2^19, at 2^20 and
+              as nine pairs at 2^19 (the delta probe's batch), ~70%
+              overlap, bitwise; ``torch.sort`` of the 2P keys beside it.
 4. pipeline — ``run_pipeline(model="knn")`` at the paper's full HI size
               (70,000 train / 30,000 test rows, 3 clients, k=14,
               25 iterations, OPRF on the device) for ``treecss`` and
@@ -58,6 +68,27 @@ Phases, each printing JSON lines:
               dispatches.
 7. profile  — spans, device busy share and top device ops of one traced
               full-HI treecss run, k-NN and mlp.
+8. yp       — Table-2 YP × linreg ``treecss`` at full size (357,000 train /
+              153,000 test rows, 3 clients × 30 columns, k=12, batches of
+              3,570 rows, the 200-epoch cap or convergence, OPRF on the
+              device), kernels and plain versions: identical intersection
+              and MPSIStats, 249,900 ids aligned, one K8 launch per Tree-MPSI
+              round (every pair pads to P=2^19) and none in the plain run,
+              coreset indices identical or parted at a near tie, MSE within
+              rtol 1e-2 (5e-2 where the coresets parted); stage walls and a
+              profiled kernel run.
+9. minibatch— ``benchmarks/beyond_minibatch.py``'s YP job at full size:
+              ``cluster_coreset`` with Lloyd and with the minibatch fit on
+              the 357,000 train rows (linreg trained on each coreset and
+              evaluated) and at 510,000 rows, kernels and plain versions:
+              K4 launched 25 × 3 times per minibatch build, two kernel
+              minibatch fits bitwise equal; build walls, coreset sizes, MSE.
+10. delta   — ``benchmarks/fig7_delta_psi.py``'s device sweep at full size
+              (m=4 parties of 300,000 ids, Δ/N in {0.001, 0.01, 0.1}, one
+              untimed and 6 timed deltas each): the aligned set equals the
+              plain intersection after every delta and a full Tree-MPSI
+              re-run at the end; K8 launched; median delta wall and bytes
+              against the full re-run.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -67,6 +98,7 @@ Full results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -82,6 +114,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 SEED = 0
+DELTA_N = 300_000              # ids a party in the delta-PSI sweep (fig7)
+YP_TRAIN = 357_000             # YP's Table-2 train rows (70% of 510,000)
+YP_ALIGNED = 249_900           # of them common to the 3 clients (70%)
 
 
 def emit(obj) -> None:
@@ -105,12 +140,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profile_device(fn, reps: int = 20):
-    """torch.profiler over ``reps`` calls of ``fn``: ({kernel name: device
-    ms per call}, total device ms per call or None where the profiler
-    sees no device time, wall ms per call of the profiled window)."""
+def profile_device(fn, reps: int = 20, warm: bool = True):
+    """torch.profiler over ``reps`` calls of ``fn`` (after one unprofiled
+    call unless ``warm`` is False): ({kernel name: device ms per call},
+    total device ms per call or None where the profiler sees no device
+    time, wall ms per call of the profiled window)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -137,6 +174,30 @@ def kernel_device_ms(fn, marks):
     per_name, _, _ = profile_device(fn)
     hits = [t for k, t in per_name.items() if any(m in k for m in marks)]
     return sum(hits) if hits else None
+
+
+def host_profile(fn, top: int = 12):
+    """cProfile of one call of ``fn`` (ended by a synchronize): the
+    port's functions by cumulative host ms, and every function by its own
+    host ms.  cProfile adds a cost to each Python call, so read the
+    shares, not the sums."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    cum, own = [], []
+    for (path, line, name), (_, _, tt, ct, _) in pstats.Stats(
+            prof).stats.items():
+        where = (f"{os.path.relpath(path, ROOT)}:{line}({name})"
+                 if path.startswith(ROOT) else f"{name}")
+        if "repro_torch" in path:
+            cum.append((where, ct * 1e3))
+        own.append((where, tt * 1e3))
+    return {"cum_ms": sorted(cum, key=lambda r: -r[1])[:top],
+            "own_ms": sorted(own, key=lambda r: -r[1])[:top]}
 
 
 def bound(nbytes: float, ops: float):
@@ -188,18 +249,99 @@ def sqd_scale(points, cents, assign):
     return (points * points).sum(-1) + torch.gather(c2, 1, assign.long())
 
 
-def kernel_phase(dev):
-    from repro_torch.kernels.kmeans_assign import ref as ka_ref
-    from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
-    from repro_torch.kernels.kmeans_update import ref as ku_ref
-    from repro_torch.kernels.kmeans_update.kernel import kmeans_update_cuda
-    from repro_torch.kernels.psi_prf import ref as prf_ref
-    from repro_torch.kernels.psi_prf.kernel import prf_tags_cuda
+def check_update(name, pts, cents, got, want):
+    """A fused Lloyd step (K3, or K4 with ``pts`` the gathered rows)
+    against its plain version: assignments equal off near ties, counts
+    exact, sums of the kernel's own assignment within 1e-5·Σ|p| of the
+    float64 sums, sqd within 1e-5 + 1e-5·(‖p‖²+‖c‖²).  Returns (max abs
+    err, differing assignments, their least margin)."""
+    (ga, gs, gsum, gcnt), (wa, ws, wsum, wcnt) = got, want
+    torch.cuda.synchronize()
+    m, n, d = pts.shape
+    k = cents.shape[1]
+    n_diff, n_bad, min_margin = near_tie_rows(pts, cents, ga, wa)
+    if n_bad:
+        raise AssertionError(f"{name}: {n_bad} assignments differ beyond "
+                             "a near tie")
+    same = ga == wa
+    err = check_close(f"{name} sqd", gs[same], ws[same],
+                      sqd_scale(pts, cents, wa)[same])
+    # counts and sums of the rows the kernel assigned, exactly (float64)
+    seg = (torch.arange(m, device=pts.device)[:, None] * k
+           + ga.long()).reshape(-1)
+    rows_f64 = pts.double().reshape(m * n, d)
+    exact = torch.zeros((m * k, d), dtype=torch.float64, device=pts.device
+                        ).index_add_(0, seg, rows_f64).view(m, k, d)
+    abs_sums = torch.zeros((m * k, d), dtype=torch.float64,
+                           device=pts.device
+                           ).index_add_(0, seg, rows_f64.abs()).view(m, k, d)
+    if not torch.equal(gcnt.double(), torch.bincount(
+            seg, minlength=m * k).view(m, k).double()):
+        raise AssertionError(f"{name}: counts are not exact")
+    check_close(f"{name} sums (vs float64)", gsum, exact, abs_sums)
+    if n_diff == 0:     # a near-tie row moves one point between clusters
+        if not torch.equal(gcnt, wcnt):
+            raise AssertionError(f"{name}: counts differ")
+        err = max(err, float((gsum - wsum).abs().max()))
+    return err, n_diff, min_margin
+
+
+def merge_operands(rng, p, n_side, n_common, dev, pairs=1):
+    """(pairs, P) receiver/sender keys of ``n_side`` keys a side,
+    ``n_common`` of them common in each pair, padded with the sentinels."""
+    from repro_torch.kernels.sorted_intersect.ops import PAD_A64, PAD_B64
+    a = np.full((pairs, p), PAD_A64, np.int64)
+    b = np.full((pairs, p), PAD_B64, np.int64)
+    for i in range(pairs):
+        tags = np.unique(rng.integers(0, 2 ** 62, 3 * n_side,
+                                      dtype=np.int64))
+        tags = rng.permutation(tags)
+        common = tags[:n_common]
+        ta = np.sort(np.concatenate([common, tags[n_common:n_side]]))
+        tb = np.sort(np.concatenate([common,
+                                     tags[n_side:2 * n_side - n_common]]))
+        a[i, :len(ta)] = (ta << 1) | 1
+        b[i, :len(tb)] = tb << 1
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+def merge_row(name, replaces, a, b, n_common, **extra):
+    """The merge kernel on (pairs, P) operands against its plain version,
+    bitwise, with times, bound and the ``torch.sort`` yardstick."""
     from repro_torch.kernels.sorted_intersect import ref as si_ref
     from repro_torch.kernels.sorted_intersect.kernel import \
         sorted_intersect_cuda
-    from repro_torch.kernels.sorted_intersect.ops import (PAD_A64, PAD_B64,
-                                                          next_pow2)
+    p = a.shape[1]
+    got, want = sorted_intersect_cuda(a, b), si_ref.sorted_intersect(a, b)
+    torch.cuda.synchronize()
+    for part, g, w in zip(("sel", "rank", "merged"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} {part}: kernel and plain version "
+                                 f"differ on {int((g != w).sum())} slots")
+    pairs = a.shape[0]
+    if int(got[0].sum()) != n_common * pairs:
+        raise AssertionError(f"{name}: wrong intersection size")
+    ab = torch.cat([a, b], 1)
+    depth = p.bit_length()           # log2(2P) merge levels
+    b_ms, b_by = bound(pairs * (2 * p * 8 + 2 * p * 16),
+                       pairs * 2 * p * 4 * depth)
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/sorted_intersect.cu",
+        replaces=replaces, max_abs_err=0.0,
+        ms=cuda_ms(lambda: sorted_intersect_cuda(a, b)),
+        device_ms=kernel_device_ms(lambda: sorted_intersect_cuda(a, b),
+                                   ["merge_kernel"]),
+        plain_ms=cuda_ms(lambda: si_ref.sorted_intersect(a, b)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.sort(ab, dim=1)),
+        library="torch.sort of the 2P keys", shape=[pairs, p], **extra)
+
+
+def kernel_phase(dev):
+    from repro_torch.kernels.psi_prf import ref as prf_ref
+    from repro_torch.kernels.psi_prf.kernel import prf_tags_cuda
+    from repro_torch.kernels.sorted_intersect.ops import next_pow2
 
     rng = np.random.default_rng(SEED)
     rows = []
@@ -229,83 +371,75 @@ def kernel_phase(dev):
         shape=[2, p]))
 
     # K7 sorted_intersect: one pair at P = 2^17, 70,000 keys a side,
-    # ~70% of them common
-    n_side, n_common = 70_000, 49_000
-    tags = np.unique(rng.integers(0, 2 ** 62, 3 * n_side, dtype=np.int64))
-    tags = rng.permutation(tags)
-    common = tags[:n_common]
-    ta = np.sort(np.concatenate([common, tags[n_common:n_side]]))
-    tb = np.sort(np.concatenate([common,
-                                 tags[n_side:2 * n_side - n_common]]))
-    a = np.full((1, p), PAD_A64, np.int64)
-    b = np.full((1, p), PAD_B64, np.int64)
-    a[0, :len(ta)] = (ta << 1) | 1
-    b[0, :len(tb)] = tb << 1
-    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
-    got, want = sorted_intersect_cuda(a, b), si_ref.sorted_intersect(a, b)
-    torch.cuda.synchronize()
-    for part, g, w in zip(("sel", "rank", "merged"), got, want):
-        if not torch.equal(g, w):
-            raise AssertionError(f"sorted_intersect {part}: kernel and "
-                                 f"plain version differ on "
-                                 f"{int((g != w).sum())} slots")
-    if int(got[0].sum()) != n_common:
-        raise AssertionError("sorted_intersect: wrong intersection size")
-    ab = torch.cat([a, b], 1)
-    b_ms, b_by = bound(2 * p * 8 + 2 * p * 16, 2 * p * 4 * 18)
-    rows.append(dict(
-        name="sorted_intersect", route="cuda",
-        source="src/repro_torch/kernels/csrc/sorted_intersect.cu",
-        replaces="src/repro/kernels/sorted_intersect/kernel.py:73",
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: sorted_intersect_cuda(a, b)),
-        device_ms=kernel_device_ms(lambda: sorted_intersect_cuda(a, b),
-                                   ["merge_kernel"]),
-        plain_ms=cuda_ms(lambda: si_ref.sorted_intersect(a, b)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.sort(ab, dim=1)),
-        shape=[1, p]))
+    # ~70% of them common (the HI rounds)
+    a, b = merge_operands(rng, p, 70_000, 49_000, dev)
+    rows.append(merge_row("sorted_intersect",
+                          "src/repro/kernels/sorted_intersect/kernel.py:73",
+                          a, b, 49_000))
+    # K8 sorted_intersect_tiled: the same kernel past the reference's
+    # single-pass bound, at the YP rounds' P = 2^19 (357,000 keys a side,
+    # 249,900 common), at P = 2^20 (~70% overlap), and as the delta probe
+    # batches it, nine (party, run) pairs at 2^19 (72 MB of keys, past
+    # the 50 MB L2)
+    for n_side, n_common, pairs, extra in (
+            (357_000, 249_900, 1, {}),
+            (700_000, 490_000, 1, {"check_only": "P=2^20"}),
+            (300_000, 210_000, 9, {"check_only": "9 pairs at P=2^19"})):
+        p8 = next_pow2(n_side)
+        a, b = merge_operands(rng, p8, n_side, n_common, dev, pairs)
+        rows.append(merge_row(
+            "sorted_intersect_tiled",
+            "src/repro/kernels/sorted_intersect/kernel.py:155", a, b,
+            n_common, **extra))
+        del a, b
 
     # K3 / K5 at the coreset fit's shapes: the HI clients' slices (11/11/10
-    # columns zero-padded to 11) of 49,000 rows, 14 centroids from the rows
+    # columns zero-padded to 11) of 49,000 rows, 14 centroids from the rows,
+    # and the YP job's: 3 clients × 30 columns, as many rows as it aligns
+    # (249,900), 12 centroids
+    tr, _ = partitions()
+    slab = client_slab(tr, 49_000, dev)
+    rows += lloyd_kernel_rows(slab, 14, rng)
+    ytr, _ = partitions("YP")
+    yslab = client_slab(ytr, YP_ALIGNED, dev)
+    rows += lloyd_kernel_rows(yslab, 12, rng, check_only="YP")
+    rows.append(gather_update_row(dev, rng))
+    rows += bottom_kernel_rows(dev, slab, yslab, rng)
+    for r in rows:
+        emit({"phase": "kernel", **r})
+    return rows
+
+
+def client_slab(part, n, dev):
+    """The first ``n`` rows of every client of ``part`` as one (M, n,
+    d_max) zero-padded stack on the card."""
     from repro_torch.kernels.padding import stack_padded
-    tr, _ = hi_partitions()
-    m, n, d, k = 3, 49_000, 11, 14
-    pts = stack_padded([torch.from_numpy(f[:n]).to(dev)
-                        for f in tr.client_features], n, d)
+    return stack_padded([torch.from_numpy(f[:n]).to(dev)
+                         for f in part.client_features], n,
+                        max(f.shape[1] for f in part.client_features))
+
+
+def lloyd_kernel_rows(pts, k, rng, **extra):
+    """K3 (one fused Lloyd step) and K5 (the final assignment) on (M, N,
+    d) points and k centroids drawn from the rows, each against its plain
+    version."""
+    from repro_torch.kernels.kmeans_assign import ref as ka_ref
+    from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
+    from repro_torch.kernels.kmeans_update import ref as ku_ref
+    from repro_torch.kernels.kmeans_update.kernel import kmeans_update_cuda
+
+    m, n, d = pts.shape
     cents = pts[:, torch.from_numpy(rng.choice(n, k, replace=False)).to(
-        dev)].contiguous()
+        pts.device)].contiguous()
     ops_assign = m * n * (2 * d + k * (2 * d + 3) + k)
     io_bytes = m * n * d * 4 + m * k * d * 4 + m * n * 8
 
-    ga, gs, gsum, gcnt = kmeans_update_cuda(pts, cents)
-    wa, ws, wsum, wcnt = ku_ref.kmeans_update(pts, cents)
-    torch.cuda.synchronize()
-    n_diff, n_bad, min_margin = near_tie_rows(pts, cents, ga, wa)
-    if n_bad:
-        raise AssertionError(f"kmeans_update: {n_bad} assignments differ "
-                             "beyond a near tie")
-    same = ga == wa
-    err = check_close("kmeans_update sqd", gs[same], ws[same],
-                      sqd_scale(pts, cents, wa)[same])
-    # counts and sums of the rows the kernel assigned, exactly (float64)
-    seg = (torch.arange(m, device=dev)[:, None] * k + ga.long()).reshape(-1)
-    rows_f64 = pts.double().reshape(m * n, d)
-    exact = torch.zeros((m * k, d), dtype=torch.float64, device=dev
-                        ).index_add_(0, seg, rows_f64).view(m, k, d)
-    abs_sums = torch.zeros((m * k, d), dtype=torch.float64, device=dev
-                           ).index_add_(0, seg, rows_f64.abs()).view(m, k, d)
-    if not torch.equal(gcnt.double(), torch.bincount(
-            seg, minlength=m * k).view(m, k).double()):
-        raise AssertionError("kmeans_update: counts are not exact")
-    check_close("kmeans_update sums (vs float64)", gsum, exact, abs_sums)
-    if n_diff == 0:     # a near-tie row moves one point between clusters
-        if not torch.equal(gcnt, wcnt):
-            raise AssertionError("kmeans_update: counts differ")
-        err = max(err, float((gsum - wsum).abs().max()))
+    err, n_diff, min_margin = check_update(
+        "kmeans_update", pts, cents, kmeans_update_cuda(pts, cents),
+        ku_ref.kmeans_update(pts, cents))
     b_ms, b_by = bound(io_bytes + m * k * (d + 1) * 4,
                        ops_assign + m * n * d)
-    rows.append(dict(
+    rows = [dict(
         name="kmeans_update", route="cuda",
         source="src/repro_torch/kernels/csrc/kmeans_update.cu",
         replaces="src/repro/kernels/kmeans_update/kernel.py:94",
@@ -316,7 +450,7 @@ def kernel_phase(dev):
                                    ["update_kernel", "reduce_kernel"]),
         plain_ms=cuda_ms(lambda: ku_ref.kmeans_update(pts, cents)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=[m, n, d, k]))
+        shape=[m, n, d, k], **extra)]
 
     ga, gs = kmeans_assign_cuda(pts, cents)
     wa, ws = ka_ref.kmeans_assign(pts, cents)
@@ -341,25 +475,69 @@ def kernel_phase(dev):
         plain_ms=cuda_ms(lambda: ka_ref.kmeans_assign(pts, cents)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.cdist(pts, cents).argmin(-1)),
-        shape=[m, n, d, k]))
-    rows += bottom_kernel_rows(dev, tr, rng)
-    for r in rows:
-        emit({"phase": "kernel", **r})
+        shape=[m, n, d, k], **extra))
     return rows
 
 
-def bottom_kernel_rows(dev, tr, rng):
-    """K1 at the eval block (and at lr's o=1 without ReLU), K2 at a
-    full-HI train step, each against its plain version; K2 bitwise
-    against K1 on the gathered rows."""
-    from repro_torch.kernels.padding import stack_padded
+def gather_update_row(dev, rng):
+    """K4 at one YP minibatch step: 1,024 seeded indices, duplicates
+    among them, into the first YP client's 357,000 × 30 training rows,
+    K = 12 centroids from the rows.  Bitwise equal to K3 on the
+    pre-gathered rows; against its plain version as K3."""
+    from repro_torch.kernels.kmeans_update import ref as ku_ref
+    from repro_torch.kernels.kmeans_update.kernel import (
+        kmeans_update_cuda, kmeans_update_gather_cuda)
+
+    tr, _ = partitions("YP")
+    pts = torch.from_numpy(tr.client_features[0]).to(dev)[None]
+    _, n, d = pts.shape
+    k, bsz = 12, 1024
+    cents = pts[:, torch.from_numpy(rng.choice(n, k, replace=False)).to(
+        dev)].contiguous()
+    idx = torch.from_numpy(rng.integers(0, n, (1, bsz)).astype(
+        np.int32)).to(dev)
+    idx[0, 1::50] = idx[0, 0]                # duplicates, as a draw has
+    call = lambda: kmeans_update_gather_cuda(pts, cents, idx)
+    got = call()
+    rows = pts[:, idx[0].long()].contiguous()
+    k3 = kmeans_update_cuda(rows, cents)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, k3)):
+        raise AssertionError("kmeans_update_gather: K4 differs from K3 on "
+                             "the gathered rows")
+    err, n_diff, min_margin = check_update(
+        "kmeans_update_gather", rows, cents, got,
+        ku_ref.kmeans_update_gather(pts, cents, idx))
+    unique = int(torch.unique(idx).numel())
+    b_ms, b_by = bound(
+        4 * (unique * d + bsz + k * d + 2 * bsz + k * (d + 1)),
+        bsz * (2 * d + k * (2 * d + 3) + k) + bsz * d)
+    return dict(
+        name="kmeans_update_gather", route="cuda",
+        source="src/repro_torch/kernels/csrc/kmeans_update.cu",
+        replaces="src/repro/kernels/kmeans_update/kernel.py:164",
+        max_abs_err=err, assign_mismatch=n_diff,
+        min_mismatch_margin=min_margin, k4_equals_k3_bitwise=True,
+        ms=cuda_ms(call),
+        device_ms=kernel_device_ms(call, ["update_kernel", "reduce_kernel"]),
+        plain_ms=cuda_ms(lambda: ku_ref.kmeans_update_gather(pts, cents,
+                                                             idx)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=[1, n, d, k, bsz])
+
+
+def bottom_kernel_rows(dev, slab, yslab, rng):
+    """K1 at the HI eval block (and at lr's o=1 without ReLU), K2 at a
+    full-HI train step; K1 and K2 at the YP linreg job's shapes, o=1
+    without ReLU: an eval block of 512 rows, one epoch over a
+    coreset-sized slab (300 rows, the batch is the whole coreset), and a
+    3,570-row step gathered from a (3, 249,900, 30) slab, as a job that
+    trains on all the aligned rows steps.  Each against its plain
+    version; K2 bitwise against K1 on the gathered rows."""
     from repro_torch.kernels.splitnn_bottom import ref as sb_ref
     from repro_torch.kernels.splitnn_bottom.kernel import (
         splitnn_bottom_cuda, splitnn_bottom_gather_cuda)
 
-    m, n, d = 3, 49_000, 11
-    slab = stack_padded([torch.from_numpy(f[:n]).to(dev)
-                         for f in tr.client_features], n, d)
     g = lambda *shape, scale=1.0: (torch.from_numpy(rng.normal(
         size=shape).astype(np.float32)) * scale).to(dev)
 
@@ -367,6 +545,7 @@ def bottom_kernel_rows(dev, tr, rng):
         return torch.bmm(x.abs(), w.abs()) + b.abs()[:, None, :]
 
     def row(name, x, w, b, relu, idx=None, **extra):
+        m, _, d = x.shape
         o = w.shape[2]
         xg = x if idx is None else x.index_select(1, idx).contiguous()
         if idx is None:
@@ -403,39 +582,66 @@ def bottom_kernel_rows(dev, tr, rng):
                     "without the ReLU",
             shape=[m, bsz, d, o], relu=relu, **extra)
 
+    def step_idx(n, bsz):
+        idx = torch.from_numpy(rng.integers(0, n, bsz).astype(np.int32)
+                               ).to(dev)
+        idx[1::50] = idx[0]                  # duplicates, as a schedule
+        return idx
+
+    k1 = "src/repro/kernels/splitnn_bottom/kernel.py:40"
+    k2 = "src/repro/kernels/splitnn_bottom/kernel.py:141"
+    m, n, d = slab.shape
     eval_x = slab[:, :512].contiguous()
     w8, b8 = g(m, d, 8, scale=d ** -0.5), g(m, 8, scale=0.1)
     w1, b1 = g(m, d, 1, scale=0.1 * d ** -0.5), g(m, 1, scale=0.1)
-    idx = torch.from_numpy(rng.integers(0, n, 700).astype(np.int32)).to(dev)
-    idx[1::50] = idx[0]                      # duplicates, as a schedule
+    my, ny, dy = yslab.shape
+    wy, by = g(my, dy, 1, scale=0.1 * dy ** -0.5), g(my, 1, scale=0.1)
     return [
-        row("splitnn_bottom", eval_x, w8, b8, True,
-            replaces="src/repro/kernels/splitnn_bottom/kernel.py:40"),
+        row("splitnn_bottom", eval_x, w8, b8, True, replaces=k1),
         row("splitnn_bottom", eval_x, w1, b1, False, check_only="lr",
-            replaces="src/repro/kernels/splitnn_bottom/kernel.py:40"),
-        row("splitnn_bottom_gather", slab, w8, b8, True, idx=idx,
-            replaces="src/repro/kernels/splitnn_bottom/kernel.py:141"),
+            replaces=k1),
+        row("splitnn_bottom_gather", slab, w8, b8, True,
+            idx=step_idx(n, 700), replaces=k2),
+        row("splitnn_bottom", yslab[:, :512].contiguous(), wy, by, False,
+            check_only="YP eval block", replaces=k1),
+        row("splitnn_bottom_gather", yslab[:, :300].contiguous(), wy, by,
+            False, idx=torch.from_numpy(rng.permutation(300).astype(
+                np.int32)).to(dev),
+            check_only="YP coreset epoch", replaces=k2),
+        row("splitnn_bottom_gather", yslab, wy, by, False,
+            idx=step_idx(ny, max(8, YP_TRAIN // 100)),
+            check_only="YP step over the aligned rows", replaces=k2),
     ]
 
 
 # ---------------------------------------------------------- pipeline phase
 
-def hi_partitions():
-    """The paper's HI job as ``benchmarks/common.dataset_partitions(
-    quick=False)`` builds it: 100,000 × 32, 70/30 split, 3 clients."""
+@functools.lru_cache(maxsize=None)
+def dataset(name: str):
+    """A paper dataset at its full spec (HI 100,000 × 32, YP 510,000 ×
+    90), made from ``SEED`` once a run."""
     from repro_torch.data.synthetic import DATASETS, make_dataset
+    return make_dataset(DATASETS[name], seed=SEED)
+
+
+@functools.lru_cache(maxsize=None)
+def partitions(name: str = "HI"):
+    """A paper dataset's job as ``benchmarks/common.dataset_partitions(
+    name, quick=False)`` builds it: the full dataset, 70/30 split, 3
+    clients."""
+    from repro_torch.data.synthetic import DATASETS
     from repro_torch.data.vertical import partition_features
-    spec = DATASETS["HI"]
-    x, y = make_dataset(spec, seed=SEED)
+    spec = DATASETS[name]
+    x, y = dataset(name)
     order = np.random.default_rng(SEED + 1).permutation(spec.n_instances)
     n_tr = int(spec.n_instances * 0.7)
     return (partition_features(x[order[:n_tr]], y[order[:n_tr]], 3),
             partition_features(x[order[n_tr:]], y[order[n_tr:]], 3))
 
 
-def fit_divergence(tr, dev):
-    """Where the kernel and plain-version coreset fits of the HI clients
-    part: both start from the same k-means++ centroids and run Lloyd
+def fit_divergence(tr, dev, k: int = 14, tag: str = "HI"):
+    """Where the kernel and plain-version coreset fits of the aligned
+    clients of ``tr`` part: both start from the same k-means++ centroids and run Lloyd
     steps side by side; at the first step whose assignments differ,
     every differing row must be a near tie of the kernel's centroids.
     Also: two kernel fits give the same bits (no atomics)."""
@@ -453,12 +659,12 @@ def fit_divergence(tr, dev):
     pts = stack_padded([torch.from_numpy(f).to(dev) for f in feats],
                        max(ns), max(f.shape[1] for f in feats))
     keys = np.stack([rng.PRNGKey(SEED + 17 * i) for i in range(len(feats))])
-    fits = [kmeans_fit(keys, pts, 14, impl="kernel", n_valid=ns)
+    fits = [kmeans_fit(keys, pts, k, impl="kernel", n_valid=ns)
             for _ in range(2)]
     if not all(torch.equal(a, b) for a, b in zip(*fits)):
         raise AssertionError("two kernel fits differ")
     valid, n_pad = pad_masks(max(ns), ns, dev)
-    ck = cr = kmeans_pp_init(keys, pts, 14, ns)
+    ck = cr = kmeans_pp_init(keys, pts, k, ns)
     for it in range(25):
         nk, ak = lloyd_step(pts, ck, valid, n_pad, "kernel")
         nr, ar = lloyd_step(pts, cr, valid, n_pad, "ref")
@@ -471,7 +677,8 @@ def fit_divergence(tr, dev):
     else:
         out = dict(first_divergence_step=None, rows=0, beyond_near_tie=0,
                    min_margin=None)
-    emit({"phase": "fit_divergence", **out})
+    out = {"phase": "fit_divergence", "dataset": tag, **out}
+    emit(out)
     if out["beyond_near_tie"]:
         raise AssertionError("kernel and plain fits part beyond a near tie")
     return out
@@ -483,7 +690,7 @@ def pipeline_phase(dev):
     from repro_torch.core.treecss import run_pipeline
     from repro_torch.kernels.build import LAUNCHES, reset_launches
 
-    tr, te = hi_partitions()
+    tr, te = partitions()
     drive = lambda variant, impl: run_pipeline(
         tr, te, SplitNNConfig(model="knn", n_classes=2), variant=variant,
         clusters_per_client=14, kmeans_impl=impl, seed=SEED, knn_k=5,
@@ -581,7 +788,7 @@ def train_phase(dev):
     """The SplitNN jobs at full HI, kernels against plain versions."""
     from repro_torch.kernels.build import LAUNCHES, reset_launches
 
-    tr, te = hi_partitions()
+    tr, te = partitions()
     n_eval_batches = -(-te.n_samples // 512)
     # untimed, both models: first use of autograd, of each model's
     # GEMM shapes and of pinned host memory would otherwise land in the
@@ -678,7 +885,7 @@ def serve_phase(dev, params, cfg):
     from repro_torch.kernels.build import LAUNCHES, reset_launches
     from repro_torch.serve.vfl import VFLScoringEngine, score_partition
 
-    _, te = hi_partitions()
+    _, te = partitions()
     feats = te.client_features
     want = torch.from_numpy(score_partition(params, cfg, te, block_b=512))
     g = np.random.default_rng(SEED + 2)
@@ -736,7 +943,7 @@ def profile_phase(dev):
     from repro_torch.core.splitnn import SplitNNConfig
     from repro_torch.core.treecss import run_pipeline
 
-    tr, te = hi_partitions()
+    tr, te = partitions()
     run = lambda trace=None: run_pipeline(
         tr, te, SplitNNConfig(model="knn", n_classes=2), variant="treecss",
         clusters_per_client=14, seed=SEED,
@@ -760,6 +967,288 @@ def profile_phase(dev):
                device_ms / wall_ms, "top_device_ops_ms": top}
         emit(row)
         rows.append(row)
+    return rows
+
+
+def span_ms(tracer):
+    """Total ms per span name of a traced run."""
+    out = {}
+    for sp in tracer.finished():
+        out[sp.name] = out.get(sp.name, 0.0) + sp.duration * 1e3
+    return out
+
+
+def yp_config(n_rows: int):
+    """The paper's Table-2 linreg settings for YP
+    (``benchmarks/table2_framework.py``): lr 0.05, batches of
+    max(8, n // 100) rows, the 200-epoch cap or convergence."""
+    from repro_torch.core.splitnn import SplitNNConfig
+    return SplitNNConfig(model="linreg", n_classes=0, lr=0.05,
+                         batch_size=max(8, n_rows // 100), max_epochs=200,
+                         seed=SEED)
+
+
+def yp_phase(dev):
+    """Table-2 YP × linreg ``treecss`` at the paper's full size (357,000
+    train / 153,000 test rows, 3 clients × 30 columns, k=12, OPRF on the
+    device), with the kernels and with every plain version, then one
+    profiled kernel run.  Every Tree-MPSI pair pads to P = 2^19, past the
+    reference's single-pass bound, so each round's merge is K8."""
+    from repro_torch.config import AlignOptions, EngineOptions
+    from repro_torch.core.treecss import run_pipeline
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.kernels.sorted_intersect.kernel import SINGLE_PASS_MAX_P
+    from repro_torch.kernels.sorted_intersect.ops import next_pow2
+
+    tr, te = partitions("YP")
+    cfg = yp_config(tr.n_samples)
+    drive = lambda impl, trace=True: run_pipeline(
+        tr, te, cfg, variant="treecss", clusters_per_client=12,
+        kmeans_impl=impl, seed=SEED,
+        options=EngineOptions(device=dev, bottom_impl=impl, trace=trace),
+        align=AlignOptions(protocol="oprf", psi_backend="device", impl=impl))
+    runs, rows = {}, []
+    for impl in ("kernel", "ref"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = drive(impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = dict(phase="yp", variant="treecss", model="linreg", impl=impl,
+                   n_align=int(rep.mpsi.intersection.shape[0]),
+                   n_train=rep.n_train, mse=rep.metric,
+                   rounds=rep.mpsi.rounds, comm_bytes=rep.mpsi.total_bytes,
+                   dispatches=rep.mpsi.device_dispatches,
+                   epochs=rep.train.epochs, steps=rep.train.steps,
+                   batch_size=cfg.batch_size,
+                   ms_per_step=rep.train.train_seconds * 1e3
+                   / max(rep.train.steps, 1),
+                   align_wall_s=rep.align_wall_seconds,
+                   coreset_wall_s=rep.coreset_wall_seconds,
+                   train_wall_s=rep.train_wall_seconds,
+                   eval_wall_s=rep.tracer.total_seconds("pipeline.serve"),
+                   total_wall_s=wall, launches=dict(LAUNCHES),
+                   span_ms=span_ms(rep.tracer))
+        emit(row)
+        runs[impl] = (rep, row)
+        rows.append(row)
+    (rk, row_k), (rr, row_r) = runs["kernel"], runs["ref"]
+    # each client holds the train rows' ids, 70% of them common: 249,900
+    if row_k["n_align"] != round(tr.n_samples * 0.7):
+        raise AssertionError(f"yp: {row_k['n_align']} ids aligned, "
+                             f"expected {round(tr.n_samples * 0.7)}")
+    if not np.array_equal(rk.mpsi.intersection, rr.mpsi.intersection):
+        raise AssertionError("yp: intersections differ")
+    for f in ("rounds", "total_bytes", "total_messages", "schedule",
+              "device_dispatches"):
+        if getattr(rk.mpsi, f) != getattr(rr.mpsi, f):
+            raise AssertionError(f"yp: MPSIStats.{f} differs")
+    # every round pads to P = next_pow2(357,000) = 2^19: one K8 launch a
+    # round and no K7 (at a size under the bound it would be all K7)
+    launched = row_k["launches"]
+    merges = {"sorted_intersect": 0, "sorted_intersect_tiled": 0}
+    merges["sorted_intersect_tiled" if next_pow2(tr.n_samples)
+           > SINGLE_PASS_MAX_P else "sorted_intersect"] = rk.mpsi.rounds
+    if {k: launched[k] for k in merges} != merges:
+        raise AssertionError(f"yp: merge launches {launched}, expected "
+                             f"{merges} in {rk.mpsi.rounds} rounds")
+    missing = [k for k, v in launched.items() if not v
+               and k not in (*merges, "kmeans_update_gather")]
+    if missing:
+        raise AssertionError(f"yp: kernels {missing} were not launched")
+    if any(row_r["launches"].values()):
+        raise AssertionError("yp: the plain run launched kernels")
+    divergence = fit_divergence(tr, dev, k=12, tag="YP")
+    same_data = (np.array_equal(rk.coreset.indices, rr.coreset.indices)
+                 and np.array_equal(rk.coreset.weights, rr.coreset.weights))
+    if not same_data and divergence["first_divergence_step"] is None:
+        raise AssertionError("yp: coresets differ with no fit divergence")
+    # rtol 1e-2 on the same training data (f32 GEMM orders, and the
+    # convergence window may stop at another epoch); 5e-2 where the two
+    # coreset fits parted at a near tie and the runs train on other rows
+    rtol = 1e-2 if same_data else 5e-2
+    row_k["same_train_data"] = same_data
+    if not (np.isfinite(rk.metric) and rk.metric > 0
+            and abs(rk.metric - rr.metric) <= rtol * abs(rr.metric)):
+        raise AssertionError(f"yp: MSE {rk.metric} vs {rr.metric} "
+                             f"(rtol {rtol}, same train data {same_data})")
+    per_name, device_ms, wall_ms = profile_device(
+        lambda: drive("kernel", None), reps=1, warm=False)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    prof = {"phase": "profile", "variant": "treecss", "model": "linreg",
+            "dataset": "YP", "wall_ms_profiled": wall_ms,
+            "device_ms": device_ms,
+            "device_busy_share": None if device_ms is None else
+            device_ms / wall_ms, "top_device_ops_ms": top,
+            "host": host_profile(lambda: drive("kernel", None))}
+    emit(prof)
+    return row_k["launches"], rows + [divergence, prof]
+
+
+def minibatch_phase(dev):
+    """``benchmarks/beyond_minibatch.py``'s YP job at full size: the
+    coreset built with Lloyd and with the minibatch fit (after one warm
+    call each) on the 357,000-row train partition, linreg trained on it
+    with its weights and evaluated on the 153,000 test rows; then the
+    build alone at 510,000 rows (``_build_time_at_scale``).  Kernels and
+    plain versions."""
+    from repro_torch import rng
+    from repro_torch.config import EngineOptions
+    from repro_torch.core.coreset import cluster_coreset
+    from repro_torch.core.kmeans import kmeans_minibatch_fit
+    from repro_torch.core.splitnn import evaluate, train_splitnn
+    from repro_torch.data.vertical import partition_features
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+
+    tr, te = partitions("YP")
+    cfg = yp_config(tr.n_samples)
+    full = partition_features(*dataset("YP"), 3)
+    rows, on_path = [], None
+    for scale, part in (("train", tr), ("n=510000", full)):
+        for impl in ("kernel", "ref"):
+            for algo in ("lloyd", "minibatch"):
+                css = lambda p: cluster_coreset(
+                    p, 12, seed=SEED, kmeans_algo=algo, kmeans_impl=impl,
+                    device=dev)
+                css(part if scale == "train" else part.take(np.arange(2048)))
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = css(part)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = dict(LAUNCHES)
+                row = dict(phase="minibatch", rows=part.n_samples, impl=impl,
+                           algo=algo, coreset=int(res.indices.shape[0]),
+                           build_wall_s=wall,
+                           build_makespan_s=res.makespan_seconds,
+                           fit_s=list(res.per_client_seconds),
+                           select_s=res.select_seconds, launches=launched)
+                if scale == "train":
+                    t0 = time.perf_counter()
+                    rep = train_splitnn(
+                        tr.take(res.indices), cfg, sample_weights=res.weights,
+                        options=EngineOptions(device=dev, bottom_impl=impl))
+                    row.update(train_wall_s=time.perf_counter() - t0,
+                               epochs=rep.epochs, steps=rep.steps,
+                               mse=evaluate(rep.params, cfg, te,
+                                            bottom_impl=impl))
+                    if not (np.isfinite(row["mse"]) and row["mse"] > 0):
+                        raise AssertionError(f"minibatch: MSE {row['mse']}")
+                emit(row)
+                rows.append(row)
+                want = {"kmeans_update_gather": 0, "kmeans_update": 0}
+                if impl == "kernel":
+                    want[{"lloyd": "kmeans_update",
+                          "minibatch": "kmeans_update_gather"}[algo]] = (
+                        25 * (1 if algo == "lloyd" else part.n_clients))
+                got = {k: launched[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"minibatch {algo}/{impl} at "
+                                         f"{part.n_samples} rows: launches "
+                                         f"{got}, expected {want}")
+                if impl == "ref" and any(launched.values()):
+                    raise AssertionError("minibatch: the plain run launched "
+                                         "kernels")
+                if (scale, impl, algo) == ("train", "kernel", "minibatch"):
+                    on_path = launched
+    pts = torch.from_numpy(tr.client_features[0]).to(dev)
+    fits = [kmeans_minibatch_fit(rng.PRNGKey(SEED), pts, 12, impl="kernel")
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*fits)):
+        raise AssertionError("minibatch: two kernel fits differ")
+    return on_path, rows
+
+
+def delta_phase(dev):
+    """``benchmarks/fig7_delta_psi.py``'s device sweep at full size: m = 4
+    parties of N = 300,000 ids, overlap 0.7, ``max_runs=3``, no HE, Δ/N
+    in {0.001, 0.01, 0.1}, one untimed delta and 6 timed ones each, OPRF
+    on the device.  The aligned set must equal the parties' plain
+    intersection after every delta and a full Tree-MPSI re-run at the
+    end; the probes and compactions pad to P = 2^19, so K8 runs."""
+    from functools import reduce
+
+    from repro_torch.config import AlignOptions
+    from repro_torch.core.mpsi import tree_mpsi
+    from repro_torch.data.synthetic import make_id_universe
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.kernels.sorted_intersect.kernel import SINGLE_PASS_MAX_P
+    from repro_torch.kernels.sorted_intersect.ops import next_pow2
+    from repro_torch.psi import DeltaMPSI
+
+    n, m_parties, deltas = DELTA_N, 4, 6
+    opts = AlignOptions(protocol="oprf", psi_backend="device",
+                        impl="kernel", device=dev)
+    rows = []
+    reset_launches()
+
+    def expect(dm, where):
+        want = reduce(np.intersect1d, [dm.party_set(q)
+                                       for q in range(dm.n_parties)])
+        if not np.array_equal(dm.aligned, want):
+            raise AssertionError(f"delta: aligned set broke {where}")
+
+    for frac in (0.001, 0.01, 0.1):
+        sets, _ = make_id_universe(m_parties, n, 0.7,
+                                   seed=int(frac * 10_000))
+        t0 = time.perf_counter()
+        dm = DeltaMPSI(sets, options=opts, use_he=False, max_runs=3)
+        boot_wall = time.perf_counter() - t0
+        expect(dm, f"at bootstrap (frac {frac})")
+        d = max(2, int(n * frac))
+        fresh = int(max(s.max() for s in sets)) + 1
+        g = np.random.default_rng(int(frac * 10_000) + 1)
+        dm.apply_delta(0, joins=np.arange(fresh, fresh + d // 2,
+                                          dtype=np.int64))
+        fresh += d // 2
+        expect(dm, f"after the untimed delta (frac {frac})")
+        d_bytes, d_wall = [], []
+        for k in range(deltas):
+            party = k % m_parties
+            cur = dm.party_set(party)
+            joins = np.arange(fresh, fresh + d // 2, dtype=np.int64)
+            fresh += d // 2
+            leaves = g.choice(cur, size=d - d // 2, replace=False)
+            b0 = dm.stats.total_bytes
+            t0 = time.perf_counter()
+            dm.apply_delta(party, joins, leaves)
+            d_wall.append(time.perf_counter() - t0)
+            d_bytes.append(dm.stats.total_bytes - b0)
+            expect(dm, f"at frac {frac} step {k}")
+        host = None
+        if frac == 0.01:        # where one more delta's host time goes
+            cur = dm.party_set(1)
+            joins = np.arange(fresh, fresh + d // 2, dtype=np.int64)
+            fresh += d // 2
+            leaves = g.choice(cur, size=d - d // 2, replace=False)
+            host = host_profile(lambda: dm.apply_delta(1, joins, leaves))
+            expect(dm, "after the profiled delta")
+        t0 = time.perf_counter()
+        full = tree_mpsi([dm.party_set(q) for q in range(m_parties)],
+                         use_he=False, options=opts)
+        full_wall = time.perf_counter() - t0
+        if not np.array_equal(np.asarray(full.intersection), dm.aligned):
+            raise AssertionError(f"delta: full re-run differs (frac {frac})")
+        row = dict(phase="delta", n=n, m=m_parties, delta_frac=frac,
+                   delta_size=d, deltas=deltas,
+                   delta_wall_s=float(np.median(d_wall)),
+                   full_wall_s=full_wall, bootstrap_wall_s=boot_wall,
+                   delta_bytes=float(np.median(d_bytes)),
+                   full_bytes=full.total_bytes,
+                   bytes_speedup=full.total_bytes / float(np.median(d_bytes)),
+                   wall_speedup=full_wall / float(np.median(d_wall)),
+                   compactions=dm.stats.compactions,
+                   dispatches=dm.stats.device_dispatches, host=host)
+        emit(row)
+        rows.append(row)
+    launched = dict(LAUNCHES)
+    emit({"phase": "delta_launches", "launches": launched})
+    merge = ("sorted_intersect_tiled" if next_pow2(n) > SINGLE_PASS_MAX_P
+             else "sorted_intersect")
+    if not launched[merge]:
+        raise AssertionError(f"delta: {merge} never launched")
     return rows
 
 
@@ -790,6 +1279,13 @@ def main() -> int:
     pipe_rows += serve_phase(dev, rep.train.params, train_cfg(
         "mlp", 0.01, 70_000, 200))
     pipe_rows += profile_phase(dev)
+    # K8 counts on the YP rounds, K4 on the minibatch coreset
+    yp_launches, yp_rows = yp_phase(dev)
+    mb_launches, mb_rows = minibatch_phase(dev)
+    launches = launches | {
+        "sorted_intersect_tiled": yp_launches["sorted_intersect_tiled"],
+        "kmeans_update_gather": mb_launches["kmeans_update_gather"]}
+    pipe_rows += yp_rows + mb_rows + delta_phase(dev)
     kernels = []
     for r in rows:
         if "check_only" in r:

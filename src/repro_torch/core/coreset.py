@@ -10,9 +10,11 @@ Five steps, as the paper and the reference:
 
 Step 1 runs on the device: all M clients in one zero-padded
 (M, N_max, d_max) stack, one launch of the fused Lloyd kernel per
-iteration (``core/kmeans.kmeans_fit``).  Steps 2-5 are host numpy at
-the label owner, copied from the reference.  Per-client keys follow the
-reference's ``PRNGKey(seed + 17*m)``.
+iteration (``core/kmeans.kmeans_fit``).  The beyond-paper mini-batch
+fit (``kmeans_algo="minibatch"``) fits the clients one after another,
+as the reference, one gather-fused update launch per Sculley step.
+Steps 2-5 are host numpy at the label owner, copied from the reference.
+Per-client keys follow the reference's ``PRNGKey(seed + 17*m)``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from repro_torch import rng
 from repro_torch.config import resolve_device, resolve_impl
 from repro_torch.core import he
-from repro_torch.core.kmeans import kmeans_fit
+from repro_torch.core.kmeans import fit_client, kmeans_fit
 from repro_torch.data.vertical import VerticalPartition
 from repro_torch.kernels.padding import stack_padded
 from repro_torch.obs.trace import span
@@ -137,13 +139,33 @@ def _he_exchange_cost(local: Sequence[ClientClustering], n: int,
     return n * m * pk.ciphertext_bytes(), est
 
 
+def local_cluster_weights(features: np.ndarray, k: int, *, seed: int = 0,
+                          iters: int = 25, impl: Optional[str] = None,
+                          algo: str = "lloyd",
+                          device=None) -> ClientClustering:
+    """Steps 1-2 on one client's feature slice, with its own
+    ``k = min(k, N)`` and key ``PRNGKey(seed)`` (``core/kmeans.
+    fit_client`` picks Lloyd or mini-batch as the reference does)."""
+    dev = resolve_device(device)
+    k_eff = int(min(k, features.shape[0]))
+    pts = torch.as_tensor(np.asarray(features, np.float32), device=dev)
+    cents, assign, sqd = fit_client(rng.PRNGKey(seed), pts, k_eff,
+                                    iters=iters, impl=impl, algo=algo)
+    assign = assign.cpu().numpy()
+    sqd = sqd.cpu().numpy()
+    return ClientClustering(assign, sqd, rank_weights(assign, sqd, k_eff),
+                            cents)
+
+
 def clients_batchable(features: Sequence[np.ndarray], *,
+                      algo: str = "lloyd",
                       clusters: Optional[int] = None) -> bool:
-    """True when steps 1-2 run as one batched fit: same-shape clients
-    always, ragged clients unless some client has fewer samples than
-    ``clusters`` (it would need its own smaller k), as the reference."""
+    """True when steps 1-2 run as one batched fit, as the reference:
+    Lloyd only; same-shape clients always, ragged clients unless some
+    client has fewer samples than ``clusters`` (it would need its own
+    smaller k)."""
     feats = list(features)
-    if len(feats) <= 1:
+    if algo != "lloyd" or len(feats) <= 1:
         return False
     if len({f.shape for f in feats}) == 1:
         return True
@@ -180,21 +202,25 @@ def _fit_clients(features: Sequence[np.ndarray], k: int, seeds: Sequence[int],
 def cluster_coreset(partition: VerticalPartition, clusters_per_client: int, *,
                     seed: int = 0, kmeans_iters: int = 25,
                     kmeans_impl: Optional[str] = None, use_he: bool = False,
+                    kmeans_algo: str = "lloyd",
                     device=None) -> CoresetResult:
     """Full Cluster-Coreset over a vertical partition.
 
     All clients fit in one batched device call when
-    ``clients_batchable`` allows it; its wall time / M stands for ONE
-    client's concurrent compute in ``per_client_seconds`` (the
-    max-over-clients makespan model).  Otherwise each client fits alone,
-    with its own k = min(k, N_m)."""
+    ``clients_batchable`` allows it (Lloyd only); its wall time / M
+    stands for ONE client's concurrent compute in ``per_client_seconds``
+    (the max-over-clients makespan model).
+    Otherwise each client fits alone (``local_cluster_weights``), with
+    its own k = min(k, N_m), key ``seed + 17·m`` and measured seconds;
+    ``kmeans_algo="minibatch"`` always takes that path."""
     dev = resolve_device(device)
     impl = resolve_impl(kmeans_impl, dev)
     feats = list(partition.client_features)
     m = len(feats)
-    batched = clients_batchable(feats, clusters=clusters_per_client)
+    batched = clients_batchable(feats, algo=kmeans_algo,
+                                clusters=clusters_per_client)
     with span("coreset.fit", clients=m, batched=batched,
-              k=clusters_per_client):
+              k=clusters_per_client, algo=kmeans_algo):
         if batched:
             t0 = time.perf_counter()
             local = _fit_clients(feats, clusters_per_client,
@@ -205,9 +231,10 @@ def cluster_coreset(partition: VerticalPartition, clusters_per_client: int, *,
             local, per_client = [], []
             for i, f in enumerate(feats):
                 t0 = time.perf_counter()
-                local += _fit_clients([f], clusters_per_client,
-                                      [seed + 17 * i], iters=kmeans_iters,
-                                      impl=impl, device=dev)
+                local.append(local_cluster_weights(
+                    f, clusters_per_client, seed=seed + 17 * i,
+                    iters=kmeans_iters, impl=impl, algo=kmeans_algo,
+                    device=dev))
                 per_client.append(time.perf_counter() - t0)
     sel_sp = span("coreset.select", rows=partition.n_samples)
     with sel_sp:

@@ -6,7 +6,10 @@ group of clients with ``vmap``.  Here a group of M clients is one
 zero-padded (M, N, d) stack, and every Lloyd iteration is ONE launch of
 the fused update kernel over all M clients (``kernels/kmeans_update``),
 then one launch of the assign kernel at the end.  The iterations are a
-host loop of launches with no host synchronisation inside.
+host loop of launches with no host synchronisation inside.  The
+beyond-paper mini-batch fit (``kmeans_minibatch_fit``, one client at a
+time as in the reference) runs one launch of the gather-fused update
+kernel per Sculley step over the step's sampled rows.
 
 Pad-and-mask contract (the reference's ``n_valid``): rows of client m at
 and past ``n_valid[m]`` must be all-zero padding.  Zero rows add exact
@@ -43,7 +46,7 @@ def _pp_draws(keys: np.ndarray, k: int, n_valid: Sequence[int]
     one_minus_u = np.empty((len(keys), max(k - 1, 0)), np.float32)
     for m, key in enumerate(keys):
         key, sub = rng.split(key)
-        first[m] = rng.randint(sub, 0, int(n_valid[m]))
+        first[m] = int(rng.randint(sub, (), 0, int(n_valid[m])))
         for i in range(k - 1):
             key, sub = rng.split(key)
             one_minus_u[m, i] = np.float32(1) - rng.uniform(sub)
@@ -133,13 +136,85 @@ def kmeans_fit(keys: np.ndarray, points: torch.Tensor, k: int, *,
     return cents, assign, sqd
 
 
+# rows a Sculley step samples (the reference's default, the only size
+# its callers use); a client of at most this many rows fits with Lloyd
+MINIBATCH_BATCH = 1024
+
+
+def kmeans_minibatch_fit(key: np.ndarray, points: torch.Tensor, k: int, *,
+                         iters: int = 25, impl: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mini-batch K-Means (Sculley 2010) for one client: the port of
+    ``repro.core.kmeans.kmeans_minibatch_fit``.  key (2,) u32, points
+    (N, d) on the device -> (centroids (k, d), assign (N,) int32,
+    sq-distances (N,) f32).
+
+    The reference's key stream, reuse included: ``key, sub = split(key)``
+    draws the ``min(N, 4·MINIBATCH_BATCH)``-row subsample that k-means++
+    seeds on, and the SAME ``key`` then seeds k-means++ and is split into
+    one key a step.  Each step draws ``MINIBATCH_BATCH`` row indices with
+    ``randint`` (all steps' indices are drawn on the host up front and
+    uploaded once), runs one gather-fused update over them (K4 on CUDA)
+    and applies the
+    Sculley update ``cents + lr·(target − cents)·(counts > 0)`` with
+    ``lr = batch_counts / max(counts + batch_counts, 1)``, in the
+    reference's order.  The final assignment over all N rows is one
+    assign launch (K5)."""
+    points = points.float().contiguous()
+    n, d = points.shape
+    dev = points.device
+    impl = resolve_impl(impl, dev)
+    batch = MINIBATCH_BATCH
+    key, sub = rng.split(np.asarray(key, np.uint32))
+    seed_idx = rng.choice_without_replacement(sub, n, min(n, 4 * batch))
+    sample = points[torch.from_numpy(seed_idx).to(dev)][None]
+    cents = kmeans_pp_init(key[None], sample, k, [sample.shape[1]])[0]
+    steps = np.array([rng.randint(step_key, (batch,), 0, n)
+                      for step_key in rng.split(key, iters)], np.int32)
+    steps = torch.from_numpy(steps.reshape(iters, batch)).to(dev)
+    counts = torch.zeros(k, dtype=torch.float32, device=dev)
+    for i in range(iters):
+        _, _, sums, batch_counts = kmeans_update(
+            points[None], cents[None], impl=impl, idx=steps[i:i + 1])
+        sums, batch_counts = sums[0], batch_counts[0]
+        new_counts = counts + batch_counts
+        # per-center learning rate 1/count (Sculley eq. 1)
+        target = sums / batch_counts.clamp_min(1.0)[:, None]
+        lr = batch_counts / new_counts.clamp_min(1.0)
+        cents = cents + lr[:, None] * (target - cents) * (
+            batch_counts > 0)[:, None].float()
+        counts = new_counts
+    assign, sqd = kmeans_assign(points[None], cents[None], impl=impl)
+    return cents, assign[0], sqd[0]
+
+
+def fit_client(key: np.ndarray, points: torch.Tensor, k: int, *,
+               iters: int = 25, impl: Optional[str] = None,
+               algo: str = "lloyd"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One client's fit, as the reference's ``kmeans`` picks it:
+    ``algo="minibatch"`` (beyond the paper, Sculley 2010) runs
+    ``kmeans_minibatch_fit`` when the client has more than
+    ``MINIBATCH_BATCH`` rows, and everything else the Lloyd
+    ``kmeans_fit``.  points (N, d) on the device -> (centroids (k, d),
+    assign (N,), sq-distances (N,))."""
+    if algo not in ("lloyd", "minibatch"):
+        raise ValueError(f"algo must be 'lloyd' or 'minibatch', got {algo!r}")
+    if algo == "minibatch" and points.shape[0] > MINIBATCH_BATCH:
+        return kmeans_minibatch_fit(key, points, k, iters=iters, impl=impl)
+    c, a, s = kmeans_fit(np.asarray(key, np.uint32)[None], points[None], k,
+                         iters=iters, impl=impl)
+    return c[0], a[0], s[0]
+
+
 def kmeans(points: np.ndarray, k: int, *, seed: int = 0, iters: int = 25,
-           impl: Optional[str] = None, device=None
+           impl: Optional[str] = None, algo: str = "lloyd", device=None
            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """numpy-facing single-client fit.  Returns (centroids, assign,
-    sq_dists) as numpy arrays."""
+    """numpy-facing single-client fit (``fit_client`` from
+    ``PRNGKey(seed)``).  Returns (centroids, assign, sq_dists) as numpy
+    arrays."""
     dev = resolve_device(device)
-    pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)[None]
-    c, a, s = kmeans_fit(rng.PRNGKey(seed)[None], pts, int(k), iters=iters,
-                         impl=impl)
-    return c[0].cpu().numpy(), a[0].cpu().numpy(), s[0].cpu().numpy()
+    pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
+    c, a, s = fit_client(rng.PRNGKey(seed), pts, int(k), iters=iters,
+                         impl=impl, algo=algo)
+    return c.cpu().numpy(), a.cpu().numpy(), s.cpu().numpy()

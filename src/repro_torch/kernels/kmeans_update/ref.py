@@ -26,3 +26,15 @@ def kmeans_update(points: torch.Tensor, centroids: torch.Tensor
     counts.index_add_(0, seg, torch.ones(m * n, dtype=torch.float32,
                                          device=points.device))
     return assign, sq_dist, sums.view(m, k, d), counts.view(m, k)
+
+
+def kmeans_update_gather(points: torch.Tensor, centroids: torch.Tensor,
+                         idx: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """The minibatch step (K4's plain version): gather the rows
+    ``points[i, idx[i]]`` (idx (M, B) int), then ``kmeans_update`` over
+    them.  An index outside [0, N) raises, as tensor indexing does."""
+    rows = torch.gather(points, 1, idx.long()[..., None].expand(
+        -1, -1, points.shape[2]))
+    return kmeans_update(rows, centroids)

@@ -10,6 +10,8 @@ batch, and runs it on the device:
                 --sorted_intersect kernel--> matched receiver ids
   match_round : host-computed tags (e.g. truncated RSA signatures)
                 --host sort--> --sorted_intersect kernel--> matched ids
+  union_merge : two sorted tag runs --sorted_intersect kernel--> their
+                merged keys (delta-PSI compaction)
 
 Sorting between tag evaluation and merge (``sort=``):
 
@@ -211,3 +213,28 @@ def match_round(receiver_tags: Sequence[np.ndarray],
     inters = _host_sorted_merge(r_tags, receiver_ids, s_tags, p, device,
                                 impl)
     return EngineRound(inters, time.perf_counter() - t0, 1)
+
+
+def union_merge(a_tags64: np.ndarray, b_tags64: np.ndarray, *,
+                options: Optional[AlignOptions] = None) -> np.ndarray:
+    """Sorted union of two sorted u64 tag arrays (< 2^62) through the
+    merge kernel: the delta-PSI run-compaction primitive.
+
+    One (1, P) pair, side A with origin 1 and side B with origin 0, goes
+    through ``sorted_intersect``; the merged FULL keys ``(tag << 1) |
+    origin`` come back as u64 with the padding stripped (the pads are
+    the only keys with the top bit set, i.e. negative as int64), so the
+    caller can resolve same-tag collisions by origin
+    (``psi/delta.TagIndex`` uses it as run recency)."""
+    options = options or AlignOptions()
+    device = resolve_device(options.device)
+    impl = resolve_impl(options.impl, device)
+    p = next_pow2(max(len(a_tags64), len(b_tags64), 1))
+    a = _host_key_row(np.asarray(a_tags64, np.uint64), 1, PAD_A64, p)
+    b = _host_key_row(np.asarray(b_tags64, np.uint64), 0, PAD_B64, p)
+    with span("align.dispatch", kind="union", pairs=1, p=p):
+        _, _, merged = sorted_intersect(
+            torch.from_numpy(a[None]).to(device),
+            torch.from_numpy(b[None]).to(device), impl=impl)
+        merged = merged[0].cpu().numpy()
+    return merged[merged >= 0].astype(np.uint64)

@@ -12,7 +12,8 @@ shift) and only the data-dependent ``cumsum``/``searchsorted`` of
 ``choice(p=)`` runs on the device (``repro_torch.core.kmeans``).
 
 Parity with ``jax.random``: ``PRNGKey``, ``split``, ``random_bits``,
-``randint`` and ``uniform`` are bitwise equal.  ``normal`` computes
+``randint``, ``permutation``, ``choice_without_replacement`` and
+``uniform`` are bitwise equal.  ``normal`` computes
 ``sqrt(2)·erfinv(u)`` with XLA's f32 ``erf_inv``, ``log1p`` and ``log``
 as its CPU backend evaluates them, emulated in numpy float32; where
 the emulated ``log`` rounds differently a draw differs from
@@ -28,8 +29,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["PRNGKey", "split", "random_bits", "randint", "uniform",
-           "normal", "choice_index"]
+__all__ = ["PRNGKey", "split", "random_bits", "randint", "permutation",
+           "choice_without_replacement", "uniform", "normal",
+           "choice_index"]
 
 _u32 = np.uint32
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -83,19 +85,44 @@ def random_bits(key: np.ndarray, shape=()) -> np.ndarray:
     return (b0 ^ b1).reshape(shape)[()]
 
 
-def randint(key: np.ndarray, minval: int, maxval: int) -> int:
-    """Scalar ``jax.random.randint(key, (), minval, maxval)`` (int32).
-    ``maxval`` may be a traced-style value such as a client's valid row
-    count; the arithmetic is the reference's, wrapping uint32 products
-    included."""
+def randint(key: np.ndarray, shape, minval: int, maxval: int):
+    """``jax.random.randint(key, shape, minval, maxval)``: int32 of
+    ``shape`` (a numpy int32 scalar at shape ``()``).  ``maxval`` may be
+    a traced-style value such as a client's valid row count; the
+    arithmetic is the reference's, wrapping uint32 products included."""
     k1, k2 = split(key)
-    hi, lo = random_bits(k1), random_bits(k2)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
     span = _u32(1) if maxval <= minval else _u32(maxval - minval)
     with np.errstate(over="ignore"):
         mult = _u32(2 ** 16) % span
         mult = (mult * mult) % span
         off = ((hi % span) * mult + (lo % span)) % span
-    return int(minval) + int(off)
+    return (np.int32(minval) + np.asarray(off).astype(np.int32))[()]
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)`` (int64 here): jax's
+    ``_shuffle`` of ``arange(n)``, ``ceil(3·ln n / ln(2^32 − 1))`` rounds
+    of ``key, sub = split(key)`` and a STABLE sort by 32-bit
+    ``random_bits(sub, (n,))``.  Keys collide (~7 pairs at n = 250,000),
+    and a stable sort keeps such a pair in its previous order, as the
+    reference's ``sort_key_val`` does."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = np.arange(n, dtype=np.int64)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
+def choice_without_replacement(key: np.ndarray, n: int,
+                               size: int) -> np.ndarray:
+    """``jax.random.choice(key, n, (size,), replace=False)``: the first
+    ``size`` entries of ``permutation(key, n)``."""
+    if size > n:
+        raise ValueError(f"cannot take {size} of {n} without replacement")
+    return permutation(key, n)[:size]
 
 
 def uniform(key: np.ndarray, shape=(), minval: float = 0.0,

@@ -62,7 +62,7 @@ def test_threefry_matches_jax_random(block):
                                   rng.split(key, num))
         for maxval in (1, 2, 14, 441, 49_000, 70_001, 2 ** 20 + 3):
             want = int(jax.random.randint(jkey, (), 0, maxval))
-            assert rng.randint(key, 0, maxval) == want, (seed, maxval)
+            assert int(rng.randint(key, (), 0, maxval)) == want, (seed, maxval)
         u = np.float32(jax.random.uniform(jkey))
         assert np.float32(rng.uniform(key)).tobytes() == u.tobytes()
 
@@ -95,3 +95,41 @@ def test_choice_index_matches_jax(seed):
         assert got == want, (
             f"seed {seed} n {n}: port picked {got}, jax {want}; draw "
             f"{r!r} vs cumsum boundaries {cum[max(want - 1, 0):want + 1]!r}")
+
+
+# n past 2^17: the 32-bit sort keys of jax's shuffle collide (~7 pairs at
+# 250,000), so only a stable sort gives jax's order
+PERM_NS = [1, 2, 7, 1625, 1626, 4096, 50_000, 131_073, 249_900]
+
+
+@pytest.mark.parametrize("n", PERM_NS)
+def test_permutation_matches_jax(n):
+    for seed in (0, 11):
+        want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+        got = rng.permutation(rng.PRNGKey(seed), n)
+        assert got.dtype == np.int64
+        assert np.array_equal(got, want), (n, seed)
+
+
+@pytest.mark.parametrize("n,size", [(10, 10), (5000, 4096), (200_000, 4096),
+                                    (249_900, 4096)])
+def test_choice_without_replacement_matches_jax(n, size):
+    for seed in (1, 2):
+        want = np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n,
+                                            (size,), replace=False))
+        got = rng.choice_without_replacement(rng.PRNGKey(seed), n, size)
+        assert np.array_equal(got, want), (n, size, seed)
+    with pytest.raises(ValueError):
+        rng.choice_without_replacement(rng.PRNGKey(0), 3, 4)
+
+
+@pytest.mark.parametrize("shape,maxval", [((1024,), 249_900), ((1024,), 7),
+                                          ((3, 5), 357_000), ((4096,), 1),
+                                          ((2,), 2 ** 31 - 1)])
+def test_shaped_randint_matches_jax(shape, maxval):
+    for seed in (0, 5, 2 ** 31 - 1):
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), shape,
+                                             0, maxval))
+        got = rng.randint(rng.PRNGKey(seed), shape, 0, maxval)
+        assert got.dtype == np.int32 and got.shape == shape
+        assert np.array_equal(got, want), (shape, maxval, seed)

@@ -53,9 +53,26 @@ def _cpu_operands():
     return ids, keys, pts
 
 
+def test_slice_modules_stand_alone():
+    """The YP slice's modules (minibatch Cluster-Coreset, V-coreset,
+    delta-PSI) import neither jax nor the JAX package on their own."""
+    probe = ("import sys\n"
+             "import repro_torch.psi, repro_torch.psi.delta\n"
+             "import repro_torch.core.vcoreset, repro_torch.core.coreset\n"
+             "from repro_torch.core.kmeans import kmeans_minibatch_fit\n"
+             "print(sorted(m for m in sys.modules\n"
+             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("op", ["psi_prf", "sorted_intersect",
                                 "kmeans_update", "kmeans_assign",
-                                "splitnn_bottom", "splitnn_bottom_gather"])
+                                "splitnn_bottom", "splitnn_bottom_gather",
+                                "kmeans_update_gather"])
 def test_kernel_impl_on_cpu_raises(op):
     ids, keys, pts = _cpu_operands()
     w, b = torch.ones(2, 3, 4), torch.zeros(2, 4)
@@ -72,6 +89,9 @@ def test_kernel_impl_on_cpu_raises(op):
         "splitnn_bottom": lambda: splitnn_bottom(pts, w, b, True, "kernel"),
         "splitnn_bottom_gather": lambda: splitnn_bottom(
             pts, w, b, True, "kernel", idx),
+        "kmeans_update_gather": lambda: kmeans_update(
+            pts, pts[:, :4].contiguous(), impl="kernel",
+            idx=torch.zeros((2, 3), dtype=torch.int32)),
     }[op]
     with pytest.raises(ValueError, match="CUDA"):
         call()
