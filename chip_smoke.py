@@ -36,6 +36,13 @@ Phases, each printing JSON lines:
               the reference's single-pass bound) at P=2^19, at 2^20 and
               as nine pairs at 2^19 (the delta probe's batch), ~70%
               overlap, bitwise; ``torch.sort`` of the 2P keys beside it.
+              K9 (the int8 bottom pass) at the int8 eval block (3, 512, 11)
+              → 8 with ReLU and at lr's o=1 without, K10 at a 700-row
+              train step with duplicates out of (3, 49,000, 11): bitwise
+              their plain versions, K10 bitwise K9 on the gathered rows;
+              ``torch.baddbmm`` on the dequantized operands beside them.
+              The quantizers on the card bitwise the same quantizers on
+              the CPU, int8 and fp8.
 4. pipeline — ``run_pipeline(model="knn")`` at the paper's full HI size
               (70,000 train / 30,000 test rows, 3 clients, k=14,
               25 iterations, OPRF on the device) for ``treecss`` and
@@ -67,7 +74,8 @@ Phases, each printing JSON lines:
               equal between the kernel and plain engines, K1 launches =
               dispatches.
 7. profile  — spans, device busy share and top device ops of one traced
-              full-HI treecss run, k-NN and mlp.
+              full-HI treecss run, k-NN, mlp and mlp under the int8 wire
+              (with a cProfile of the int8 run's host time).
 8. yp       — Table-2 YP × linreg ``treecss`` at full size (357,000 train /
               153,000 test rows, 3 clients × 30 columns, k=12, batches of
               3,570 rows, the 200-epoch cap or convergence, OPRF on the
@@ -89,6 +97,20 @@ Phases, each printing JSON lines:
               plain intersection after every delta and a full Tree-MPSI
               re-run at the end; K8 launched; median delta wall and bytes
               against the full re-run.
+11. quant   — the SplitNN jobs of phase 5 under the quantized wire
+              (``benchmarks/quant_vfl.py``'s sweep at full HI): treecss ×
+              {mlp, lr} × {int8, fp8} and starall × mlp × int8, kernels
+              and plain versions, compared as phase 5 compares them
+              (starall's losses bitwise: no coreset, the same rows); the
+              int8 accuracy at most 0.01 below phase 5's f32 run of the
+              same job, the gathered payload <= 0.3× f32's; K10 launches
+              = train steps and K9 = eval blocks under int8, K2/K1 under
+              fp8.  Then ``VFLScoringEngine(slots=64, quant="int8")``
+              serves the test rows with the int8-trained treecss-mlp
+              params: kernel and plain engines bitwise, ServeStats equal,
+              each within one wire step of ``score_partition(quant=
+              "int8")`` (a wire block groups other rows in the two), K9
+              launches = dispatches.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -113,6 +135,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+INT8_OPS = 1979e12             # H100 SXM int8 tensor cores, dense
 SEED = 0
 DELTA_N = 300_000              # ids a party in the delta-PSI sweep (fig7)
 YP_TRAIN = 357_000             # YP's Table-2 train rows (70% of 510,000)
@@ -405,6 +428,8 @@ def kernel_phase(dev):
     rows += lloyd_kernel_rows(yslab, 12, rng, check_only="YP")
     rows.append(gather_update_row(dev, rng))
     rows += bottom_kernel_rows(dev, slab, yslab, rng)
+    rows += int8_kernel_rows(dev, slab, rng)
+    quantizer_check(dev, slab, rng)
     for r in rows:
         emit({"phase": "kernel", **r})
     return rows
@@ -614,6 +639,160 @@ def bottom_kernel_rows(dev, slab, yslab, rng):
     ]
 
 
+def int8_kernel_rows(dev, slab, rng):
+    """K9 at the int8 eval block (3, 512, 11) → 8 with ReLU and at lr's
+    o = 1 without it, K10 at a 700-row train step with duplicates out of
+    the (3, 49,000, 11) slab; the operands quantized as the quant path
+    does (rows of x, columns of w, pow2 scales).  Each bitwise its plain
+    version; K10 bitwise K9 on the gathered rows.  The library yardstick
+    is ``torch.baddbmm`` on the dequantized f32 operands (the same product
+    in f32); ``torch._int_mm`` takes 2-D operands with K and N multiples
+    of 8, which d = 11 is not."""
+    from repro_torch.kernels.splitnn_bottom import ref as sb_ref
+    from repro_torch.kernels.splitnn_bottom.kernel import (
+        splitnn_bottom_int8_cuda, splitnn_bottom_int8_gather_cuda)
+    from repro_torch.kernels.splitnn_bottom.ops import int8_rows
+    from repro_torch.quant import pow2, quantize_columns
+
+    g = lambda *shape, scale=1.0: (torch.from_numpy(rng.normal(
+        size=shape).astype(np.float32)) * scale).to(dev)
+
+    def row(name, xq, sx, wq, sw, b, relu, idx=None, **extra):
+        m, _, d = xq.shape
+        o = wq.shape[2]
+        xg = xq if idx is None else xq.index_select(1, idx).contiguous()
+        if idx is None:
+            call = lambda: splitnn_bottom_int8_cuda(xq, sx, wq, sw, b, relu)
+        else:
+            call = lambda: splitnn_bottom_int8_gather_cuda(idx, xq, sx, wq,
+                                                           sw, b, relu)
+        plain = lambda: sb_ref.splitnn_bottom_int8(xq, sx, wq, sw, b, relu,
+                                                   idx)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"by {float((got - want).abs().max())}")
+        if idx is not None:
+            k9 = splitnn_bottom_int8_cuda(xg, sx, wq, sw, b, relu)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k9):
+                raise AssertionError("splitnn_bottom_int8_gather: K10 "
+                                     "differs from K9 on the gathered rows")
+            extra["k10_equals_k9_bitwise"] = True
+        bsz = xg.shape[1]
+        rows_read = bsz if idx is None else int(torch.unique(idx).numel())
+        nbytes = (m * rows_read * d + m * d * o
+                  + 4 * (m * bsz + 2 * m * o + m * bsz * o
+                         + (0 if idx is None else bsz)))
+        # int8 products at the int8 tensor-core peak, the f32 epilogue
+        # (scale product, scale, bias) at the f32 peak
+        t_ops = (2 * m * bsz * d * o / INT8_OPS + 3 * m * bsz * o
+                 / F32_FLOPS) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                      else (t_ops, "operations"))
+        xf = xg.float() * sx[:, :, None]
+        wf = wq.float() * sw[:, None, :]
+        bb = b[:, None, :]
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/splitnn_bottom.cu",
+            max_abs_err=0.0, ms=cuda_ms(call),
+            device_ms=kernel_device_ms(call, ["bottom_int8_kernel"]),
+            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            nbytes=nbytes,
+            library_ms=cuda_ms(lambda: torch.baddbmm(bb, xf, wf)),
+            library="torch.baddbmm on the dequantized f32 operands (the "
+                    "same product in f32), without the ReLU; "
+                    "torch._int_mm does not take K = 11",
+            shape=[m, bsz, d, o], relu=relu, **extra)
+
+    m, n, d = slab.shape
+    xq, sx = int8_rows(slab)
+    eval_q, eval_s = xq[:, :512].contiguous(), sx[:, :512].contiguous()
+    rows = []
+    for o, relu, extra in ((8, True, {}), (1, False, {"check_only": "lr"})):
+        w, b = g(m, d, o, scale=d ** -0.5), g(m, o, scale=0.1)
+        wq, ew = quantize_columns(w, "int8")
+        sw = pow2(ew)
+        rows.append(row("splitnn_bottom_int8", eval_q, eval_s, wq, sw, b,
+                        relu, replaces="src/repro/kernels/splitnn_bottom/"
+                        "kernel.py:83", **extra))
+        if o == 8:
+            idx = torch.from_numpy(rng.integers(0, n, 700).astype(
+                np.int32)).to(dev)
+            idx[1::50] = idx[0]              # duplicates, as a schedule
+            rows.append(row(
+                "splitnn_bottom_int8_gather", xq,
+                sx.index_select(1, idx).contiguous(), wq, sw, b, relu,
+                idx=idx, replaces="src/repro/kernels/splitnn_bottom/"
+                "kernel.py:208"))
+    return rows
+
+
+def quantizer_check(dev, slab, rng):
+    """The quantizers on the card against the same quantizers on the
+    CPU, bitwise, for int8 and fp8: rows and columns, row blocks and
+    their dequantization, the fake-quantize pass and ``int8_rows``, on
+    the HI rows, on weights, and on seeded magnitudes over 2^-120 ...
+    2^100 (scales are built from exponent bits, not ``exp2``).  A
+    mismatch raises with the first differing elements, and the input
+    that showed it goes to ``chiprun_out/quantizer_mismatch.pt``."""
+    from repro_torch import quant as Q
+    from repro_torch.kernels.splitnn_bottom.ops import int8_rows
+
+    wide = torch.from_numpy((np.exp2(rng.uniform(-120, 100, 3 * 4096 * 8))
+                             * np.sign(rng.normal(size=3 * 4096 * 8))
+                             ).astype(np.float32)).reshape(3, 4096, 8)
+    wide[:, :64] *= 1e-30                  # blocks of tiny values too
+    cases = {"hi_rows": slab[:, :4096].cpu(), "wide": wide,
+             "weights": torch.from_numpy(rng.normal(size=(3, 11, 8)).astype(
+                 np.float32)) * 0.3}
+
+    def bits(t):
+        return t.view(torch.int8) if t.dtype == Q.FP8_DTYPE else t
+
+    def check(what, x, card, cpu):
+        for a, b in zip(card, cpu):
+            a, b = bits(a.cpu()), bits(b)
+            if torch.equal(a, b):
+                continue
+            diff = (a != b).nonzero()[:4].tolist()
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            torch.save({"what": what, "x": x}, os.path.join(
+                ROOT, "chiprun_out", "quantizer_mismatch.pt"))
+            raise AssertionError(
+                f"{what}: card and CPU differ at {int((a != b).sum())} "
+                f"elements, first {diff}: card "
+                f"{[a[tuple(i)].item() for i in diff]}, CPU "
+                f"{[b[tuple(i)].item() for i in diff]}")
+
+    checked = 0
+    for quant in ("int8", "fp8"):
+        for name, x in cases.items():
+            xd = x.to(dev)
+            for fn in (Q.quantize_rows, Q.quantize_columns,
+                       Q.quantize_row_blocks):
+                check(f"{fn.__name__}({name}, {quant})", x, fn(xd, quant),
+                      fn(x, quant))
+                checked += 2
+            qc, ec = Q.quantize_row_blocks(x, quant)
+            check(f"dequantize_row_blocks({name}, {quant})", x,
+                  [Q.dequantize_row_blocks(qc.to(dev), ec.to(dev)),
+                   Q.fake_quantize(xd, quant)],
+                  [Q.dequantize_row_blocks(qc, ec), Q.fake_quantize(x, quant)])
+            checked += 2
+    for name in ("hi_rows", "wide"):
+        x = cases[name]
+        check(f"int8_rows({name})", x, int8_rows(x.to(dev)), int8_rows(x))
+        checked += 2
+    out = {"phase": "quantizer_check", "tensors_bitwise": checked,
+           "cases": {k: list(v.shape) for k, v in cases.items()}}
+    emit(out)
+    return out
+
+
 # ---------------------------------------------------------- pipeline phase
 
 @functools.lru_cache(maxsize=None)
@@ -774,20 +953,99 @@ def train_cfg(model, lr, n_rows, max_epochs):
                          max_epochs=max_epochs, seed=SEED)
 
 
-def drive_split(tr, te, dev, variant, cfg, impl, trace=None):
+def drive_split(tr, te, dev, variant, cfg, impl, trace=None, quant=None):
     from repro_torch.config import AlignOptions, EngineOptions
     from repro_torch.core.treecss import run_pipeline
     return run_pipeline(
         tr, te, cfg, variant=variant, clusters_per_client=14,
         kmeans_impl=impl, seed=SEED,
-        options=EngineOptions(device=dev, bottom_impl=impl, trace=trace),
+        options=EngineOptions(device=dev, bottom_impl=impl, trace=trace,
+                              quant=quant),
         align=AlignOptions(protocol="oprf", psi_backend="device", impl=impl))
+
+
+def split_job(tr, te, dev, variant, model, lr, cfg, impl, quant=None):
+    """One traced SplitNN ``run_pipeline`` with the launch counts set to
+    0 just before it and read just after: (report, JSON row)."""
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = drive_split(tr, te, dev, variant, cfg, impl, trace=True,
+                      quant=quant)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = dict(phase="train" if quant is None else "quant", variant=variant,
+               model=model, impl=impl, quant=quant,
+               max_epochs=cfg.max_epochs, batch_size=cfg.batch_size, lr=lr,
+               n_align=int(rep.mpsi.intersection.shape[0]),
+               n_train=rep.n_train, metric=rep.metric,
+               epochs=rep.train.epochs, steps=rep.train.steps,
+               final_loss=rep.train.losses[-1],
+               comm_bytes=rep.train.comm_bytes,
+               gather_payload_bytes=rep.train.engine_stats
+               .gather_payload_bytes,
+               align_wall_s=rep.align_wall_seconds,
+               coreset_wall_s=rep.coreset_wall_seconds,
+               train_wall_s=rep.train_wall_seconds,
+               train_engine_s=rep.train.train_seconds,
+               ms_per_step=rep.train.train_seconds * 1e3 / rep.train.steps,
+               eval_wall_s=rep.tracer.total_seconds("pipeline.serve"),
+               total_wall_s=wall, launches=dict(LAUNCHES))
+    emit(row)
+    return rep, row
+
+
+def compare_jobs(tag, kernel_run, ref_run):
+    """A job's kernel run against its plain-version run: the same
+    alignment and n_train, steps and comm_bytes unless the convergence
+    window stopped at another epoch (reported), the loss at the last
+    common epoch within rtol 1e-3 (within 1e-3 of the first epoch's loss
+    where the two coreset fits parted at a near tie, fit_divergence),
+    accuracy within 0.005 and in (0.5, 1], no launch in the plain run."""
+    (rk, row_k), (rr, row_r) = kernel_run, ref_run
+    if not np.array_equal(rk.mpsi.intersection, rr.mpsi.intersection):
+        raise AssertionError(f"{tag}: intersections differ")
+    if rk.n_train != rr.n_train:
+        raise AssertionError(f"{tag}: n_train {rk.n_train} vs {rr.n_train}")
+    common = min(rk.train.epochs, rr.train.epochs)
+    if rk.train.epochs == rr.train.epochs:
+        if (rk.train.steps, rk.train.comm_bytes) != (
+                rr.train.steps, rr.train.comm_bytes):
+            raise AssertionError(f"{tag}: steps or comm_bytes differ")
+    else:
+        emit({"phase": "train_note", "job": tag,
+              "epochs_kernel": rk.train.epochs,
+              "epochs_ref": rr.train.epochs,
+              "note": "the convergence window stopped at another epoch"})
+    same_data = rk.coreset is None or (
+        np.array_equal(rk.coreset.indices, rr.coreset.indices)
+        and np.array_equal(rk.coreset.weights, rr.coreset.weights))
+    row_k["same_train_data"] = same_data
+    lk, lr_ = rk.train.losses[common - 1], rr.train.losses[common - 1]
+    lim = 1e-3 * (abs(lr_) if same_data else rr.train.losses[0])
+    if abs(lk - lr_) > lim:
+        raise AssertionError(f"{tag}: loss {lk} vs {lr_} at epoch "
+                             f"{common} (same train data: {same_data})")
+    if abs(rk.metric - rr.metric) > 0.005:
+        raise AssertionError(f"{tag}: accuracy {rk.metric} vs {rr.metric}")
+    if not 0.5 < rk.metric <= 1.0:
+        raise AssertionError(f"{tag}: implausible accuracy {rk.metric}")
+    if any(row_r["launches"].values()):
+        raise AssertionError(f"{tag}: the plain run launched kernels")
+
+
+def check_launches(tag, launches, want):
+    """Each named kernel launched exactly as often as ``want`` says."""
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times, expected {n}")
 
 
 def train_phase(dev):
     """The SplitNN jobs at full HI, kernels against plain versions."""
-    from repro_torch.kernels.build import LAUNCHES, reset_launches
-
     tr, te = partitions()
     n_eval_batches = -(-te.n_samples // 512)
     # untimed, both models: first use of autograd, of each model's
@@ -800,94 +1058,73 @@ def train_phase(dev):
     for variant, model, lr, epochs in TRAIN_JOBS:
         cfg = train_cfg(model, lr, tr.n_samples, epochs)
         for impl in ("kernel", "ref"):
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rep = drive_split(tr, te, dev, variant, cfg, impl, trace=True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(LAUNCHES)
-            row = dict(phase="train", variant=variant, model=model,
-                       impl=impl, max_epochs=cfg.max_epochs,
-                       batch_size=cfg.batch_size, lr=lr,
-                       n_align=int(rep.mpsi.intersection.shape[0]),
-                       n_train=rep.n_train, metric=rep.metric,
-                       epochs=rep.train.epochs, steps=rep.train.steps,
-                       final_loss=rep.train.losses[-1],
-                       comm_bytes=rep.train.comm_bytes,
-                       align_wall_s=rep.align_wall_seconds,
-                       coreset_wall_s=rep.coreset_wall_seconds,
-                       train_wall_s=rep.train_wall_seconds,
-                       train_engine_s=rep.train.train_seconds,
-                       ms_per_step=rep.train.train_seconds * 1e3
-                       / rep.train.steps,
-                       eval_wall_s=rep.tracer.total_seconds(
-                           "pipeline.serve"),
-                       total_wall_s=wall, launches=launches)
-            emit(row)
-            runs[variant, model, impl] = (rep, row)
-            rows.append(row)
+            runs[variant, model, impl] = split_job(tr, te, dev, variant,
+                                                   model, lr, cfg, impl)
+            rows.append(runs[variant, model, impl][1])
     for variant, model, _, _ in TRAIN_JOBS:
-        (rk, row_k), (rr, row_r) = (runs[variant, model, "kernel"],
-                                    runs[variant, model, "ref"])
         tag = f"{variant}/{model}"
-        if not np.array_equal(rk.mpsi.intersection, rr.mpsi.intersection):
-            raise AssertionError(f"{tag}: intersections differ")
-        if rk.n_train != rr.n_train:
-            raise AssertionError(f"{tag}: n_train {rk.n_train} vs "
-                                 f"{rr.n_train}")
-        common = min(rk.train.epochs, rr.train.epochs)
-        if rk.train.epochs == rr.train.epochs:
-            if (rk.train.steps, rk.train.comm_bytes) != (
-                    rr.train.steps, rr.train.comm_bytes):
-                raise AssertionError(f"{tag}: steps or comm_bytes differ")
-        else:
-            emit({"phase": "train_note", "job": tag,
-                  "epochs_kernel": rk.train.epochs,
-                  "epochs_ref": rr.train.epochs,
-                  "note": "the convergence window stopped at another "
-                          "epoch"})
-        # the loss at the last common epoch within rtol 1e-3; where the
-        # two coreset fits parted at a near tie (fit_divergence) the runs
-        # train on other weights, and a converged loss four orders below
-        # its start is then held within 1e-3 of the first epoch's loss
-        same_data = rk.coreset is None or (
-            np.array_equal(rk.coreset.indices, rr.coreset.indices)
-            and np.array_equal(rk.coreset.weights, rr.coreset.weights))
-        row_k["same_train_data"] = same_data
-        lk, lr_ = rk.train.losses[common - 1], rr.train.losses[common - 1]
-        lim = 1e-3 * (abs(lr_) if same_data else rr.train.losses[0])
-        if abs(lk - lr_) > lim:
-            raise AssertionError(f"{tag}: loss {lk} vs {lr_} at epoch "
-                                 f"{common} (same train data: {same_data})")
-        if abs(rk.metric - rr.metric) > 0.005:
-            raise AssertionError(f"{tag}: accuracy {rk.metric} vs "
-                                 f"{rr.metric}")
-        if not 0.5 < rk.metric <= 1.0:
-            raise AssertionError(f"{tag}: implausible accuracy {rk.metric}")
-        if any(row_r["launches"].values()):
-            raise AssertionError(f"{tag}: the plain run launched kernels")
-        launched = row_k["launches"]
-        if launched["splitnn_bottom_gather"] != rk.train.steps:
-            raise AssertionError(f"{tag}: K2 launched "
-                                 f"{launched['splitnn_bottom_gather']} "
-                                 f"times in {rk.train.steps} train steps")
-        if launched["splitnn_bottom"] != n_eval_batches:
-            raise AssertionError(f"{tag}: K1 launched "
-                                 f"{launched['splitnn_bottom']} times for "
-                                 f"{n_eval_batches} eval batches")
+        rk, row_k = runs[variant, model, "kernel"]
+        compare_jobs(tag, runs[variant, model, "kernel"],
+                     runs[variant, model, "ref"])
+        check_launches(tag, row_k["launches"], {
+            "splitnn_bottom_gather": rk.train.steps,
+            "splitnn_bottom": n_eval_batches})
     return runs, rows
 
 
-def serve_phase(dev, params, cfg):
+def serve_scale(params, feats):
+    """The K1 tolerance's scale for mlp outputs: each output's term
+    magnitudes carried through the top layers, (|a|·|w1| + |b1|)·|w2| +
+    |b2| with |a| = |x|·|w| + |b|."""
+    p = {k: v.detach().double().abs().cpu() for k, v in params["top"].items()}
+    acts = [torch.from_numpy(np.abs(f)).double() @ bp["w"].double().abs().cpu()
+            + bp["b"].double().abs().cpu()
+            for f, bp in zip(feats, params["bottoms"])]
+    return (torch.cat(acts, 1) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def wire_step(params, te, quant, dev):
+    """One wire step of the mlp's activations, carried through its top
+    layers: per client, the step of the coarsest exponent any wire block
+    can get (that of the client's largest bottom activation over ``te``,
+    or of ``relu(b)``, a zero row's); for fp8 the step at the top of its
+    mantissa range (32·2^e).  Two roundings of one value on grids no
+    coarser than that differ by at most one step, and ``|Δout| <= (Σ
+    step·|w1|)·|w2|``."""
+    from repro_torch.kernels.splitnn_bottom.ops import splitnn_bottom
+    from repro_torch.quant import pow2, pow2_exponent
+    from repro_torch.train.vfl import pack_slab, pack_slab_params
+
+    fd = [f.shape[1] for f in te.client_features]
+    packed = pack_slab_params(params, max(fd))
+    slab = torch.from_numpy(pack_slab(te.client_features)).to(dev)
+    with torch.no_grad():
+        acts = splitnn_bottom(slab, packed["bw"], packed["bb"], True, "ref",
+                              None, quant)
+    amax = torch.maximum(acts.abs().amax((1, 2)),
+                         torch.relu(packed["bb"]).amax(1))
+    step = pow2(pow2_exponent(amax, quant)).double().cpu()
+    if quant == "fp8":
+        step = step * 32.0
+    top = {k: v.detach().double().abs().cpu()
+           for k, v in params["top"].items()}
+    dh = step.repeat_interleave(packed["bw"].shape[2]) @ top["w1"]
+    return dh @ top["w2"]
+
+
+def serve_phase(dev, params, cfg, quant=None):
     """The test set as seeded requests through ``VFLScoringEngine``,
-    kernel and plain engines, against ``score_partition``."""
+    kernel and plain engines, against ``score_partition``: within the K1
+    tolerance in f32; under a quant the two engines bitwise and each
+    within one wire step of ``score_partition`` (R3: the engine's slots
+    and score_partition's blocks put other rows in a wire block)."""
     from repro_torch.kernels.build import LAUNCHES, reset_launches
     from repro_torch.serve.vfl import VFLScoringEngine, score_partition
 
     _, te = partitions()
     feats = te.client_features
-    want = torch.from_numpy(score_partition(params, cfg, te, block_b=512))
+    want = torch.from_numpy(score_partition(params, cfg, te, block_b=512,
+                                            quant=quant))
     g = np.random.default_rng(SEED + 2)
     bounds, s = [], 0
     while s < te.n_samples:
@@ -898,7 +1135,8 @@ def serve_phase(dev, params, cfg):
                 for rid, (a, b) in enumerate(bounds)]
     out = {}
     for impl in ("kernel", "ref"):
-        eng = VFLScoringEngine(params, cfg, slots=64, bottom_impl=impl)
+        eng = VFLScoringEngine(params, cfg, slots=64, bottom_impl=impl,
+                               quant=quant)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -907,38 +1145,112 @@ def serve_phase(dev, params, cfg):
         got = torch.from_numpy(np.concatenate([res[r] for r in
                                                range(len(bounds))]))
         out[impl] = (eng.stats, dict(LAUNCHES), wall, got)
-    # the K1 tolerance, with each output's term magnitudes carried
-    # through the top layers: (|a|·|w1| + |b1|)·|w2| + |b2|
-    p = {k: v.detach().double().abs().cpu() for k, v in params["top"].items()}
-    acts = [torch.from_numpy(np.abs(f)).double() @ bp["w"].double().abs().cpu()
-            + bp["b"].double().abs().cpu()
-            for f, bp in zip(feats, params["bottoms"])]
-    scale = ((torch.cat(acts, 1) @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
+    scale = serve_scale(params, feats)
+    step = 0.0 if quant is None else wire_step(params, te, quant, dev)
     rows = []
     for impl, (stats, launches, wall, got) in out.items():
-        err = check_close(f"serve[{impl}] vs score_partition", got, want,
-                          scale, rtol=1e-5, atol=1e-6)
-        row = dict(phase="serve", impl=impl, requests=len(bounds),
-                   rows=te.n_samples, wall_s=wall, max_abs_err=err,
-                   stats=stats.to_dict(), launches=launches)
+        err = check_close(f"serve[{impl}, {quant}] vs score_partition", got,
+                          want, scale, rtol=1e-5, atol=1e-6 + step)
+        row = dict(phase="serve", impl=impl, quant=quant,
+                   requests=len(bounds), rows=te.n_samples, wall_s=wall,
+                   max_abs_err=err, stats=stats.to_dict(),
+                   launches=launches)
+        if quant is not None:
+            row["wire_step_bound_max"] = float(step.max())
         emit(row)
         rows.append(row)
-    (sk, lk, _, _), (sr, _, _, _) = out["kernel"], out["ref"]
-    fields = sk.CONTRACT_FIELDS
+    (sk, lk, _, gk), (sr, _, _, gr) = out["kernel"], out["ref"]
+    fields = sk.CONTRACT_FIELDS + ("quant",)
     if [getattr(sk, f) for f in fields] != [getattr(sr, f) for f in fields]:
         raise AssertionError("serve: ServeStats differ between engines")
-    if lk["splitnn_bottom"] != sk.dispatches:
-        raise AssertionError(f"serve: K1 launched {lk['splitnn_bottom']} "
-                             f"times in {sk.dispatches} dispatches")
+    if quant is not None and not torch.equal(gk, gr):
+        raise AssertionError(f"serve[{quant}]: the kernel and plain engines "
+                             "differ")
+    k1 = "splitnn_bottom_int8" if quant == "int8" else "splitnn_bottom"
+    if lk[k1] != sk.dispatches:
+        raise AssertionError(f"serve: {k1} launched {lk[k1]} times in "
+                             f"{sk.dispatches} dispatches")
     if any(out["ref"][1].values()):
         raise AssertionError("serve: the plain engine launched kernels")
     return rows
 
 
+# (variant, model, lr, quants): the Table-2 jobs of the train phase under
+# the quantized wire (``benchmarks/quant_vfl.py``'s sweep at full HI);
+# starall × mlp trains on no coreset, so its kernel and plain runs see
+# the same rows
+QUANT_JOBS = (("treecss", "mlp", 0.01, ("int8", "fp8")),
+              ("treecss", "lr", 0.05, ("int8", "fp8")),
+              ("starall", "mlp", 0.01, ("int8",)))
+MAX_INT8_ACC_DROP = 0.01       # benchmarks/quant_vfl.py's gate (int8)
+MAX_PAYLOAD_RATIO = 0.3        # the quantized payload against f32's
+
+
+def quant_phase(dev, f32_runs):
+    """The SplitNN jobs at full HI with the int8 and fp8 wire, kernels
+    against plain versions, each held against the f32 run of the same
+    job (``f32_runs``, the train phase's): accuracy drop, payload ratio,
+    and the launches of the path (int8: K10 every step, K9 every eval
+    block; fp8: K2 and K1 carry the f32 GEMM)."""
+    tr, te = partitions()
+    n_eval_batches = -(-te.n_samples // 512)
+    for model in ("mlp", "lr"):              # untimed: first use of each
+        for quant in ("int8", "fp8"):
+            drive_split(tr, te, dev, "treecss", train_cfg(
+                model, 0.01, tr.n_samples, 2), None, quant=quant)
+    runs, rows = {}, []
+    for variant, model, lr, quants in QUANT_JOBS:
+        cfg = train_cfg(model, lr, tr.n_samples, 200)
+        for quant in quants:
+            for impl in ("kernel", "ref"):
+                job = split_job(tr, te, dev, variant, model, lr, cfg, impl,
+                                quant)
+                runs[variant, model, quant, impl] = job
+                rows.append(job[1])
+    for variant, model, _, quants in QUANT_JOBS:
+        f32, f32_row = f32_runs[variant, model, "kernel"]
+        for quant in quants:
+            tag = f"{variant}/{model}/{quant}"
+            kernel_run = runs[variant, model, quant, "kernel"]
+            rk, row_k = kernel_run
+            rr, _ = runs[variant, model, quant, "ref"]
+            compare_jobs(tag, kernel_run, runs[variant, model, quant, "ref"])
+            if rk.coreset is None and rk.train.losses != rr.train.losses:
+                raise AssertionError(f"{tag}: the kernel and plain runs "
+                                     "trained on the same rows, but their "
+                                     "losses differ")
+            if not np.array_equal(rk.mpsi.intersection,
+                                  f32.mpsi.intersection):
+                raise AssertionError(f"{tag}: alignment differs from f32")
+            drop = f32.metric - rk.metric
+            ratio = (rk.train.engine_stats.gather_payload_bytes
+                     / f32.train.engine_stats.gather_payload_bytes)
+            row_k.update(f32_metric=f32.metric, acc_drop=drop,
+                         payload_ratio=ratio,
+                         comm_ratio=rk.train.comm_bytes / f32.train.comm_bytes,
+                         f32_ms_per_step=f32_row["ms_per_step"])
+            emit({"phase": "quant_vs_f32", "job": tag, "f32": f32.metric,
+                  "quant": rk.metric, "acc_drop": drop,
+                  "payload_ratio": ratio, "comm_ratio": row_k["comm_ratio"]})
+            if quant == "int8" and drop > MAX_INT8_ACC_DROP:
+                raise AssertionError(f"{tag}: accuracy {rk.metric} drops "
+                                     f"{drop} below f32's {f32.metric}")
+            if ratio > MAX_PAYLOAD_RATIO:
+                raise AssertionError(f"{tag}: payload ratio {ratio}")
+            int8 = quant == "int8"
+            check_launches(tag, row_k["launches"], {
+                "splitnn_bottom_int8_gather": rk.train.steps if int8 else 0,
+                "splitnn_bottom_int8": n_eval_batches if int8 else 0,
+                "splitnn_bottom_gather": 0 if int8 else rk.train.steps,
+                "splitnn_bottom": 0 if int8 else n_eval_batches})
+    return runs, rows
+
+
 def profile_phase(dev):
     """Where the time of one full-HI treecss run goes: the obs spans of a
     traced run (host wall per stage), then, under torch.profiler, the
-    device time and the top device ops."""
+    device time and the top device ops; k-NN, mlp, and mlp under the
+    int8 wire (with a cProfile of its host time)."""
     from repro_torch.config import AlignOptions, EngineOptions
     from repro_torch.core.splitnn import SplitNNConfig
     from repro_torch.core.treecss import run_pipeline
@@ -952,8 +1264,10 @@ def profile_phase(dev):
     cfg = train_cfg("mlp", 0.01, tr.n_samples, 200)
     mlp = lambda trace=None: drive_split(tr, te, dev, "treecss", cfg, None,
                                          trace)
+    mlp_int8 = lambda trace=None: drive_split(tr, te, dev, "treecss", cfg,
+                                              None, trace, quant="int8")
     rows = []
-    for model, fn in (("knn", run), ("mlp", mlp)):
+    for model, fn in (("knn", run), ("mlp", mlp), ("mlp/int8", mlp_int8)):
         tracer = fn(trace=True).tracer
         spans = {}
         for sp in tracer.finished():
@@ -965,6 +1279,8 @@ def profile_phase(dev):
                "device_ms": device_ms,
                "device_busy_share": None if device_ms is None else
                device_ms / wall_ms, "top_device_ops_ms": top}
+        if model == "mlp/int8":
+            row["host_profile"] = host_profile(fn)
         emit(row)
         rows.append(row)
     return rows
@@ -1053,8 +1369,12 @@ def yp_phase(dev):
     if {k: launched[k] for k in merges} != merges:
         raise AssertionError(f"yp: merge launches {launched}, expected "
                              f"{merges} in {rk.mpsi.rounds} rounds")
+    # every kernel of the f32 path runs; K4 (minibatch coresets) and the
+    # int8 twins K9/K10 (the quantized wire) have paths of their own
     missing = [k for k, v in launched.items() if not v
-               and k not in (*merges, "kmeans_update_gather")]
+               and k not in (*merges, "kmeans_update_gather",
+                             "splitnn_bottom_int8",
+                             "splitnn_bottom_int8_gather")]
     if missing:
         raise AssertionError(f"yp: kernels {missing} were not launched")
     if any(row_r["launches"].values()):
@@ -1286,6 +1606,15 @@ def main() -> int:
         "sorted_intersect_tiled": yp_launches["sorted_intersect_tiled"],
         "kmeans_update_gather": mb_launches["kmeans_update_gather"]}
     pipe_rows += yp_rows + mb_rows + delta_phase(dev)
+    # K9 and K10 count on their own main path, treecss × mlp under int8
+    quant_runs, quant_rows = quant_phase(dev, train_runs)
+    qrep, qrow = quant_runs["treecss", "mlp", "int8", "kernel"]
+    launches = launches | {k: qrow["launches"][k] for k in
+                           ("splitnn_bottom_int8",
+                            "splitnn_bottom_int8_gather")}
+    pipe_rows += quant_rows
+    pipe_rows += serve_phase(dev, qrep.train.params, train_cfg(
+        "mlp", 0.01, 70_000, 200), quant="int8")
     kernels = []
     for r in rows:
         if "check_only" in r:

@@ -75,9 +75,10 @@ class EngineOptions:
     any truthy value).  ``train_engine``/``fuse_gather``/``block_b``/
     ``quant`` keep the reference's names and defaults; ``bottom_impl``
     resolves by device (module docstring).  ``block_b`` is the row count
-    of an evaluation batch (the CUDA kernels pick their own tiles), and
-    a non-``None`` ``quant`` raises until the quant slice.  The k-NN
-    pipeline reads none of them."""
+    of an evaluation batch (the CUDA kernels pick their own tiles);
+    ``quant`` ("int8"|"fp8") narrows the activation wire in training,
+    evaluation and serving (``repro_torch.quant``).  The k-NN pipeline
+    reads none of them."""
     device: Any = None
     train_engine: str = "scan"
     bottom_impl: Optional[str] = None

@@ -35,7 +35,7 @@ import torch
 from repro_torch import rng
 from repro_torch.config import EngineOptions, resolve_device
 from repro_torch.data.vertical import VerticalPartition
-from repro_torch.quant import require_f32, wire_bytes
+from repro_torch.quant import resolve_quant, wire_bytes
 from repro_torch.train.losses import (weighted_binary_xent, weighted_mse,
                                       weighted_softmax_xent)
 from repro_torch.train.vfl import EngineStats, TrainReport  # re-export
@@ -159,12 +159,17 @@ def train_splitnn(partition: VerticalPartition, cfg: SplitNNConfig, *,
     ("kernel"), their plain versions ("ref") or per-client GEMMs
     ("loop"), ``fuse_gather`` fusing the step's row gather into the
     bottom pass.  ``"loop"``: the per-minibatch host loop (the parity
-    oracle, one sync per step)."""
+    oracle, one sync per step; f32 only).  ``options.quant``
+    ("int8"|"fp8", DESIGN.md §12) quantizes the per-step activation send
+    (and, for int8, the bottom GEMM) to a 1-byte wire dtype with pow2
+    block scales."""
     from repro_torch.train import vfl
 
     options = options or EngineOptions()
     if options.train_engine == "loop":
-        require_f32(options.quant)
+        if resolve_quant(options.quant) is not None:
+            raise ValueError("engine='loop' communicates f32 only; use the "
+                             "scan engine for quantized training")
         return vfl.train_loop(partition, cfg, sample_weights=sample_weights,
                               bandwidth=bandwidth, latency=latency,
                               verbose=verbose, device=options.device)
@@ -181,7 +186,9 @@ def predict(params, cfg: SplitNNConfig, partition: VerticalPartition, *,
             block_b: int = 512, bottom_impl: Optional[str] = None,
             quant: Optional[str] = None) -> np.ndarray:
     """Batched prediction through the serving score path
-    (``score_partition``: ``block_b``-row slab batches through K1)."""
+    (``score_partition``: ``block_b``-row slab batches through K1, or K9
+    under int8).  ``quant`` applies the wire rounding quantized training
+    saw, so a quantized model evaluates under its training numerics."""
     from repro_torch.serve.vfl import score_partition
 
     out = score_partition(params, cfg, partition, block_b=block_b,

@@ -11,8 +11,9 @@ The four framework variants are combinations of
   TREECSS  = Tree-MPSI + Cluster-Coreset (the paper's framework)
 
 The SplitNN models (lr/mlp/linreg) train with the epoch engine
-(``train_splitnn``, K2 in every step) and evaluate through the batched
-score path (``evaluate``, K1 in every batch).  With ``model="knn"``
+(``train_splitnn``, K2 in every step; K10 under int8) and evaluate
+through the batched score path (``evaluate``, K1 in every batch; K9
+under int8).  With ``model="knn"``
 nothing is trained: the pipeline predicts with the (coreset-weighted)
 k-NN vote.
 """
@@ -141,7 +142,9 @@ def run_pipeline(train_part: VerticalPartition,
     ``options`` whole; evaluation scores ``options.block_b`` rows a
     batch with the training stage's bottom implementation (the plain
     slab version after ``bottom_impl="loop"``, as the reference).
-    ``options.trace`` turns on the obs layer (a ``Tracer``, or any
+    ``options.quant`` ("int8"|"fp8") quantizes the training stage's
+    activation send (int8 also runs the int8 bottom kernels) and
+    evaluation applies the same wire rounding.  ``options.trace`` turns on the obs layer (a ``Tracer``, or any
     truthy value to self-create one; it comes back on the report).
     """
     options = options or EngineOptions()
@@ -220,7 +223,8 @@ def run_pipeline(train_part: VerticalPartition,
             with span("pipeline.serve", rows=test_part.n_samples):
                 metric = evaluate(train_report.params, cfg, test_part,
                                   block_b=options.block_b,
-                                  bottom_impl=eval_impl)
+                                  bottom_impl=eval_impl,
+                                  quant=options.quant)
 
     return PipelineReport(
         variant=variant, mpsi=mpsi_stats, coreset=coreset_res,

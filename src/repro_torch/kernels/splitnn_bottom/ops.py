@@ -1,49 +1,84 @@
 """Differentiable public op of the block-diagonal SplitNN bottom layer
-(the port of ``repro.kernels.splitnn_bottom.ops``, f32 only).
+(the port of ``repro.kernels.splitnn_bottom.ops``).
 
-``splitnn_bottom(x, w, b, relu, impl, idx=None)`` runs the CUDA kernel
-(``impl="kernel"``: K1, or K2 with ``idx``) or the plain PyTorch version
-(``impl="ref"``); ``None`` picks the kernel for CUDA tensors and the
-plain version for CPU tensors.  There is no fallback: the kernel on a CPU
-tensor raises.
+``splitnn_bottom(x, w, b, relu, impl, idx=None, quant=None)`` runs the
+CUDA kernel (``impl="kernel"``: K1, or K2 with ``idx``; under
+``quant="int8"`` their int8 twins K9 and K10) or the plain PyTorch
+version (``impl="ref"``); ``None`` picks the kernel for CUDA tensors and
+the plain version for CPU tensors.  There is no fallback: the kernel on
+a CPU tensor raises.
 
-A ``torch.autograd.Function`` routes both impls through ONE backward, the
-reference's (``ops.py:155-179``), so their gradients cannot diverge:
+``quant="int8"`` quantizes x by rows and w by columns (pow2 scales,
+``repro_torch.quant``) and runs the i8×i8→i32 GEMM with the f32 scale
+and bias epilogue.  With ``idx`` the row scales are gathered outside
+the kernel (``sx[:, idx]``) and the wide slab gather runs inside K10, as
+the reference does.  ``quant="fp8"`` is comm-only: the GEMM stays f32
+(K1/K2), bitwise the f32 output.  The reference pads before it
+quantizes; the port works on unpadded operands, which quantize each
+real element identically (zero padding never changes a row or column
+amax).
 
-  dpre = g ⊙ 1[out > 0]      (ReLU mask; out > 0 ⟺ pre-activation > 0)
+A ``torch.autograd.Function`` routes every impl and quant through ONE
+backward, the reference's f32 straight-through pass (``ops.py:155-179``),
+so their gradients cannot diverge:
+
+  dpre = g ⊙ 1[out > 0]      (ReLU mask of the forward that ran, quantized
+                              or not; out > 0 ⟺ pre-activation > 0)
   dw   = xgᵀ @ dpre          db = Σ_B dpre
   dx   = dpre @ wᵀ           (only when x needs a gradient; with idx it
                               scatter-adds back into the slab rows)
 
-as batched ``torch.bmm``s: the reference computes them outside any
-Pallas kernel, so the backward adds no kernel.
+as batched ``torch.bmm``s on the f32 ``x`` and ``w``: the reference
+computes them outside any Pallas kernel, so the backward adds no kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.config import resolve_impl
 from repro_torch.kernels.splitnn_bottom import ref
 from repro_torch.kernels.splitnn_bottom.kernel import (
-    splitnn_bottom_cuda, splitnn_bottom_gather_cuda)
+    splitnn_bottom_cuda, splitnn_bottom_gather_cuda,
+    splitnn_bottom_int8_cuda, splitnn_bottom_int8_gather_cuda)
+from repro_torch.quant import pow2, quantize_columns, quantize_rows
 
-__all__ = ["splitnn_bottom"]
+__all__ = ["splitnn_bottom", "int8_rows"]
 
 
-def _forward(x, w, b, relu: bool, impl: str, idx):
+def int8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (M, N, d) f32 -> (xq (M, N, d) int8, sx (M, N) f32): the int8
+    operand of the quantized bottom pass with its exact pow2 row scales.
+    A caller whose slab is loop-invariant computes this once and passes
+    it as ``x_int8``."""
+    xq, ex = quantize_rows(x, "int8")
+    return xq, pow2(ex)
+
+
+def _forward(x, w, b, relu: bool, impl: str, idx, x_int8):
+    if x_int8 is None:
+        if impl == "ref":
+            return ref.splitnn_bottom(x, w, b, relu, idx)
+        if idx is None:
+            return splitnn_bottom_cuda(x, w, b, relu)
+        return splitnn_bottom_gather_cuda(idx, x, w, b, relu)
+    xq, sx = x_int8
+    wq, ew = quantize_columns(w, "int8")
+    sw = pow2(ew)
+    if idx is not None:      # row scales commute with the row gather
+        sx = sx.index_select(1, idx)
     if impl == "ref":
-        return ref.splitnn_bottom(x, w, b, relu, idx)
+        return ref.splitnn_bottom_int8(xq, sx, wq, sw, b, relu, idx)
     if idx is None:
-        return splitnn_bottom_cuda(x, w, b, relu)
-    return splitnn_bottom_gather_cuda(idx, x, w, b, relu)
+        return splitnn_bottom_int8_cuda(xq, sx, wq, sw, b, relu)
+    return splitnn_bottom_int8_gather_cuda(idx, xq, sx, wq, sw, b, relu)
 
 
 class _SplitNNBottom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, relu, impl, idx):
-        out = _forward(x, w, b, relu, impl, idx)
+    def forward(ctx, x, w, b, relu, impl, idx, x_int8):
+        out = _forward(x, w, b, relu, impl, idx, x_int8)
         ctx.save_for_backward(x, w, out, idx)
         ctx.relu = relu
         return out
@@ -62,16 +97,32 @@ class _SplitNNBottom(torch.autograd.Function):
             dx = torch.bmm(dpre, w.transpose(1, 2))              # (M, B, d)
             if idx is not None:     # duplicate schedule slots accumulate
                 dx = torch.zeros_like(x).index_add_(1, idx, dx)
-        return dx, dw, db, None, None, None
+        return dx, dw, db, None, None, None, None
 
 
 def splitnn_bottom(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    relu: bool = True, impl: Optional[str] = None,
-                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   idx: Optional[torch.Tensor] = None,
+                   quant: Optional[str] = None,
+                   x_int8: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """x (M, B, d), w (M, d, o), b (M, o) f32 -> (M, B, o) f32: every
     client's ``relu?(x[m] @ w[m] + b[m])`` in one pass.  With ``idx``
     (B,) int32, ``x`` is the full (M, N, d) slab and the minibatch
-    gather ``x[:, idx]`` fuses into the pass (K2), bitwise-equal to
-    gathering first."""
+    gather ``x[:, idx]`` fuses into the pass (K2, or K10), bitwise-equal
+    to gathering first.  ``quant`` is None, ``"int8"`` (the int8 GEMM,
+    K9/K10) or ``"fp8"`` (comm-only: the f32 GEMM); under int8,
+    ``x_int8`` may hold ``int8_rows(x)`` precomputed."""
+    if quant not in (None, "int8", "fp8"):
+        raise ValueError(f"splitnn_bottom: unknown quant={quant!r}")
+    if quant == "int8":
+        if x_int8 is None:
+            x_int8 = int8_rows(x)
+        elif x_int8[0].shape != x.shape:
+            raise ValueError(f"splitnn_bottom: x_int8 rows "
+                             f"{tuple(x_int8[0].shape)} are not x's "
+                             f"{tuple(x.shape)}")
+    else:
+        x_int8 = None
     impl = resolve_impl(impl, x.device)
-    return _SplitNNBottom.apply(x, w, b, bool(relu), impl, idx)
+    return _SplitNNBottom.apply(x, w, b, bool(relu), impl, idx, x_int8)

@@ -11,9 +11,11 @@ A slot-based scheduler admits requests into a fixed-shape
 ``(M, slots, d_max)`` device batch:
 
 - every dispatch has the same shape, with empty slots carrying
-  don't-care rows whose outputs are discarded (each output row depends
-  on its own input row only, so an occupied slot's output is the same
-  at any occupancy);
+  don't-care rows whose outputs are discarded (in f32 each output row
+  depends on its own input row only, so an occupied slot's output is the
+  same at any occupancy; under a quant the wire rounding shares one
+  exponent across each block of 8 slots, so a neighbour's row can move
+  a row's output by up to one wire step, as in the reference);
 - admission is FIFO **with backfill**: a request whose remaining rows
   fit the free slots is admitted whole; one that does not fit is
   deferred and later, smaller requests may fill the batch, so
@@ -27,9 +29,11 @@ A slot-based scheduler admits requests into a fixed-shape
 
 ``score_partition`` is the offline/eval flavor — fixed ``block_b``-row
 batches over a whole partition (zero-padded remainder, truncated), which
-``splitnn.predict``/``evaluate`` route through.  ``simulate_trace``
-drives an engine over an open-loop arrival trace on a virtual clock
-under the ``"continuous"`` and ``"blocking"`` policies.
+``splitnn.predict``/``evaluate`` route through.  ``quant`` ("int8"|
+"fp8") scores under the wire rounding of quantized training (K9 in
+every int8 dispatch).  ``simulate_trace`` drives an engine over an
+open-loop arrival trace on a virtual clock under the ``"continuous"``
+and ``"blocking"`` policies.
 """
 from __future__ import annotations
 
@@ -138,7 +142,8 @@ class VFLScoringEngine:
             quant=quant)
         self.device = self.packed["bw"].device
         self.stats = ServeStats(slots=self.slots,
-                                bottom_impl=self._score.bottom_impl)
+                                bottom_impl=self._score.bottom_impl,
+                                quant=self._score.quant or "none")
         self._xbuf = np.zeros((self.m, self.slots, self.d_max), np.float32)
         self._slot_req: List[Optional[_Pending]] = [None] * self.slots
         self._slot_row = np.zeros(self.slots, np.int64)
@@ -320,9 +325,10 @@ def score_partition(params, cfg, partition, *, block_b: int = 512,
                     quant: Optional[str] = None) -> np.ndarray:
     """Score a whole ``VerticalPartition`` through fixed-shape batches of
     ``min(block_b, N)`` rows (the remainder zero-padded and truncated;
-    row independence makes this exact) on the params' device.  The slab
-    goes to the device in one copy and the outputs come back in one, so
-    the host syncs once per call.  Returns the raw (N, o) outputs."""
+    in f32 row independence makes this exact, under a quant the padded
+    tail shares its last block's exponent) on the params' device.  The
+    slab goes to the device in one copy and the outputs come back in
+    one, so the host syncs once per call.  Returns the raw (N, o) outputs."""
     fd = [f.shape[1] for f in partition.client_features]
     n = partition.n_samples
     if n == 0:

@@ -48,12 +48,15 @@ def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
 
 def weighted_binary_xent(logits: torch.Tensor, labels: torch.Tensor,
                          w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """logits (B,), labels (B,) in {0, 1}.  ``torch.maximum`` against a
-    zero tensor (not ``relu``) so the gradient at a zero logit splits
-    as ``jnp.maximum``'s does."""
+    """logits (B,), labels (B,) in {0, 1}.  The gradient at a zero logit
+    is the reference's, -y: ``torch.maximum`` against a zero tensor
+    splits it as ``jnp.maximum`` does (1/2), and ``|l|`` is written as
+    ``where(l >= 0, l, -l)``, whose slope at 0 is 1 as ``jnp.abs``'s is
+    (``Tensor.abs`` has slope 0 there).  Quantized logits hit 0 exactly."""
     logits = logits.float()
     labels = labels.float()
+    abs_l = torch.where(logits >= 0, logits, -logits)
     ce = (torch.maximum(logits, logits.new_zeros(())) - logits * labels
-          + torch.log1p(torch.exp(-logits.abs())))
+          + torch.log1p(torch.exp(-abs_l)))
     w, z = _norm_weights(w, ce)
     return (w * ce).sum() / z

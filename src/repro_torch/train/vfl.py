@@ -19,12 +19,21 @@ layer is one block-diagonal slab pass (``kernels/splitnn_bottom``).
 ``train_loop`` — the per-minibatch host loop (one sync per step), kept
 as the parity oracle, as in the reference.
 
+``EngineOptions.quant`` ("int8"|"fp8", DESIGN.md §12) narrows the
+activation send to a 1-byte wire dtype: on one device the bottom
+activations go through ``quant.fake_quantize`` (the wire rounding, an
+identity backward), and under int8 the bottom GEMM itself runs on the
+int8 kernels (K10 in training, K9 in evaluation and serving).  The
+slab's int8 rows are loop-invariant, so ``train_scan`` quantizes them
+once per run, as the reference's hoisted per-step quantization does;
+the weights' columns are quantized every step.
+
 Left out, being TPU-only: the slab's 128-lane pre-padding (``d_eff``:
 the CUDA kernels take unpadded widths) and the warm-up compile epoch
 with its ``train.compile`` span (nothing compiles: the kernels are
-built once per process, at first use).  Sharding over a mesh waits for
-the multi-GPU slice (ROADMAP.md, queue 6) and quantized activations for
-the quant slice (queue 4).
+built once per process, at first use).  Sharding over a mesh, and with
+it the quantized all-gather, waits for the multi-GPU slice (ROADMAP.md,
+queue 6).
 """
 from __future__ import annotations
 
@@ -37,10 +46,11 @@ import torch
 
 from repro_torch.config import (EngineOptions, resolve_bottom_impl,
                                 resolve_device, resolve_impl)
-from repro_torch.kernels.splitnn_bottom.ops import splitnn_bottom
+from repro_torch.kernels.splitnn_bottom.ops import int8_rows, splitnn_bottom
 from repro_torch.obs.metrics import StatsMixin
 from repro_torch.obs.trace import span
-from repro_torch.quant import payload_bytes, require_f32
+from repro_torch.quant import (fake_quantize, payload_bytes, resolve_quant,
+                               scale_bytes_per_step)
 from repro_torch.train.optimizer import (adam_init, adam_update, tree_leaves,
                                          tree_map)
 
@@ -147,13 +157,17 @@ def unpack_slab_params(packed, feature_dims: Sequence[int]):
 # ------------------------------------------------------------ slab forward
 
 
-def _bottom_acts(packed, cfg, m: int, x_slab, bottom_impl, idx):
+def _bottom_acts(packed, cfg, m: int, x_slab, bottom_impl, idx, quant,
+                 x_int8=None):
     w = packed["bw"]
     b = packed.get("bb")
     if b is None:     # bias-free models: a constant zero, no phantom param
         b = torch.zeros((w.shape[0], w.shape[2]), dtype=torch.float32,
                         device=w.device)
-    acts = splitnn_bottom(x_slab, w, b, cfg.model == "mlp", bottom_impl, idx)
+    acts = splitnn_bottom(x_slab, w, b, cfg.model == "mlp", bottom_impl, idx,
+                          quant, x_int8)
+    if quant is not None:   # the wire rounding of the activation send
+        acts = fake_quantize(acts, quant)
     return acts[:m]                              # drop dummy-client padding
 
 
@@ -167,24 +181,31 @@ def _top_mlp(top, acts: torch.Tensor) -> torch.Tensor:
 
 def forward_slab_packed(packed, cfg, m: int, x_slab: torch.Tensor, *,
                         bottom_impl: Optional[str] = None,
-                        idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        idx: Optional[torch.Tensor] = None,
+                        quant: Optional[str] = None,
+                        x_int8=None) -> torch.Tensor:
     """SplitNN forward from slab-form params.  ``x_slab`` is the
     (M, B, d_max) batch slab — or, with ``idx`` (B,) int32, the FULL
     (M, N, d_max) slab whose minibatch gather fuses into the bottom pass
-    (K2).  Matches ``splitnn_forward`` on the per-client slices up to
-    GEMM summation order."""
-    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, idx)
+    (K2; K10 under int8).  Matches ``splitnn_forward`` on the per-client
+    slices up to GEMM summation order.  ``quant`` applies the wire
+    rounding after the bottom pass (``fake_quantize``); ``x_int8`` is
+    ``int8_rows(x_slab)`` where the caller has it."""
+    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, idx, quant,
+                        x_int8)
     if cfg.model in ("lr", "linreg"):
         return acts.sum(0) + packed["top"]["b"]
     return _top_mlp(packed["top"], acts)
 
 
 def forward_slab_eval(packed, cfg, m: int, x_slab: torch.Tensor, *,
-                      bottom_impl: Optional[str] = None) -> torch.Tensor:
-    """Serving/eval slab forward: the same bottom pass (K1), with the
+                      bottom_impl: Optional[str] = None,
+                      quant: Optional[str] = None) -> torch.Tensor:
+    """Serving/eval slab forward: the same bottom pass (K1; K9 under
+    int8) and the same wire rounding as quantized training, with the
     lr/linreg client sum unrolled left to right as
     ``splitnn_forward``'s ``sum`` folds it."""
-    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, None)
+    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, None, quant)
     if cfg.model in ("lr", "linreg"):
         out = acts[0]
         for i in range(1, m):
@@ -203,8 +224,10 @@ def make_score_step(params, cfg, feature_dims: Sequence[int], *,
     d_max) slab on the params' device to (B, o) outputs, without
     autograd; ``score_step.bottom_impl`` names the implementation it
     runs (``None`` picks by that device).  The kernel's tile is its own,
-    so the reference's ``block_b`` is gone."""
-    require_f32(quant)
+    so the reference's ``block_b`` is gone.  ``quant`` scores under the
+    wire rounding a model trained with that ``quant`` saw
+    (``score_step.quant`` holds the resolved dtype)."""
+    quant = resolve_quant(quant)
     fd = tuple(int(d) for d in feature_dims)
     packed = pack_slab_params(params, max(fd))
     impl = resolve_impl(bottom_impl, resolve_device(packed["bw"].device))
@@ -213,8 +236,9 @@ def make_score_step(params, cfg, feature_dims: Sequence[int], *,
     def score_step(packed, x_slab: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             return forward_slab_eval(packed, cfg, m, x_slab,
-                                     bottom_impl=impl)
+                                     bottom_impl=impl, quant=quant)
     score_step.bottom_impl = impl
+    score_step.quant = quant
     return packed, score_step
 
 
@@ -275,15 +299,21 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
     ``None`` picks ``"kernel"`` on CUDA and ``"ref"`` on the CPU.
     ``fuse_gather`` fuses the step's ``slab[:, idx]`` gather into the
     bottom pass (bitwise-equal to ``False``, which gathers first).
-    ``options.device`` places everything (default CUDA)."""
+    ``options.quant`` ("int8"|"fp8") narrows the activation send (module
+    docstring); it needs the slab bottom path.  ``options.device`` places
+    everything (default CUDA)."""
     from repro_torch.core import splitnn as models
 
     options = options or EngineOptions()
-    require_f32(options.quant)
     device = resolve_device(options.device)
     impl = resolve_bottom_impl(options.bottom_impl, device)
     use_slab = impl != "loop"
     fuse = use_slab and bool(options.fuse_gather)
+    quant = resolve_quant(options.quant)
+    if quant is not None and not use_slab:
+        raise ValueError(
+            "quantized activations need the slab bottom path "
+            "(bottom_impl='kernel'|'ref'), not 'loop'")
 
     n = partition.n_samples
     m = partition.n_clients
@@ -310,6 +340,8 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
     bs = min(cfg.batch_size, n)
     steps_per_epoch = -(-n // bs)
     padded_bs = bs                                # one device: no padding
+    # the slab's int8 rows and their scales, once per run (loop-invariant)
+    x_int8 = int8_rows(data[0]) if fuse and quant == "int8" else None
 
     def step_loss(ib: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
         y = y_all.index_select(0, ib)
@@ -319,21 +351,26 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
                 params, cfg, [x.index_select(0, ib) for x in data])
         elif fuse:
             out = forward_slab_packed(params, cfg, m, data[0],
-                                      bottom_impl=impl, idx=ib)
+                                      bottom_impl=impl, idx=ib, quant=quant,
+                                      x_int8=x_int8)
         else:
             out = forward_slab_packed(params, cfg, m,
                                       data[0].index_select(1, ib),
-                                      bottom_impl=impl)
+                                      bottom_impl=impl, quant=quant)
         return models._loss_from_out(out, cfg, y, w)
 
     rng = np.random.default_rng(cfg.seed)
-    per_sample = models.activation_bytes_per_sample(cfg, m, None)
-    per_epoch_bytes = per_sample * n
+    # the forward activation ships in the wire dtype; a quantized
+    # payload's exponent bytes are per STEP (they scale with row blocks)
+    per_sample = models.activation_bytes_per_sample(cfg, m, quant)
+    per_epoch_bytes = (per_sample * n
+                       + steps_per_epoch * scale_bytes_per_step(bs, m, quant))
     stats = EngineStats(steps_per_epoch=steps_per_epoch,
                         padded_batch=padded_bs, engine="scan",
                         bottom_impl=impl, fused_gather=fuse,
+                        quant=quant or "none",
                         gather_payload_bytes=payload_bytes(
-                            models.activation_width(cfg), bs, m, None))
+                            models.activation_width(cfg), bs, m, quant))
     losses: List[float] = []
     comm_bytes = 0
     total_steps = 0
@@ -385,7 +422,8 @@ def train_loop(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
     """Per-minibatch host loop: one blocking sync per step, per-client
     GEMMs on the zoo params.  The epoch engine's parity oracle; every
     row trains (the last ``n mod bs`` rows as a short batch) and
-    ``comm_bytes`` counts the rows actually shipped."""
+    ``comm_bytes`` counts the rows actually shipped.  It communicates
+    f32 only (``train_splitnn`` refuses a quant for it)."""
     from repro_torch.core import splitnn as models
 
     device = resolve_device(device)

@@ -105,9 +105,9 @@ def test_unknown_impl_raises():
 
 @pytest.mark.parametrize("model", ["lr", "mlp", "linreg"])
 def test_splitnn_models_wait_for_the_training_slice(model):
-    """The training slice has come: every SplitNN model runs the
-    pipeline on the CPU; what still waits is the quantized wire (the
-    quant slice)."""
+    """The training and quant slices have come: every SplitNN model runs
+    the pipeline on the CPU, in f32 and with the int8 wire; an unknown
+    wire dtype raises."""
     x = np.random.default_rng(0).normal(size=(30, 6)).astype(np.float32)
     n_classes = 0 if model == "linreg" else 2
     y = x[:, 0] if model == "linreg" else np.arange(30) % 2
@@ -117,6 +117,9 @@ def test_splitnn_models_wait_for_the_training_slice(model):
                        align=AlignOptions(protocol="oprf"))
     assert rep.train.epochs == 2 and rep.train.steps > 0
     assert np.isfinite(rep.metric)
-    with pytest.raises(NotImplementedError, match="quant slice"):
+    rep = run_pipeline(part, part, cfg, options=EngineOptions(
+        device="cpu", quant="int8"), align=AlignOptions(protocol="oprf"))
+    assert rep.train.engine_stats.quant == "int8" and np.isfinite(rep.metric)
+    with pytest.raises(ValueError, match="quant"):
         run_pipeline(part, part, cfg, options=EngineOptions(
-            device="cpu", quant="int8"), align=AlignOptions(protocol="oprf"))
+            device="cpu", quant="int4"), align=AlignOptions(protocol="oprf"))

@@ -296,8 +296,13 @@ def test_cuda_device_turns_tf32_off():
 
 
 def test_quant_waits_for_the_quant_slice():
+    """The quant slice has come: ``quant="int8"`` trains on the CPU and
+    reports its wire dtype; an unknown wire dtype raises."""
     part = _port_part(make_cls_partition(n=40, d=6, seed=0))
     _, cfg = _cfgs("mlp", 2, max_epochs=1)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    rep = train_splitnn(part, cfg, options=EngineOptions(device="cpu",
+                                                         quant="int8"))
+    assert rep.engine_stats.quant == "int8" and np.isfinite(rep.losses[0])
+    with pytest.raises(ValueError, match="quant"):
         train_splitnn(part, cfg, options=EngineOptions(device="cpu",
-                                                       quant="int8"))
+                                                       quant="int4"))
