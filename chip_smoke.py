@@ -42,7 +42,15 @@ Phases, each printing JSON lines:
               their plain versions, K10 bitwise K9 on the gathered rows;
               ``torch.baddbmm`` on the dequantized operands beside them.
               The quantizers on the card bitwise the same quantizers on
-              the CPU, int8 and fp8.
+              the CPU, int8 and fp8.  K11 (flash attention) at the
+              tinyllama prefill (B=2, Sq=Sk=2,048, H=32, KV=4, Dh=64,
+              causal, bf16) within one bf16 ulp of its plain version (f32
+              full attention rounded once), SDPA with ``enable_gqa``
+              beside it, and in f32 within 1e-5 under a window + prefix,
+              a softcap with Dh=128, no causal mask with Dh=48 and Sq<Sk
+              (``check_only``); K12 (the SSD scan) at the mamba2-1.3b
+              prefill (B=2, S=2,048, H=64, P=64, N=128, L=128), at S=1,000
+              and at L=37, y and state within 1e-5·(1+max|plain|).
 4. pipeline — ``run_pipeline(model="knn")`` at the paper's full HI size
               (70,000 train / 30,000 test rows, 3 clients, k=14,
               25 iterations, OPRF on the device) for ``treecss`` and
@@ -111,6 +119,20 @@ Phases, each printing JSON lines:
               each within one wire step of ``score_partition(quant=
               "int8")`` (a wire block groups other rows in the two), K9
               launches = dispatches.
+12. llm_dense — LLM serving at full width: tinyllama-1.1b (22 layers,
+              d 2,048, GQA 32/4, bf16) with seeded ``torch.Generator``
+              params on the card, 2 prompts of 2,048 seeded tokens,
+              ``serve.engine.greedy_decode`` of 32 new tokens: K11
+              launched 22 times a prefill; then the engine's prefill and
+              serve steps, kernels (3 timed runs, bitwise equal) and plain
+              versions: prefill ms, decode ms a token, peak memory.  The
+              same model in f32, kernels vs plain versions: last-position
+              logits within 1e-3·(1+max|logits|); in bf16 the kernel run
+              within the plain run's own bf16-vs-f32 gap, tokens equal up
+              to the first step whose top-2 margin is under that gap.
+13. llm_ssm — the same for mamba2-1.3b (48 Mamba2 layers, d_inner
+              4,096, 64 SSD heads, N=128, vocab padded to 50,432): K12
+              launched 48 times a prefill.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -430,6 +452,7 @@ def kernel_phase(dev):
     rows += bottom_kernel_rows(dev, slab, yslab, rng)
     rows += int8_kernel_rows(dev, slab, rng)
     quantizer_check(dev, slab, rng)
+    rows += llm_kernel_rows(dev, rng)
     for r in rows:
         emit({"phase": "kernel", **r})
     return rows
@@ -792,6 +815,143 @@ def quantizer_check(dev, slab, rng):
     emit(out)
     return out
 
+
+# --------------------------------------------------- LLM kernels (K11, K12)
+
+BF16_ULP = 2.0 ** -7           # bf16 spacing relative to a value, at most
+
+
+def visible_pairs(sq, sk, causal=True, window=0, prefix=0) -> int:
+    """(query, key) pairs the mask leaves visible, suffix-aligned: the
+    pairs whose products the function needs."""
+    row = np.arange(sq, dtype=np.int64)[:, None] + (sk - sq)
+    col = np.arange(sk, dtype=np.int64)[None, :]
+    ok = np.ones((sq, sk), bool) if not causal else col <= row
+    if window > 0:
+        ok &= ((row - col) < window) | (col < prefix)
+    return int(ok.sum())
+
+
+def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
+              **kw):
+    """K11 on seeded unit-normal q/k/v against its plain version (f32
+    full attention, rounded once to q's dtype): within 1e-5 abs in f32;
+    in bf16 both round one f32 result, so within one bf16 ulp
+    (2^-7·|plain| + 1e-6).  SDPA with ``enable_gqa`` is the library
+    yardstick (causal, no window, prefix or softcap: main-path rows
+    only)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+
+    g = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev, dtype)
+    q, k, v = g(b, sq, h, dh), g(b, sk, kv, dh), g(b, sk, kv, dh)
+    call = lambda: flash_attention_cuda(q, k, v, **kw)
+    plain = lambda: fa_ref.flash_attention(q, k, v, **kw)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or not bool(torch.isfinite(got).all()):
+        raise AssertionError("flash_attention: wrong dtype or non-finite")
+    if dtype == torch.float32:
+        err = check_close("flash_attention", got, want,
+                          torch.zeros_like(want), rtol=0.0, atol=1e-5)
+    else:
+        err = check_close("flash_attention (bf16)", got, want,
+                          want.float().abs(), rtol=BF16_ULP, atol=1e-6)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/kernel.py:99",
+               max_abs_err=err, shape=[b, sq, sk, h, kv, dh],
+               dtype=str(dtype).split(".")[-1], **kw)
+    if check_only:
+        return row | {"check_only": check_only}
+    visible = visible_pairs(sq, sk, **{key: kw[key] for key in kw
+                                       if key != "logit_cap"})
+    b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                       4 * b * h * dh * visible)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return row | dict(
+        ms=cuda_ms(call),
+        device_ms=kernel_device_ms(call, ["flash_attention_kernel"]),
+        plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
+        visible_pairs=visible,
+        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)),
+        library="torch scaled_dot_product_attention(is_causal, enable_gqa)")
+
+
+def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None):
+    """K12 on tests/test_kernels.py's input distribution (x, B, C unit
+    normal, dt = |N(0.1, 0.05)|, A = -|N(1, 0.3)|) against its plain
+    version ``ssd_chunked``: y and the final state within 1e-5·(1 +
+    max|plain|) (f32 sums in other orders).  No single PyTorch call
+    computes the scan: no library yardstick."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = f(rng.normal(size=(b, s, h, p)))
+    dt = f(np.abs(rng.normal(0.1, 0.05, size=(b, s, h))))
+    A = f(-np.abs(rng.normal(1, 0.3, size=(h,))))
+    Bm, Cm = f(rng.normal(size=(b, s, n))), f(rng.normal(size=(b, s, n)))
+    call = lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+    plain = lambda: ssd_ref.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    (y, fs), (wy, wfs) = call(), plain()
+    torch.cuda.synchronize()
+    err = max(check_close("ssd_scan y", y, wy, torch.full_like(
+                  wy, float(wy.abs().max())), rtol=1e-5, atol=1e-5),
+              check_close("ssd_scan state", fs, wfs, torch.full_like(
+                  wfs, float(wfs.abs().max())), rtol=1e-5, atol=1e-5))
+    row = dict(name="ssd_scan", route="cuda",
+               source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+               replaces="src/repro/kernels/ssd_scan/kernel.py:79",
+               max_abs_err=err, max_abs_y=float(wy.abs().max()),
+               shape=[b, s, h, p, n, chunk])
+    if check_only:
+        return row | {"check_only": check_only}
+    ops = 0
+    for c0 in range(0, s, chunk):
+        ln = min(chunk, s - c0)
+        tri = ln * (ln + 1) // 2
+        ops += (2 * tri * n + 2 * tri * p + 2 * ln * n * p + ln * p
+                + 2 * ln * p * n + 2 * p * n)
+    nbytes = 4 * (2 * x.numel() + dt.numel() + h + 2 * Bm.numel()
+                  + fs.numel())
+    b_ms, b_by = bound(nbytes, b * h * ops)
+    return row | dict(
+        ms=cuda_ms(call),
+        device_ms=kernel_device_ms(call, ["ssd_scan_kernel"]),
+        plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, ctas=b * h)
+
+
+def llm_kernel_rows(dev, rng):
+    """K11 at the tinyllama prefill (B = 2, Sq = Sk = 2,048, H = 32,
+    KV = 4, Dh = 64, causal, bf16) and K12 at the mamba2-1.3b prefill
+    (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128); then K11 under
+    a window and prefix, a softcap, without the causal mask and with
+    Sq < Sk, and K12 at S = 1,000 (a padded last chunk) and at a 37-token
+    prompt (L = 37), as ``check_only`` rows."""
+    f32 = torch.float32
+    return [
+        flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, torch.bfloat16,
+                  causal=True),
+        flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, f32, causal=True,
+                  check_only="f32"),
+        flash_row(dev, rng, 1, 1024, 1024, 8, 2, 64, f32, causal=True,
+                  window=256, prefix=32, check_only="window+prefix"),
+        flash_row(dev, rng, 1, 512, 512, 16, 8, 128, f32, causal=True,
+                  window=128, logit_cap=50.0, check_only="softcap, Dh=128"),
+        flash_row(dev, rng, 2, 384, 384, 4, 4, 48, f32, causal=False,
+                  check_only="non-causal, Dh=48"),
+        flash_row(dev, rng, 2, 100, 700, 6, 3, 32, f32, causal=True,
+                  window=200, prefix=16, check_only="Sq<Sk"),
+        ssd_row(dev, rng, 2, 2048, 64, 64, 128, 128),
+        ssd_row(dev, rng, 2, 1000, 64, 64, 128, 128, check_only="S=1000"),
+        ssd_row(dev, rng, 2, 37, 64, 64, 128, 37, check_only="L=37"),
+    ]
 
 # ---------------------------------------------------------- pipeline phase
 
@@ -1369,12 +1529,14 @@ def yp_phase(dev):
     if {k: launched[k] for k in merges} != merges:
         raise AssertionError(f"yp: merge launches {launched}, expected "
                              f"{merges} in {rk.mpsi.rounds} rounds")
-    # every kernel of the f32 path runs; K4 (minibatch coresets) and the
-    # int8 twins K9/K10 (the quantized wire) have paths of their own
+    # every kernel of the f32 path runs; K4 (minibatch coresets), the
+    # int8 twins K9/K10 (the quantized wire) and K11/K12 (LLM serving)
+    # have paths of their own
     missing = [k for k, v in launched.items() if not v
                and k not in (*merges, "kmeans_update_gather",
                              "splitnn_bottom_int8",
-                             "splitnn_bottom_int8_gather")]
+                             "splitnn_bottom_int8_gather", "flash_attention",
+                             "ssd_scan")]
     if missing:
         raise AssertionError(f"yp: kernels {missing} were not launched")
     if any(row_r["launches"].values()):
@@ -1572,6 +1734,169 @@ def delta_phase(dev):
     return rows
 
 
+# ------------------------------------------------------------ LLM serving
+
+LLM_BATCH, LLM_PROMPT, LLM_NEW = 2, 2048, 32
+LLM_F32_RTOL = 1e-3            # kernel vs plain, f32 model, × (1 + max|logits|)
+
+
+def decode_chain(params, cfg, prompts, impl, n_new=None):
+    """``make_prefill_step`` (last position only) then ``n_new``
+    ``make_serve_step`` calls, the steps ``greedy_decode`` chains:
+    (prefill ms, decode ms a token, last-position prefill logits (B, Vp)
+    f32, tokens (B, n_new), each step's least top-2 logit margin)."""
+    from repro_torch.serve import make_prefill_step, make_serve_step
+
+    n_new = LLM_NEW if n_new is None else n_new
+    prefill = make_prefill_step(cfg, context_len=LLM_PROMPT + LLM_NEW,
+                                impl=impl, last_only=True)
+    step = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, nxt = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    first = logits[:, -1].float()
+    cur = torch.argmax(first, dim=-1).to(torch.int32)
+    toks, margins, cur_logits = [], [], first
+    t0 = time.perf_counter()
+    for t in range(n_new):
+        top2 = torch.topk(cur_logits, 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).min())
+        toks.append(cur)
+        cur, cur_logits, caches = step(params, caches, nxt + t, cur)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(n_new, 1)
+    return (prefill_ms, decode_ms, first, torch.stack(toks, 1) if toks
+            else None, torch.stack(margins).tolist() if margins else [])
+
+
+def llm_profile(params, cfg, prompts):
+    """Device time, wall and top device ops of one prefill and of one
+    decode step (kernels), ``torch.profiler`` over 3 calls each."""
+    from repro_torch.serve import make_prefill_step, make_serve_step
+
+    prefill = make_prefill_step(cfg, context_len=LLM_PROMPT + LLM_NEW,
+                                last_only=True)
+    logits, caches, nxt = prefill(params, {"tokens": prompts})
+    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    step = make_serve_step(cfg)
+    out = {}
+    for name, fn in (("prefill", lambda: prefill(params,
+                                                 {"tokens": prompts})),
+                     ("decode_step", lambda: step(params, caches, nxt,
+                                                  cur))):
+        per_name, device_ms, wall_ms = profile_device(fn, reps=3)
+        out[name] = dict(
+            device_ms=device_ms, wall_ms=wall_ms,
+            busy=device_ms / wall_ms if device_ms else None,
+            top=sorted(per_name.items(), key=lambda kv: -kv[1])[:6])
+    return out
+
+
+def llm_phase(dev, arch, kernel):
+    """One config of the LLM serving slice at full width: seeded
+    ``torch.Generator`` params on the card, 2 prompts of 2,048 seeded
+    numpy tokens, ``greedy_decode`` of 32 new tokens with the kernels
+    (``kernel`` launched once per layer, in the prefill), then the
+    engine's prefill and serve steps with the kernels (timed, 3 runs)
+    and with every plain version.
+
+    Correctness, last-position prefill logits: the same model run in f32
+    (the config's dtype set to float32) with the kernels and with the
+    plain versions agree within ``LLM_F32_RTOL``·(1 + max|logits|); in
+    the config's bf16 the kernel run stays as close to the plain run as
+    the plain run is to its own f32 run (each layer's outputs round to
+    bf16, and one flipped rounding carries through every later layer,
+    so the bf16 gap is the scale of any bf16 difference), and the two
+    runs' tokens are equal up to the first step whose top-2 margin is
+    under that gap."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.models import api
+    from repro_torch.serve import greedy_decode
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)).to(dev)
+    greedy_decode(params, cfg, prompts[:, :64], 2)       # first use, untimed
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = greedy_decode(params, cfg, prompts, LLM_NEW)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    if launched != {kernel: cfg.n_layers}:
+        raise AssertionError(f"{arch}: launches {launched}, expected "
+                             f"{kernel} = {cfg.n_layers} per prefill")
+    runs = [decode_chain(params, cfg, prompts, None) for _ in range(3)]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = llm_profile(params, cfg, prompts)
+    plain = decode_chain(params, cfg, prompts, "ref")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    k32 = decode_chain(params, cfg32, prompts, None, n_new=0)[2]
+    p32 = decode_chain(params, cfg32, prompts, "ref", n_new=0)[2]
+    _, _, logits, k_toks, margins = runs[0]
+    for _, _, lg, tk, _ in runs[1:]:
+        if not (torch.equal(lg, logits) and torch.equal(tk, k_toks)):
+            raise AssertionError(f"{arch}: two kernel runs differ")
+    if not torch.equal(k_toks, tokens):
+        raise AssertionError(f"{arch}: greedy_decode and its steps differ")
+    if not (bool(torch.isfinite(logits).all()) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_padded):
+        raise AssertionError(f"{arch}: non-finite logits or bad tokens")
+    err32 = float((k32 - p32).abs().max())
+    tol32 = LLM_F32_RTOL * (1 + float(p32.abs().max()))
+    if err32 > tol32:
+        raise AssertionError(f"{arch}: f32 kernel and plain prefill logits "
+                             f"differ by {err32} > {tol32}")
+    err = float((logits - plain[2]).abs().max())
+    bf16_gap = float((plain[2] - p32).abs().max())
+    if err > bf16_gap:
+        raise AssertionError(f"{arch}: bf16 kernel and plain prefill logits "
+                             f"differ by {err}, more than the plain run's "
+                             f"bf16-vs-f32 gap {bf16_gap}")
+    n_sure = next((t for t, m in enumerate(margins) if m <= bf16_gap),
+                  LLM_NEW)
+    if not torch.equal(k_toks[:, :n_sure], plain[3][:, :n_sure]):
+        raise AssertionError(f"{arch}: kernel and plain tokens differ "
+                             f"before step {n_sure}")
+    row = dict(
+        phase="llm_dense" if cfg.family == "dense" else "llm_ssm",
+        arch=arch, batch=LLM_BATCH, prompt=LLM_PROMPT, new_tokens=LLM_NEW,
+        dtype=cfg.dtype, params=sum(t.numel() for t in _leaves(params)),
+        init_s=init_s, greedy_s=greedy_s, launches=launched,
+        prefill_ms=[r[0] for r in runs], decode_ms_per_token=[
+            r[1] for r in runs], plain_prefill_ms=plain[0],
+        plain_decode_ms_per_token=plain[1], peak_mem_gb=peak_gb,
+        logits_max_abs=float(logits.abs().max()), logits_err=err,
+        bf16_vs_f32_gap=bf16_gap, f32_logits_err=err32, f32_tol=tol32,
+        tokens_equal_steps=int((k_toks == plain[3]).all(0).to(
+            torch.int64).cumprod(0).sum()),
+        steps_above_margin=n_sure, min_margin=min(margins),
+        tokens=tokens[0, :8].tolist(), profile=prof)
+    emit(row)
+    del params, runs, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1615,6 +1940,11 @@ def main() -> int:
     pipe_rows += quant_rows
     pipe_rows += serve_phase(dev, qrep.train.params, train_cfg(
         "mlp", 0.01, 70_000, 200), quant="int8")
+    # K11 and K12 count on their own main paths, one prefill each
+    dense = llm_phase(dev, "tinyllama-1.1b", "flash_attention")
+    ssm = llm_phase(dev, "mamba2-1.3b", "ssd_scan")
+    launches = launches | dense["launches"] | ssm["launches"]
+    pipe_rows += [dense, ssm]
     kernels = []
     for r in rows:
         if "check_only" in r:

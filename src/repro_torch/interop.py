@@ -33,9 +33,10 @@ def clustering_from_jax(assign: np.ndarray, sq_dist: np.ndarray,
 
 
 def params_from_jax(params, device=None):
-    """The reference's SplitNN zoo params (``{"bottoms": [...], "top":
-    {...}}`` of numpy or JAX arrays) -> the port's, f32 tensors on
-    ``device``."""
+    """A tree (nested dicts/lists) of the reference's numpy or JAX
+    arrays -> the same tree of f32 tensors on ``device``: the SplitNN zoo
+    params (``{"bottoms": [...], "top": {...}}``) or, as
+    ``lm_params_from_jax``, an LM's."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.as_tensor(np.array(a, np.float32),
                                               device=dev), params)
@@ -44,3 +45,10 @@ def params_from_jax(params, device=None):
 def params_to_numpy(params):
     """The port's params -> the same tree of float32 numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+#: the reference's ``init_lm`` tree (``embed``, stacked ``layers`` with a
+#: leading L axis, ``final_norm``, ``lm_head``; f32 in every config) as the
+#: same tree of f32 tensors, in the same layout (GQA weights (d, H, Dh),
+#: ``lm_head`` (d, Vp)): the conversion ``params_from_jax`` makes
+lm_params_from_jax = params_from_jax

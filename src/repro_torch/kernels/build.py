@@ -25,6 +25,10 @@ int8 twins K9 (``splitnn_bottom_int8``) and K10
 (``kmeans_update_gather``).  ``sorted_intersect.cu``'s merge counts as
 K7 (``sorted_intersect``) up to the reference's single-pass bound and as
 K8 (``sorted_intersect_tiled``) past it (``kernels/sorted_intersect``).
+The LLM serving path's two kernels have a source each:
+``flash_attention.cu`` holds K11 (``flash_attention``, every attention
+layer of a prefill) and ``ssd_scan.cu`` K12 (``ssd_scan``, every Mamba2
+layer of a prefill).
 """
 from __future__ import annotations
 
@@ -46,7 +50,9 @@ SOURCES = {"psi_prf": "psi_prf.cu",
            "sorted_intersect": "sorted_intersect.cu",
            "kmeans_update": "kmeans_update.cu",
            "kmeans_assign": "kmeans_assign.cu",
-           "splitnn_bottom": "splitnn_bottom.cu"}
+           "splitnn_bottom": "splitnn_bottom.cu",
+           "flash_attention": "flash_attention.cu",
+           "ssd_scan": "ssd_scan.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
@@ -124,13 +130,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, n_pointers: int, n_ints: int):
+def function(name: str, symbol: str, n_pointers: int, n_ints: int,
+             n_floats: int = 0):
     """The C launcher ``symbol`` of kernel ``name``, typed as
-    ``(n_pointers × void*, n_ints × long long, void* stream) -> int``
-    (every launcher in csrc/ has that shape)."""
+    ``(n_pointers × void*, n_ints × long long, n_floats × double, void*
+    stream) -> int`` (every launcher in csrc/ has that shape)."""
     fn = getattr(library(name), symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                   + [ctypes.c_longlong] * n_ints + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * n_ints
+                   + [ctypes.c_double] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

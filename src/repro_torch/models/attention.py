@@ -1,0 +1,254 @@
+"""GQA attention: full / chunked (online softmax) / flash / decode with a
+KV cache (the port of ``repro/models/attention.py``).
+
+Supports sliding windows (ring-buffer caches), always-visible prefixes,
+attention logit softcapping and optional rotary.  ``attend`` picks the
+algorithm: on a CUDA tensor the default is K11, the hand-written flash
+kernel (``kernels/flash_attention``); on the CPU it is the reference's
+rule (full below 8,192 tokens, chunked above).  Masked scores take the
+finite ``NEG_INF``, as the reference, so a row whose first visible k
+block is fully masked stays finite.
+
+Caches are updated in place (``cache_update``/``cache_fill`` write into
+the tensors of the dict they are given and return it): the reference
+returns new arrays, and in place saves a copy of every layer's cache a
+decode step.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.layers import dense_init, softcap
+
+__all__ = ["NEG_INF", "init_attention", "qkv_project", "out_project",
+           "full_attention", "chunked_attention", "attend", "init_cache",
+           "cache_slot", "cache_update", "cache_fill", "decode_attention"]
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, dtype,
+                   use_bias: bool = False):
+    p = {"wq": dense_init(gen, d_model, (n_heads, head_dim), dtype),
+         "wk": dense_init(gen, d_model, (n_kv_heads, head_dim), dtype),
+         "wv": dense_init(gen, d_model, (n_kv_heads, head_dim), dtype),
+         "wo": dense_init(gen, n_heads * head_dim, d_model, dtype)}
+    if use_bias:
+        for name, heads in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+            p[name] = torch.zeros((heads, head_dim), dtype=dtype,
+                                  device=gen.device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) @ w (D,H,Dh) -> (B,S,H,Dh) in x's dtype."""
+    d, h, dh = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * dh)).unflatten(-1, (h, dh))
+
+
+def qkv_project(params, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None):
+    """x: (B,S,D) -> q (B,S,H,Dh), k/v (B,Skv,KV,Dh)."""
+    kv_x = x if kv_x is None else kv_x
+    q = _project(x, params["wq"])
+    k = _project(kv_x, params["wk"])
+    v = _project(kv_x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return q, k, v
+
+
+def out_project(params, attn_out: torch.Tensor) -> torch.Tensor:
+    """attn_out: (B,S,H,Dh) -> (B,S,D)."""
+    b, s, h, dh = attn_out.shape
+    return attn_out.reshape(b, s, h * dh) @ params["wo"].to(attn_out.dtype)
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+          window: int, prefix: int) -> torch.Tensor:
+    """q_pos: (Sq,), k_pos: (Sk,) -> bool (Sq, Sk) of visible entries;
+    window == 0 means full attention."""
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    eff = window if window > 0 else 2 ** 30
+    return ok & (((qp - kp) < eff) | (kp < prefix))
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float, cap: float
+                ) -> torch.Tensor:
+    """q: (B,Sq,KV,G,Dh), k: (B,Sk,KV,Dh) -> (B,KV,G,Sq,Sk) f32."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k).float() * scale
+    return softcap(s, cap)
+
+
+def full_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0,
+                   prefix=0, logit_cap=0.0) -> torch.Tensor:
+    """Naive O(S²) attention. q: (B,Sq,H,Dh), k/v: (B,Sk,KV,Dh)."""
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, dh)
+    scores = _gqa_scores(qg, k, dh ** -0.5, logit_cap)    # (B,KV,G,Sq,Sk)
+    mask = _mask(q_pos, k_pos, causal=causal, window=window, prefix=prefix)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, dh)
+
+
+def _divisor_block(block: int, n: int) -> int:
+    """Shrink ``block`` by halving to a divisor of ``n`` (ragged lengths)."""
+    block = min(block, n)
+    while n % block:
+        block //= 2
+    return max(block, 1)
+
+
+def chunked_attention(q, k, v, *, q_pos, k_pos, causal=True, window=0,
+                      prefix=0, logit_cap=0.0, q_block=512, k_block=1024
+                      ) -> torch.Tensor:
+    """Online-softmax blocked attention; peak memory O(q_block × k_block).
+    Same math as ``full_attention``, the reference's default at >= 8,192
+    tokens."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = dh ** -0.5
+    q_block = _divisor_block(q_block, sq)
+    k_block = _divisor_block(k_block, sk)
+    qg = q.reshape(b, sq, kvh, g, dh)
+    outs = []
+    for q0 in range(0, sq, q_block):
+        qi, qp = qg[:, q0:q0 + q_block], q_pos[q0:q0 + q_block]
+        m = torch.full((b, kvh, g, q_block), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, kvh, g, q_block, dh), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, sk, k_block):
+            ki, vi = k[:, k0:k0 + k_block], v[:, k0:k0 + k_block]
+            s = _gqa_scores(qi, ki, scale, logit_cap)
+            msk = _mask(qp, k_pos[k0:k0 + k_block], causal=causal,
+                        window=window, prefix=prefix)
+            s = s.masked_fill(~msk, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vi.dtype), vi)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))             # (B,qb,KV,G,Dh)
+    return torch.cat(outs, 1).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def attend(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
+           logit_cap=0.0, impl: Optional[str] = None,
+           kernel_impl: Optional[str] = None) -> torch.Tensor:
+    """Attention by ``impl``: ``"full"``, ``"chunked"``, ``"flash"`` (K11,
+    which assumes suffix-aligned contiguous positions, as every call
+    site has) or ``None``/``"auto"``: K11 on a CUDA tensor, the
+    reference's full/chunked rule on the CPU.  ``kernel_impl`` reaches
+    K11's op: ``"ref"`` asks for its plain version on the card."""
+    if impl in (None, "auto"):
+        if q.device.type == "cuda":
+            impl = "flash"
+        else:
+            impl = ("chunked" if (q.shape[1] >= 8192 or k.shape[1] >= 8192)
+                    else "full")
+    if impl == "flash":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        return fa_ops.flash_attention(
+            q, k, v, causal=causal, window=int(window), prefix=int(prefix),
+            logit_cap=float(logit_cap), impl=kernel_impl)
+    fn = {"full": full_attention, "chunked": chunked_attention}[impl]
+    return fn(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+              window=window, prefix=prefix, logit_cap=logit_cap)
+
+
+# ----------------------------------------------------------------- KV caches
+
+def init_cache(batch: int, capacity: int, n_kv_heads: int, head_dim: int,
+               dtype, device=None):
+    """Ring-buffer KV cache. ``pos[c]`` holds the absolute position stored
+    in slot c (or -1)."""
+    shape = (batch, capacity, n_kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((capacity,), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def cache_slot(cur_index, capacity: int, window: int, prefix: int):
+    """Slot for absolute position(s) ``cur_index`` (an int or an int
+    tensor). Full caches: identity. Windowed: the first ``prefix`` slots
+    are pinned, the rest is a ring."""
+    if window and capacity < 10 ** 9:
+        ring = max(capacity - prefix, 1)
+        if isinstance(cur_index, torch.Tensor):
+            return torch.where(cur_index < prefix, cur_index,
+                               prefix + (cur_index - prefix) % ring)
+        return (cur_index if cur_index < prefix
+                else prefix + (cur_index - prefix) % ring)
+    return cur_index
+
+
+def cache_update(cache, k_new, v_new, cur_index: int, *, window=0,
+                 prefix=0):
+    """Insert one step (B,1,KV,Dh) at absolute position ``cur_index``, in
+    place."""
+    slot = int(cache_slot(int(cur_index), cache["k"].shape[1], window,
+                          prefix))
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["pos"][slot] = int(cur_index)
+    return cache
+
+
+def cache_fill(cache, k, v, *, window=0, prefix=0):
+    """Bulk-fill a cache in place from full-sequence K/V (B,S,KV,Dh) after
+    prefill.  Windowed ring caches keep only the last ``capacity -
+    prefix`` positions plus the pinned prefix; the slot map matches
+    ``cache_slot``."""
+    cap = cache["k"].shape[1]
+    s = k.shape[1]
+    dev = cache["pos"].device
+    if window and s > cap:
+        keep = torch.cat([torch.arange(prefix, device=dev),
+                          torch.arange(s - (cap - prefix), s, device=dev)])
+        slots = cache_slot(keep, cap, window, prefix)
+        cache["k"][:, slots] = k[:, keep].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, keep].to(cache["v"].dtype)
+        cache["pos"][slots] = keep.to(torch.int32)
+        return cache
+    # full cache (or prompt shorter than capacity): positions are slots
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    cache["pos"][:s] = torch.arange(s, dtype=torch.int32, device=dev)
+    return cache
+
+
+def decode_attention(q, cache, cur_index: int, *, window=0, prefix=0,
+                     logit_cap=0.0) -> torch.Tensor:
+    """One-token attention against the cache. q (B,1,H,Dh) -> (B,1,H,Dh)."""
+    b, one, h, dh = q.shape
+    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    kvh = k.shape[2]
+    qg = q.reshape(b, one, kvh, h // kvh, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * dh ** -0.5
+    s = softcap(s, logit_cap)
+    ok = (pos >= 0) & (pos <= cur_index)
+    if window:
+        ok = ok & (((cur_index - pos) < window) | (pos < prefix))
+    s = s.masked_fill(~ok, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return out.reshape(b, one, h, dh)

@@ -1,2 +1,7 @@
 """The serving side, ported: the continuous-batching VFL scoring engine
-(``repro_torch.serve.vfl``)."""
+(``repro_torch.serve.vfl``) and LLM prefill + greedy decode
+(``repro_torch.serve.engine``)."""
+from repro_torch.serve.engine import (greedy_decode, make_prefill_step,
+                                      make_serve_step)
+
+__all__ = ["greedy_decode", "make_prefill_step", "make_serve_step"]

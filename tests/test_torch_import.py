@@ -17,7 +17,9 @@ from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
 from repro_torch.kernels.kmeans_update.ops import kmeans_update
 from repro_torch.kernels.psi_prf.ops import prf_tags
 from repro_torch.kernels.sorted_intersect.ops import sorted_intersect
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.splitnn_bottom.ops import splitnn_bottom
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -69,10 +71,30 @@ def test_slice_modules_stand_alone():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_llm_slice_modules_stand_alone():
+    """The LLM serving slice's modules (configs, models, serve.engine,
+    K11's and K12's triplets) import neither jax nor the JAX package on
+    their own."""
+    probe = ("import sys\n"
+             "import repro_torch.configs, repro_torch.models.api\n"
+             "import repro_torch.models.transformer, repro_torch.models.ssm\n"
+             "import repro_torch.serve.engine\n"
+             "import repro_torch.kernels.flash_attention.ops\n"
+             "import repro_torch.kernels.ssd_scan.ops\n"
+             "print(sorted(m for m in sys.modules\n"
+             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=SRC),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("op", ["psi_prf", "sorted_intersect",
                                 "kmeans_update", "kmeans_assign",
                                 "splitnn_bottom", "splitnn_bottom_gather",
-                                "kmeans_update_gather"])
+                                "kmeans_update_gather", "flash_attention",
+                                "ssd_scan"])
 def test_kernel_impl_on_cpu_raises(op):
     ids, keys, pts = _cpu_operands()
     w, b = torch.ones(2, 3, 4), torch.zeros(2, 4)
@@ -92,6 +114,12 @@ def test_kernel_impl_on_cpu_raises(op):
         "kmeans_update_gather": lambda: kmeans_update(
             pts, pts[:, :4].contiguous(), impl="kernel",
             idx=torch.zeros((2, 3), dtype=torch.int32)),
+        "flash_attention": lambda: flash_attention(
+            pts[:, :, None], pts[:, :, None], pts[:, :, None],
+            impl="kernel"),
+        "ssd_scan": lambda: ssd_scan(
+            pts[:, :, None], pts[:, :, :1], torch.ones(1), pts, pts,
+            chunk=4, impl="kernel"),
     }[op]
     with pytest.raises(ValueError, match="CUDA"):
         call()
