@@ -126,13 +126,22 @@ Phases, each printing JSON lines:
               launched 22 times a prefill; then the engine's prefill and
               serve steps, kernels (3 timed runs, bitwise equal) and plain
               versions: prefill ms, decode ms a token, peak memory.  The
-              same model in f32, kernels vs plain versions: last-position
-              logits within 1e-3·(1+max|logits|); in bf16 the kernel run
-              within the plain run's own bf16-vs-f32 gap, tokens equal up
-              to the first step whose top-2 margin is under that gap.
+              end-to-end gate is the same model in f32: the plain
+              versions decode 32 tokens freely and the kernels decode fed
+              those tokens; logits at the prefill's last position and at
+              every step within 1e-3·(1+max|logits|) (argmax tokens
+              counted where the plain top-2 margin is above twice that).  The
+              bf16 runs must be finite, bitwise equal across the three
+              kernel runs and equal to ``greedy_decode``; their
+              kernel-vs-plain and bf16-vs-f32 gaps are recorded.
 13. llm_ssm — the same for mamba2-1.3b (48 Mamba2 layers, d_inner
               4,096, 64 SSD heads, N=128, vocab padded to 50,432): K12
-              launched 48 times a prefill.
+              launched 48 times a prefill; K12 on every layer's inputs
+              of the f32 model within twice the plain f32 version's
+              distance to a float64 scan, and within 1e-5·(1+max) of its
+              plain version; past the prefill a decode step's f32 logits
+              beyond the bound pass only within a tenth of the plain
+              run's distance to the model with float64 scans.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -157,6 +166,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 INT8_OPS = 1979e12             # H100 SXM int8 tensor cores, dense
 SEED = 0
 DELTA_N = 300_000              # ids a party in the delta-PSI sweep (fig7)
@@ -245,9 +255,13 @@ def host_profile(fn, top: int = 12):
             "own_ms": sorted(own, key=lambda r: -r[1])[:top]}
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops, rate: float = F32_FLOPS):
+    """(ms, what binds): the larger of ``nbytes`` at the HBM rate and
+    ``ops`` at ``rate``; ``ops`` may be a list of (ops, rate) pairs, work
+    of different kinds whose times add."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    work = ops if isinstance(ops, list) else [(ops, rate)]
+    t_ops = sum(o / r for o, r in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -868,8 +882,14 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
         return row | {"check_only": check_only}
     visible = visible_pairs(sq, sk, **{key: kw[key] for key in kw
                                        if key != "logit_cap"})
+    # Tensor-core bound of the bf16 row: QKᵀ of bf16 operands is exact in
+    # f32, so one bf16 pass at the dense rate; P·V takes f32
+    # probabilities, which three bf16 pieces carry whole (8 + 8 + 8
+    # significand bits), so three passes.  The exps are not counted.
+    assert q.dtype == torch.bfloat16, "the bound assumes bf16 q/k/v"
+    products = 2 * b * h * dh * visible              # flops of each GEMM
     b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
-                       4 * b * h * dh * visible)
+                       (1 + 3) * products, BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return row | dict(
@@ -911,15 +931,20 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None):
                shape=[b, s, h, p, n, chunk])
     if check_only:
         return row | {"check_only": check_only}
-    ops = 0
+    # The products (C Bᵀ, its decayed tile times dt·x, C·state, the state
+    # update) are f32 × f32: on tensor cores exactly in nine bf16 passes
+    # (three 8-bit pieces of each operand).  dt·x and the state decay are
+    # elementwise f32.  The exps are not counted.
+    gemm = elem = 0
     for c0 in range(0, s, chunk):
         ln = min(chunk, s - c0)
         tri = ln * (ln + 1) // 2
-        ops += (2 * tri * n + 2 * tri * p + 2 * ln * n * p + ln * p
-                + 2 * ln * p * n + 2 * p * n)
+        gemm += 2 * tri * n + 2 * tri * p + 2 * ln * n * p + 2 * ln * p * n
+        elem += ln * p + 2 * p * n
     nbytes = 4 * (2 * x.numel() + dt.numel() + h + 2 * Bm.numel()
                   + fs.numel())
-    b_ms, b_by = bound(nbytes, b * h * ops)
+    b_ms, b_by = bound(nbytes, [(9 * b * h * gemm, BF16_FLOPS),
+                                (b * h * elem, F32_FLOPS)])
     return row | dict(
         ms=cuda_ms(call),
         device_ms=kernel_device_ms(call, ["ssd_scan_kernel"]),
@@ -1740,11 +1765,13 @@ LLM_BATCH, LLM_PROMPT, LLM_NEW = 2, 2048, 32
 LLM_F32_RTOL = 1e-3            # kernel vs plain, f32 model, × (1 + max|logits|)
 
 
-def decode_chain(params, cfg, prompts, impl, n_new=None):
+def decode_chain(params, cfg, prompts, impl, n_new=None, feed=None):
     """``make_prefill_step`` (last position only) then ``n_new``
-    ``make_serve_step`` calls, the steps ``greedy_decode`` chains:
-    (prefill ms, decode ms a token, last-position prefill logits (B, Vp)
-    f32, tokens (B, n_new), each step's least top-2 logit margin)."""
+    ``make_serve_step`` calls, the steps ``greedy_decode`` chains, each
+    fed the last step's argmax or, with ``feed`` (B, n_new), that token
+    instead: (prefill ms, decode ms a token, logits (n_new + 1, B, Vp)
+    f32 — the prefill's last position, then each step's —, tokens
+    (B, n_new), the argmaxes of the first n_new)."""
     from repro_torch.serve import make_prefill_step, make_serve_step
 
     n_new = LLM_NEW if n_new is None else n_new
@@ -1756,19 +1783,109 @@ def decode_chain(params, cfg, prompts, impl, n_new=None):
     logits, caches, nxt = prefill(params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    first = logits[:, -1].float()
-    cur = torch.argmax(first, dim=-1).to(torch.int32)
-    toks, margins, cur_logits = [], [], first
+    steps = [logits[:, -1].float()]
+    cur = torch.argmax(steps[0], dim=-1).to(torch.int32)
+    toks = []
     t0 = time.perf_counter()
     for t in range(n_new):
-        top2 = torch.topk(cur_logits, 2, dim=-1).values
-        margins.append((top2[:, 0] - top2[:, 1]).min())
         toks.append(cur)
-        cur, cur_logits, caches = step(params, caches, nxt + t, cur)
+        cur, lg, caches = step(params, caches, nxt + t,
+                               cur if feed is None else feed[:, t])
+        steps.append(lg.float())
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / max(n_new, 1)
-    return (prefill_ms, decode_ms, first, torch.stack(toks, 1) if toks
-            else None, torch.stack(margins).tolist() if margins else [])
+    return (prefill_ms, decode_ms, torch.stack(steps),
+            torch.stack(toks, 1) if toks else None)
+
+
+def top2_margin(logits):
+    """Top-1 minus top-2 logit, per position: (..., V) -> (...)."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def ssd_layer_probe(params, cfg32, prompts):
+    """K12 on the inputs every Mamba2 layer of the f32 model gives it in
+    one prefill, against its plain version in f32 and in float64 on the
+    same inputs: per layer, max|cum| (the largest decay exponent of a
+    chunk), max|y|, the kernel's distance to the plain version, and the
+    kernel's and the plain version's distance to the float64 scan, for y
+    and the final state.  The model's dt (softplus of a projection, ~0.7)
+    and A (down to -16) make |cum| reach ~10^3, where f32 rounding of
+    cum_i - cum_j moves exp by ~1e-4.  Each layer's kernel must lie
+    within the K12 rows' 1e-5·(1+max) of the plain version and within
+    twice the plain version's distance to the float64 scan (+
+    1e-6·(1+max)).  The op is
+    swapped for the probe for this one prefill (the probe's launches come
+    after the main path's counts are read).  Returns (per-layer rows,
+    the layers that fail that test)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.serve import make_prefill_step
+
+    op, layers = ssd_ops.ssd_scan, []
+
+    def probe(x, dt, A, B, C, *, chunk=128, impl=None):
+        y, st = op(x, dt, A, B, C, chunk=chunk, impl=impl)
+        py, pst = ssd_ref.ssd_scan(x, dt, A, B, C, chunk)
+        dy, dst = ssd_ref.ssd_scan(*(t.double() for t in (x, dt, A, B, C)),
+                                   chunk)
+        da = F.pad(dt * A, (0, 0, 0, -dt.shape[1] % chunk))
+        cum = da.reshape(da.shape[0], -1, chunk, da.shape[-1]).sum(2)
+        gap = lambda a, w: float((a.double() - w).abs().max())
+        layers.append(dict(
+            max_cum=float(cum.abs().max()), max_y=float(dy.abs().max()),
+            max_state=float(dst.abs().max()),
+            y_kernel_vs_plain=gap(y, py.double()), y_kernel_vs_f64=gap(y, dy),
+            y_plain_vs_f64=gap(py, dy),
+            state_kernel_vs_plain=gap(st, pst.double()),
+            state_kernel_vs_f64=gap(st, dst),
+            state_plain_vs_f64=gap(pst, dst)))
+        return y, st
+
+    ssd_ops.ssd_scan = probe
+    try:
+        make_prefill_step(cfg32, context_len=LLM_PROMPT, last_only=True)(
+            params, {"tokens": prompts})
+    finally:
+        ssd_ops.ssd_scan = op
+    faults = []
+    for i, r in enumerate(layers):
+        for what, scale in (("y", r["max_y"]), ("state", r["max_state"])):
+            k, p = r[f"{what}_kernel_vs_f64"], r[f"{what}_plain_vs_f64"]
+            if r[f"{what}_kernel_vs_plain"] > 1e-5 * (1 + scale):
+                faults.append(f"ssd_scan, mamba2 layer {i}: {what} "
+                              f"{r[what + '_kernel_vs_plain']} from the plain "
+                              f"version > 1e-5·(1 + {scale})")
+            if k > 2 * p + 1e-6 * (1 + scale):
+                faults.append(f"ssd_scan, mamba2 layer {i}: {what} {k} from "
+                              f"the float64 scan, more than twice the plain "
+                              f"f32 version's {p}")
+    return layers, faults
+
+
+def scan64_chain(params, cfg32, prompts, feed):
+    """``decode_chain`` of the f32 model with every prefill scan run in
+    float64 (the plain version on f64 inputs, rounded once to f32), fed
+    ``feed``: the witness the kernel's and the plain version's f32 scans
+    are both measured from (decode runs no scan, so the three runs differ
+    in the prefill's scans alone)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    op = ssd_ops.ssd_scan
+
+    def scan64(x, dt, A, B, C, *, chunk=128, impl=None):
+        y, st = ssd_ref.ssd_scan(*(t.double() for t in (x, dt, A, B, C)),
+                                 chunk)
+        return y.float(), st.float()
+
+    ssd_ops.ssd_scan = scan64
+    try:
+        return decode_chain(params, cfg32, prompts, "ref", feed=feed)
+    finally:
+        ssd_ops.ssd_scan = op
 
 
 def llm_profile(params, cfg, prompts):
@@ -1799,18 +1916,26 @@ def llm_phase(dev, arch, kernel):
     ``torch.Generator`` params on the card, 2 prompts of 2,048 seeded
     numpy tokens, ``greedy_decode`` of 32 new tokens with the kernels
     (``kernel`` launched once per layer, in the prefill), then the
-    engine's prefill and serve steps with the kernels (timed, 3 runs)
-    and with every plain version.
+    engine's prefill and serve steps with the kernels (timed, 3 runs,
+    bitwise equal) and with every plain version.
 
-    Correctness, last-position prefill logits: the same model run in f32
-    (the config's dtype set to float32) with the kernels and with the
-    plain versions agree within ``LLM_F32_RTOL``·(1 + max|logits|); in
-    the config's bf16 the kernel run stays as close to the plain run as
-    the plain run is to its own f32 run (each layer's outputs round to
-    bf16, and one flipped rounding carries through every later layer,
-    so the bf16 gap is the scale of any bf16 difference), and the two
-    runs' tokens are equal up to the first step whose top-2 margin is
-    under that gap."""
+    The end-to-end gate is the same model in f32 (the config's dtype set
+    to float32): the plain versions decode 32 tokens freely, and the
+    kernels decode fed those same tokens.  The kernel run's logits at
+    the prefill's last position within ``LLM_F32_RTOL``·(1 +
+    max|logits|) of the plain run's, and at every step too; for the ssm
+    model, whose 48 random layers and state recurrence grow an f32 gap
+    step by step, a step past that bound passes only within a tenth of
+    the plain run's distance to the same model with float64 scans
+    (``scan64_chain``), the f32 model's own error.  Argmax tokens follow
+    from the logits wherever the top-2 margin is above twice the bound;
+    they are counted.  ``ssd_layer_probe`` holds K12 on every Mamba2
+    layer's inputs against its plain version and a float64 scan.  In the config's bf16, random layers turn
+    one flipped rounding into differences as large as bf16's own error
+    (for mamba2 larger than the logits), so the bf16 runs are held to
+    finiteness, determinism and the engine's own chaining, and their
+    gaps are recorded, not gated.  Every number is emitted before a
+    failed check raises."""
     import dataclasses
     import gc
 
@@ -1841,11 +1966,8 @@ def llm_phase(dev, arch, kernel):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = llm_profile(params, cfg, prompts)
     plain = decode_chain(params, cfg, prompts, "ref")
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    k32 = decode_chain(params, cfg32, prompts, None, n_new=0)[2]
-    p32 = decode_chain(params, cfg32, prompts, "ref", n_new=0)[2]
-    _, _, logits, k_toks, margins = runs[0]
-    for _, _, lg, tk, _ in runs[1:]:
+    _, _, logits, k_toks = runs[0]
+    for _, _, lg, tk in runs[1:]:
         if not (torch.equal(lg, logits) and torch.equal(tk, k_toks)):
             raise AssertionError(f"{arch}: two kernel runs differ")
     if not torch.equal(k_toks, tokens):
@@ -1853,22 +1975,43 @@ def llm_phase(dev, arch, kernel):
     if not (bool(torch.isfinite(logits).all()) and int(tokens.min()) >= 0
             and int(tokens.max()) < cfg.vocab_padded):
         raise AssertionError(f"{arch}: non-finite logits or bad tokens")
-    err32 = float((k32 - p32).abs().max())
-    tol32 = LLM_F32_RTOL * (1 + float(p32.abs().max()))
-    if err32 > tol32:
-        raise AssertionError(f"{arch}: f32 kernel and plain prefill logits "
-                             f"differ by {err32} > {tol32}")
-    err = float((logits - plain[2]).abs().max())
-    bf16_gap = float((plain[2] - p32).abs().max())
-    if err > bf16_gap:
-        raise AssertionError(f"{arch}: bf16 kernel and plain prefill logits "
-                             f"differ by {err}, more than the plain run's "
-                             f"bf16-vs-f32 gap {bf16_gap}")
-    n_sure = next((t for t, m in enumerate(margins) if m <= bf16_gap),
-                  LLM_NEW)
-    if not torch.equal(k_toks[:, :n_sure], plain[3][:, :n_sure]):
-        raise AssertionError(f"{arch}: kernel and plain tokens differ "
-                             f"before step {n_sure}")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = decode_chain(params, cfg32, prompts, "ref")
+    k32 = decode_chain(params, cfg32, prompts, None, feed=p32[3])
+    gap = lambda a, b: float((a - b).abs().max())
+    err32, err32_prefill = gap(k32[2], p32[2]), gap(k32[2][0], p32[2][0])
+    tol32 = LLM_F32_RTOL * (1 + float(p32[2].abs().max()))
+    faults, extra = [], {}
+    if not bool(torch.isfinite(k32[2]).all()):
+        faults.append("non-finite f32 kernel logits")
+    if err32_prefill > tol32:
+        faults.append(f"f32 prefill logits, kernel vs plain {err32_prefill}"
+                      f" > {tol32}")
+    if cfg.family == "ssm":
+        # 48 random Mamba2 layers and the state recurrence turn a small
+        # difference in a layer's scan into a large one in the logits: the
+        # same model with float64 scans lies d_p from the f32 plain run.
+        # Past tol32, the kernel run may differ from the plain run by at
+        # most a tenth of that, the f32 model's own error.
+        w64 = scan64_chain(params, cfg32, prompts, p32[3])[2]
+        d_k, d_p = gap(k32[2], w64), gap(p32[2], w64)
+        if err32 > tol32 and err32 > 0.1 * d_p:
+            faults.append(f"f32 logits, kernel vs plain {err32} > {tol32} "
+                          f"and > a tenth of the plain run's distance {d_p} "
+                          "to the float64-scan model")
+        layers, bad = ssd_layer_probe(params, cfg32, prompts)
+        faults += bad
+        extra = dict(f32_kernel_vs_scan64=d_k, f32_plain_vs_scan64=d_p,
+                     k12_layers=layers, k12_layers_max={
+                         key: max(r[key] for r in layers)
+                         for key in layers[0]})
+    elif err32 > tol32:
+        faults.append(f"f32 logits, kernel vs plain {err32} > {tol32}")
+    # equal argmaxes follow from the logit gate where the margin is above
+    # twice it; they are counted, not gated
+    sure = (top2_margin(p32[2][:-1]) > 2 * tol32).T          # (B, n_new)
+    first = logits[0]
     row = dict(
         phase="llm_dense" if cfg.family == "dense" else "llm_ssm",
         arch=arch, batch=LLM_BATCH, prompt=LLM_PROMPT, new_tokens=LLM_NEW,
@@ -1877,16 +2020,27 @@ def llm_phase(dev, arch, kernel):
         prefill_ms=[r[0] for r in runs], decode_ms_per_token=[
             r[1] for r in runs], plain_prefill_ms=plain[0],
         plain_decode_ms_per_token=plain[1], peak_mem_gb=peak_gb,
-        logits_max_abs=float(logits.abs().max()), logits_err=err,
-        bf16_vs_f32_gap=bf16_gap, f32_logits_err=err32, f32_tol=tol32,
-        tokens_equal_steps=int((k_toks == plain[3]).all(0).to(
+        f32_logits_err=err32, f32_prefill_logits_err=err32_prefill,
+        f32_tol=tol32, f32_step_errs=(k32[2] - p32[2]).abs().amax(
+            (1, 2)).tolist(),
+        f32_logits_max_abs=float(p32[2].abs().max()),
+        f32_tokens_equal=int((k32[3] == p32[3]).sum()),
+        f32_tokens_above_margin=int(sure.sum()),
+        f32_token_slots=sure.numel(),
+        f32_min_margin=float(top2_margin(p32[2][:-1]).min()),
+        bf16_logits_max_abs=float(first.abs().max()),
+        bf16_kernel_vs_plain=float((first - plain[2][0]).abs().max()),
+        bf16_plain_vs_f32=float((plain[2][0] - p32[2][0]).abs().max()),
+        bf16_tokens_equal_steps=int((k_toks == plain[3]).all(0).to(
             torch.int64).cumprod(0).sum()),
-        steps_above_margin=n_sure, min_margin=min(margins),
-        tokens=tokens[0, :8].tolist(), profile=prof)
-    emit(row)
-    del params, runs, plain
+        bf16_min_margin=float(top2_margin(logits[:-1]).min()),
+        tokens=tokens[0, :8].tolist(), profile=prof) | extra
+    emit({key: v for key, v in row.items() if key != "k12_layers"})
+    del params, runs, plain, p32, k32
     gc.collect()
     torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError(f"{arch}: " + "; ".join(faults))
     return row
 
 
@@ -1944,6 +2098,13 @@ def main() -> int:
     dense = llm_phase(dev, "tinyllama-1.1b", "flash_attention")
     ssm = llm_phase(dev, "mamba2-1.3b", "ssd_scan")
     launches = launches | dense["launches"] | ssm["launches"]
+    worst = ssm["k12_layers_max"]
+    rows.append(dict(
+        name="ssd_scan", check_only="mamba2-1.3b layer inputs, f32 model, "
+        "vs a float64 scan", max_abs_err=worst["y_kernel_vs_plain"],
+        max_abs_y=worst["max_y"], max_cum=worst["max_cum"],
+        kernel_vs_f64=worst["y_kernel_vs_f64"],
+        plain_vs_f64=worst["y_plain_vs_f64"]))
     pipe_rows += [dense, ssm]
     kernels = []
     for r in rows:

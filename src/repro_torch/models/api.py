@@ -5,8 +5,8 @@
 (whisper's encoder-decoder) raises ``NotImplementedError``, as the moe,
 hybrid and vlm families do in ``transformer`` (ROADMAP.md queue 7).
 
-Batch dict keys: ``tokens`` (B,S) int32, always present; ``patches``
-(B,vision_tokens,Dv) for vlm, ``frames`` (B,enc_seq,D) for audio.
+Batch dict keys: ``tokens`` (B,S) int32 (the vlm family's ``patches``
+and audio's ``frames`` come with those families).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.config import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 
-__all__ = ["init_params", "extra_embeds_of", "forward", "init_serve_state",
+__all__ = ["init_params", "forward", "init_serve_state",
            "serve_decode_step"]
 
 
@@ -42,35 +42,25 @@ def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
     return transformer.init_lm(gen, cfg)
 
 
-def extra_embeds_of(cfg: ArchConfig, batch: Dict[str, Any]):
-    if cfg.family == "vlm":
-        return batch["patches"]
-    return None
-
-
 def forward(params, cfg: ArchConfig, batch: Dict[str, Any], *,
-            attn_impl: Optional[str] = None, impl: Optional[str] = None):
+            impl: Optional[str] = None):
     """Full-sequence forward -> (logits, aux_loss, n_prefix)."""
     _no_audio(cfg)
-    return transformer.forward_lm(params, cfg, batch["tokens"],
-                                  extra_embeds_of(cfg, batch),
-                                  attn_impl=attn_impl, impl=impl)
+    return transformer.forward_lm(params, cfg, batch["tokens"], impl=impl)
 
 
 # ------------------------------------------------------------------ serving
 
 def init_serve_state(params, cfg: ArchConfig, batch: int, context_len: int,
-                     *, force_window: bool = False, device=None):
+                     *, device=None):
     _no_audio(cfg)
     if device is None:
         device = params["embed"].device
     return transformer.init_decode_state(cfg, batch, context_len,
-                                         force_window=force_window,
                                          device=device)
 
 
-def serve_decode_step(params, cfg: ArchConfig, caches, cur_index: int, token,
-                      *, force_window: bool = False):
+def serve_decode_step(params, cfg: ArchConfig, caches, cur_index: int,
+                      token):
     _no_audio(cfg)
-    return transformer.decode_step(params, cfg, caches, cur_index, token,
-                                   force_window=force_window)
+    return transformer.decode_step(params, cfg, caches, cur_index, token)

@@ -17,11 +17,10 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 __all__ = ["dtype_of", "dense_init", "embed_init", "stacked", "init_rmsnorm",
            "rmsnorm", "init_layernorm", "layernorm", "rotary_embed",
-           "init_glu_mlp", "glu_mlp", "init_gelu_mlp",
+           "silu", "init_glu_mlp", "glu_mlp", "init_gelu_mlp",
            "gelu_mlp", "softcap"]
 
 
@@ -118,8 +117,19 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
 
 # ----------------------------------------------------------------------- MLPs
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x · 1 / (1 + exp(-x))``, each op in x's dtype: ``jax.nn.silu``'s
+    lowering, so a bf16 activation rounds where the reference's does
+    (``F.silu`` rounds once and differs in ~40% of bf16 outputs)."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return x * (one / (one + torch.exp(-x)))
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu(approximate=True)``'s formula, each op in x's dtype
+    (``F.gelu`` rounds once)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
 
 
 def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
@@ -130,7 +140,7 @@ def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
 
 def glu_mlp(params, x: torch.Tensor, activation: str = "silu"
             ) -> torch.Tensor:
-    act = {"silu": F.silu, "gelu": _gelu_tanh}[activation]
+    act = {"silu": silu, "gelu": _gelu_tanh}[activation]
     gate = act(x @ params["wi_gate"].to(x.dtype))
     up = x @ params["wi_up"].to(x.dtype)
     return (gate * up) @ params["wo"].to(x.dtype)

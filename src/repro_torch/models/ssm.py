@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm, silu
 
 __all__ = ["dims", "init_mamba", "ssd_chunked", "mamba_forward",
            "mamba_forward_with_state", "init_mamba_cache",
@@ -151,7 +151,7 @@ def _mamba_core(params, x_in: torch.Tensor, ssm: SSMConfig,
     Bm = x_in @ params["wB"].to(x_in.dtype)
     Cm = x_in @ params["wC"].to(x_in.dtype)
 
-    xr = F.silu(_depthwise_conv(xr_raw, params["conv_x"]))
+    xr = silu(_depthwise_conv(xr_raw, params["conv_x"]))
     b, s, _ = xr.shape
     xh = xr.reshape(b, s, nh, ssm.head_dim).float()
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
@@ -160,7 +160,7 @@ def _mamba_core(params, x_in: torch.Tensor, ssm: SSMConfig,
                                       chunk=min(ssm.chunk, s), impl=impl)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(b, s, di).to(x_in.dtype)
-    y = rmsnorm(params["gate_norm"], y * F.silu(z))
+    y = rmsnorm(params["gate_norm"], y * silu(z))
     out = y @ params["out_proj"].to(x_in.dtype)
     return out, final_state, xr_raw
 
@@ -213,7 +213,7 @@ def mamba_decode_step(params, x_in: torch.Tensor, cache, ssm: SSMConfig):
     # causal depthwise conv via the conv-state ring
     conv_hist = torch.cat([cache["conv"], xr[:, None]], dim=1)
     w = params["conv_x"].to(xr.dtype)                 # (W, di)
-    xr = F.silu(torch.einsum("bwc,wc->bc", conv_hist, w))
+    xr = silu(torch.einsum("bwc,wc->bc", conv_hist, w))
     new_conv = conv_hist[:, 1:]
 
     xh = xr.reshape(-1, nh, ssm.head_dim).float()     # (B,H,P)
@@ -225,6 +225,6 @@ def mamba_decode_step(params, x_in: torch.Tensor, cache, ssm: SSMConfig):
     y = torch.einsum("bhpn,bn->bhp", state, Cm)
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(-1, di).to(x_in.dtype)
-    y = rmsnorm(params["gate_norm"], y * F.silu(z))
+    y = rmsnorm(params["gate_norm"], y * silu(z))
     out = (y @ params["out_proj"].to(x_in.dtype))[:, None]
     return out, {"state": state, "conv": new_conv}

@@ -9,10 +9,10 @@ and vlm families raise ``NotImplementedError`` (ROADMAP.md queue 7).  The
 reference's layer-scanned ``prefill_scanned``/``decode_step_scanned``
 exist to keep XLA's programs small and are not ported.
 
-``attn_impl`` picks the attention algorithm (``models.attention.attend``:
-``None`` is K11 on the card); ``impl`` reaches the kernels' ops (K11 and
-K12): ``None`` launches the kernel on a CUDA tensor and takes the plain
-version on the CPU, ``"ref"`` takes the plain version everywhere.
+``impl`` selects the kernels (K11 and K12): ``None`` launches each
+kernel on a CUDA tensor and takes the reference's full/chunked attention
+and the plain scan on the CPU; ``"ref"`` takes the plain versions
+everywhere.
 """
 from __future__ import annotations
 
@@ -45,14 +45,13 @@ def _check_family(cfg: ArchConfig) -> None:
 
 # ------------------------------------------------------------ layer metadata
 
-def layer_windows(cfg: ArchConfig, *, force_window: bool = False
-                  ) -> List[int]:
+def layer_windows(cfg: ArchConfig) -> List[int]:
     """Per-layer sliding window (0 = full attention); gemma2-style
     local/global alternation keeps even layers local.  (The hybrid
     family's global layers come with that family, queue 7.)"""
     if not cfg.local_global_alternate:
         return [cfg.sliding_window] * cfg.n_layers
-    return [cfg.sliding_window if (i % 2 == 0 or force_window) else 0
+    return [cfg.sliding_window if i % 2 == 0 else 0
             for i in range(cfg.n_layers)]
 
 
@@ -104,15 +103,13 @@ def _layer_params(params, i: int):
     return pick(params["layers"])
 
 
-def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window,
-                    attn_impl, impl):
+def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, impl):
     q, k, v = attn_mod.qkv_project(lp, x_norm)
     q = rotary_embed(q, positions, cfg.rope_theta)
     k = rotary_embed(k, positions, cfg.rope_theta)
     out = attn_mod.attend(
         q, k, v, q_pos=positions, k_pos=positions, causal=True,
-        window=window, logit_cap=cfg.attn_logit_softcap,
-        impl=attn_impl, kernel_impl=impl)
+        window=window, logit_cap=cfg.attn_logit_softcap, kernel_impl=impl)
     return attn_mod.out_project(lp, out), k, v
 
 
@@ -126,7 +123,6 @@ def _mlp_path(lp, x, cfg: ArchConfig):
 
 
 def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
-                  attn_impl: Optional[str] = None,
                   impl: Optional[str] = None):
     """One decoder block. Returns (x, aux_loss)."""
     eps = cfg.norm_eps
@@ -135,8 +131,7 @@ def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
         h = rmsnorm(lp["norm"], x, eps)
         return x + ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm, impl), aux
     h = rmsnorm(lp["attn_norm"], x, eps)
-    a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window,
-                              attn_impl, impl)
+    a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window, impl)
     if cfg.sandwich_norms:
         a = rmsnorm(lp["post_attn_norm"], a, eps)
     return _mlp_path(lp, x + a, cfg), aux
@@ -144,9 +139,9 @@ def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
 
 # ----------------------------------------------------------------- forward
 
-def embed_inputs(params, cfg: ArchConfig, tokens, extra_embeds=None):
+def embed_inputs(params, cfg: ArchConfig, tokens):
     """tokens (B,S) -> (x (B,S,D), n_prefix); the dense and ssm families
-    prepend nothing."""
+    prepend nothing (the vlm family's patches come with it, queue 7)."""
     _check_family(cfg)
     dt = dtype_of(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt)
@@ -162,16 +157,16 @@ def lm_logits(params, cfg: ArchConfig, x):
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
-def forward_lm(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
-               attn_impl: Optional[str] = None, impl: Optional[str] = None):
+def forward_lm(params, cfg: ArchConfig, tokens, *,
+               impl: Optional[str] = None):
     """Full-sequence forward. Returns (logits (B,S,Vp), aux_loss, n_prefix)."""
-    x, n_prefix = embed_inputs(params, cfg, tokens, extra_embeds)
+    x, n_prefix = embed_inputs(params, cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     wins = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, aux = block_forward(_layer_params(params, i), x, cfg, positions,
-                               wins[i], attn_impl, impl)
+                               wins[i], impl)
         aux_total = aux_total + aux
     return lm_logits(params, cfg, x), aux_total, n_prefix
 
@@ -179,11 +174,11 @@ def forward_lm(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
 # ------------------------------------------------------------------ decode
 
 def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
-                      force_window: bool = False, device=None):
+                      device=None):
     """Per-layer cache list sized for decoding with ``context_len`` history."""
     _check_family(cfg)
     dt = dtype_of(cfg.dtype)
-    wins = layer_windows(cfg, force_window=force_window)
+    wins = layer_windows(cfg)
     caches: List[Any] = []
     for i in range(cfg.n_layers):
         if cfg.family == "ssm":
@@ -208,15 +203,14 @@ def _decode_attn(lp, cfg, x_norm, cache, cur_index: int, window: int):
     return attn_mod.out_project(lp, out), cache
 
 
-def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token, *,
-                force_window: bool = False):
+def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token):
     """One decode step. token: (B,) int32; cur_index: the absolute position
     (a Python int). Returns (logits (B,Vp), caches); attention caches are
     updated in place."""
     cur_index = int(cur_index)
     eps = cfg.norm_eps
     x, _ = embed_inputs(params, cfg, token[:, None])              # (B,1,D)
-    wins = layer_windows(cfg, force_window=force_window)
+    wins = layer_windows(cfg)
     new_caches = []
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
@@ -237,9 +231,8 @@ def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token, *,
     return lm_logits(params, cfg, x)[:, 0], new_caches
 
 
-def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
-            context_len: Optional[int] = None, force_window: bool = False,
-            attn_impl: Optional[str] = None, impl: Optional[str] = None,
+def prefill(params, cfg: ArchConfig, tokens, *,
+            context_len: Optional[int] = None, impl: Optional[str] = None,
             last_only: bool = False):
     """Run the full prompt and build decode caches.
 
@@ -248,13 +241,12 @@ def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
     next_index (an int)).
     """
     eps = cfg.norm_eps
-    x, _ = embed_inputs(params, cfg, tokens, extra_embeds)
+    x, _ = embed_inputs(params, cfg, tokens)
     b, s_total, _ = x.shape
     context_len = context_len or s_total
     positions = torch.arange(s_total, dtype=torch.int32, device=x.device)
-    wins = layer_windows(cfg, force_window=force_window)
-    caches = init_decode_state(cfg, b, context_len,
-                               force_window=force_window, device=x.device)
+    wins = layer_windows(cfg)
+    caches = init_decode_state(cfg, b, context_len, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
         entry = caches[i]
@@ -267,7 +259,7 @@ def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
             continue
         h = rmsnorm(lp["attn_norm"], x, eps)
         a, k, v = _attention_path(lp["attn"], h, cfg, positions, wins[i],
-                                  attn_impl, impl)
+                                  impl)
         attn_mod.cache_fill(entry["attn"], k, v, window=wins[i])
         if cfg.sandwich_norms:
             a = rmsnorm(lp["post_attn_norm"], a, eps)

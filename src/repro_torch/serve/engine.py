@@ -20,36 +20,31 @@ __all__ = ["make_prefill_step", "make_serve_step", "greedy_decode"]
 
 
 def make_prefill_step(cfg: ArchConfig, *, context_len: int,
-                      force_window: bool = False,
-                      attn_impl: Optional[str] = None,
                       impl: Optional[str] = None, last_only: bool = False):
     """prefill_step(params, batch) -> (logits, caches, next_index)."""
 
     def prefill_step(params, batch):
         return transformer.prefill(
-            params, cfg, batch["tokens"], api.extra_embeds_of(cfg, batch),
-            context_len=context_len, force_window=force_window,
-            attn_impl=attn_impl, impl=impl, last_only=last_only)
+            params, cfg, batch["tokens"], context_len=context_len,
+            impl=impl, last_only=last_only)
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, *, force_window: bool = False):
+def make_serve_step(cfg: ArchConfig):
     """serve_step(params, caches, cur_index, token) -> (next_token, logits,
     caches)."""
 
     def serve_step(params, caches, cur_index, token):
-        logits, caches = api.serve_decode_step(
-            params, cfg, caches, cur_index, token, force_window=force_window)
+        logits, caches = api.serve_decode_step(params, cfg, caches,
+                                               cur_index, token)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, logits, caches
     return serve_step
 
 
 def greedy_decode(params, cfg: ArchConfig, prompt_tokens: torch.Tensor,
-                  n_new: int, *, extra_embeds=None,
-                  force_window: bool = False,
-                  attn_impl: Optional[str] = None,
-                  impl: Optional[str] = None) -> torch.Tensor:
+                  n_new: int, *, impl: Optional[str] = None
+                  ) -> torch.Tensor:
     """Prefill a prompt (B,S) then greedily decode ``n_new`` tokens ->
     (B, n_new) int32."""
     if prompt_tokens.shape[1] == 0:
@@ -58,16 +53,12 @@ def greedy_decode(params, cfg: ArchConfig, prompt_tokens: torch.Tensor,
         raise ValueError("greedy_decode needs at least one prompt token "
                          "(got an empty prompt)")
     prefill_step = make_prefill_step(
-        cfg, context_len=prompt_tokens.shape[1] + n_new
-        + (extra_embeds.shape[1] if extra_embeds is not None else 0)
-        + cfg.hybrid_meta_tokens, force_window=force_window,
-        attn_impl=attn_impl, impl=impl, last_only=True)
-    batch = {"tokens": prompt_tokens}
-    if extra_embeds is not None:
-        batch["patches"] = extra_embeds
-    logits, caches, next_idx = prefill_step(params, batch)
+        cfg, context_len=prompt_tokens.shape[1] + n_new, impl=impl,
+        last_only=True)
+    logits, caches, next_idx = prefill_step(params,
+                                            {"tokens": prompt_tokens})
     cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    step = make_serve_step(cfg, force_window=force_window)
+    step = make_serve_step(cfg)
     out = []
     for t in range(n_new):
         out.append(cur)
