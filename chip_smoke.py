@@ -2,14 +2,19 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase (the contract)
+    python3 chip_smoke.py --only llm-kernels   # build K11/K12, their rows
 
 Phases, each printing JSON lines:
 
 1. device   — the card's name and power limit (nvidia-smi) and torch's name.
 2. build    — compiles every CUDA kernel of the slice from
               ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
-              at once) into ``build/repro_torch_ext/``.
+              at once) into ``build/repro_torch_ext/``, with ptxas's
+              registers and spills for each kernel instance, and counts
+              the tensor-core instructions (``cuobjdump -sass``: HMMA,
+              HGMMA) of each K11 instance: every bf16 instance must have
+              them.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the main paths give it (K6 on 2×2^17 ids, K7
               at P=2^17 with ~70% overlap, K3/K5 at M=3, N=49,000, d=11,
@@ -46,11 +51,21 @@ Phases, each printing JSON lines:
               tinyllama prefill (B=2, Sq=Sk=2,048, H=32, KV=4, Dh=64,
               causal, bf16) within one bf16 ulp of its plain version (f32
               full attention rounded once), SDPA with ``enable_gqa``
-              beside it, and in f32 within 1e-5 under a window + prefix,
-              a softcap with Dh=128, no causal mask with Dh=48 and Sq<Sk
-              (``check_only``); K12 (the SSD scan) at the mamba2-1.3b
-              prefill (B=2, S=2,048, H=64, P=64, N=128, L=128), at S=1,000
-              and at L=37, y and state within 1e-5·(1+max|plain|).
+              beside it; in f32 (within 1e-5) and bf16 under a window +
+              prefix, a softcap with Dh=128, no causal mask with Dh=48
+              and Sq<Sk (``check_only``); bf16 at the shapes of the other
+              configs that reach K11 (B=2, S=2,048): stablelm-12b and
+              qwen2-72b timed beside SDPA (``timed_at``, outside the
+              ``kernels`` line), gemma2-9b (Dh=256, window, softcap) and
+              hymba-1.5b (G=5, window, prefix) checked, and G=128 and
+              Dh=36.  K12 (the SSD scan) at the mamba2-1.3b prefill (B=2,
+              S=2,048, H=64, P=64, N=128, L=128), at S=1,000 and at L=37,
+              y and state within 1e-5·(1+max|plain|).  Then ``grad``:
+              both CUDA wrappers must refuse, under grad mode, each
+              operand that requires grad (they have no backward), and
+              run under ``no_grad``.  Every library yardstick is timed
+              with CUDA events (``library_ms``) and by the profiler
+              (``library_device_ms``), to compare with ``device_ms``.
 4. pipeline — ``run_pipeline(model="knn")`` at the paper's full HI size
               (70,000 train / 30,000 test rows, 3 clients, k=14,
               25 iterations, OPRF on the device) for ``treecss`` and
@@ -154,6 +169,8 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -255,6 +272,14 @@ def host_profile(fn, top: int = 12):
             "own_ms": sorted(own, key=lambda r: -r[1])[:top]}
 
 
+def library_times(fn):
+    """A library yardstick's event ms (``cuda_ms``) and device ms (the
+    profiler's total for one call), so that kernels compare with it
+    device time to device time."""
+    return dict(library_ms=cuda_ms(fn),
+                library_device_ms=profile_device(fn)[1])
+
+
 def bound(nbytes: float, ops, rate: float = F32_FLOPS):
     """(ms, what binds): the larger of ``nbytes`` at the HBM rate and
     ``ops`` at ``rate``; ``ops`` may be a list of (ops, rate) pairs, work
@@ -263,6 +288,27 @@ def bound(nbytes: float, ops, rate: float = F32_FLOPS):
     work = ops if isinstance(ops, list) else [(ops, rate)]
     t_ops = sum(o / r for o, r in work) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_census(name: str, marks=("HMMA", "HGMMA")):
+    """Per kernel function of kernel library ``name`` as built, the count
+    of each SASS mnemonic in ``marks`` (``cuobjdump -sass``): tensor-core
+    instructions in the code, not launches."""
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._target(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if line.strip().startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(marks, 0)
+        elif fn is not None:
+            for mark in marks:
+                counts[fn][mark] += len(re.findall(rf"\b{mark}\b", line))
+    return counts
 
 
 def nvidia_smi() -> str:
@@ -393,7 +439,7 @@ def merge_row(name, replaces, a, b, n_common, **extra):
                                    ["merge_kernel"]),
         plain_ms=cuda_ms(lambda: si_ref.sorted_intersect(a, b)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.sort(ab, dim=1)),
+        **library_times(lambda: torch.sort(ab, dim=1)),
         library="torch.sort of the 2P keys", shape=[pairs, p], **extra)
 
 
@@ -536,7 +582,7 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
                                    ["assign_kernel"]),
         plain_ms=cuda_ms(lambda: ka_ref.kmeans_assign(pts, cents)),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.cdist(pts, cents).argmin(-1)),
+        **library_times(lambda: torch.cdist(pts, cents).argmin(-1)),
         shape=[m, n, d, k], **extra))
     return rows
 
@@ -639,7 +685,7 @@ def bottom_kernel_rows(dev, slab, yslab, rng):
             plain_ms=cuda_ms(lambda: sb_ref.splitnn_bottom(x, w, b, relu,
                                                            idx)),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=cuda_ms(lambda: torch.baddbmm(bb, xg, w)),
+            **library_times(lambda: torch.baddbmm(bb, xg, w)),
             library="torch.baddbmm on the same (gathered) operands, "
                     "without the ReLU",
             shape=[m, bsz, d, o], relu=relu, **extra)
@@ -739,7 +785,7 @@ def int8_kernel_rows(dev, slab, rng):
             device_ms=kernel_device_ms(call, ["bottom_int8_kernel"]),
             plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
             nbytes=nbytes,
-            library_ms=cuda_ms(lambda: torch.baddbmm(bb, xf, wf)),
+            **library_times(lambda: torch.baddbmm(bb, xf, wf)),
             library="torch.baddbmm on the dequantized f32 operands (the "
                     "same product in f32), without the ReLU; "
                     "torch._int_mm does not take K = 11",
@@ -847,13 +893,14 @@ def visible_pairs(sq, sk, causal=True, window=0, prefix=0) -> int:
 
 
 def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
-              **kw):
+              timed_at=None, **kw):
     """K11 on seeded unit-normal q/k/v against its plain version (f32
     full attention, rounded once to q's dtype): within 1e-5 abs in f32;
     in bf16 both round one f32 result, so within one bf16 ulp
-    (2^-7·|plain| + 1e-6).  SDPA with ``enable_gqa`` is the library
-    yardstick (causal, no window, prefix or softcap: main-path rows
-    only)."""
+    (2^-7·|plain| + 1e-6).  Timed rows (the main path's, and
+    ``timed_at`` a config's shape outside the ``kernels`` line) take SDPA
+    with ``enable_gqa`` as the library yardstick (causal, no window,
+    prefix or softcap)."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -871,15 +918,19 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
         err = check_close("flash_attention", got, want,
                           torch.zeros_like(want), rtol=0.0, atol=1e-5)
     else:
-        err = check_close("flash_attention (bf16)", got, want,
-                          want.float().abs(), rtol=BF16_ULP, atol=1e-6)
+        err = check_close(f"flash_attention (bf16, {[b, sq, sk, h, kv, dh]}"
+                          f", {kw})", got, want, want.float().abs(),
+                          rtol=BF16_ULP, atol=1e-6)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:99",
                max_abs_err=err, shape=[b, sq, sk, h, kv, dh],
                dtype=str(dtype).split(".")[-1], **kw)
+    del want
     if check_only:
         return row | {"check_only": check_only}
+    if timed_at:
+        row["timed_at"] = timed_at
     visible = visible_pairs(sq, sk, **{key: kw[key] for key in kw
                                        if key != "logit_cap"})
     # Tensor-core bound of the bf16 row: QKᵀ of bf16 operands is exact in
@@ -897,9 +948,103 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
         device_ms=kernel_device_ms(call, ["flash_attention_kernel"]),
         plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
         visible_pairs=visible,
-        library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True)),
+        **library_times(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                     enable_gqa=True)),
         library="torch scaled_dot_product_attention(is_causal, enable_gqa)")
+
+
+def flash_rows(dev, rng):
+    """K11 at the tinyllama prefill (B = 2, Sq = Sk = 2,048, H = 32,
+    KV = 4, Dh = 64, causal, bf16: the ``kernels`` line's row), in f32
+    there, and in f32 and bf16 under a window and prefix, a softcap with
+    Dh = 128, without the causal mask with Dh = 48 and with Sq < Sk
+    (``check_only``); bf16 at the other registered configs' shapes that
+    reach K11 (B = 2, S = 2,048): stablelm-12b (G = 4, Dh = 160) and
+    qwen2-72b (G = 8, Dh = 128) timed, gemma2-9b (G = 2, Dh = 256,
+    window 4,096, softcap 50: SDPA cannot softcap) and hymba-1.5b's
+    attention (G = 5, Dh = 64, window 1,024, prefix 128) checked; and
+    bf16 at G = 128 (the heads split over CTAs) and at Dh = 36 (rows not
+    16-byte aligned: the kernel's element-wise loads)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = [flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, bf16, causal=True)]
+    for dtype in (f32, bf16):
+        tag = str(dtype).split(".")[-1]
+        if dtype == f32:
+            rows.append(flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, f32,
+                                  causal=True, check_only="f32"))
+        rows += [
+            flash_row(dev, rng, 1, 1024, 1024, 8, 2, 64, dtype, causal=True,
+                      window=256, prefix=32,
+                      check_only=f"window+prefix, {tag}"),
+            flash_row(dev, rng, 1, 512, 512, 16, 8, 128, dtype, causal=True,
+                      window=128, logit_cap=50.0,
+                      check_only=f"softcap, Dh=128, {tag}"),
+            flash_row(dev, rng, 2, 384, 384, 4, 4, 48, dtype, causal=False,
+                      check_only=f"non-causal, Dh=48, {tag}"),
+            flash_row(dev, rng, 2, 100, 700, 6, 3, 32, dtype, causal=True,
+                      window=200, prefix=16, check_only=f"Sq<Sk, {tag}")]
+    rows += [
+        flash_row(dev, rng, 2, 2048, 2048, 32, 8, 160, bf16, causal=True,
+                  timed_at="stablelm-12b"),
+        flash_row(dev, rng, 2, 2048, 2048, 64, 8, 128, bf16, causal=True,
+                  timed_at="qwen2-72b"),
+        flash_row(dev, rng, 2, 2048, 2048, 16, 8, 256, bf16, causal=True,
+                  window=4096, logit_cap=50.0, check_only="gemma2-9b"),
+        flash_row(dev, rng, 2, 2048, 2048, 25, 5, 64, bf16, causal=True,
+                  window=1024, prefix=128, check_only="hymba-1.5b"),
+        flash_row(dev, rng, 1, 64, 64, 128, 1, 64, bf16, causal=True,
+                  check_only="G=128"),
+        flash_row(dev, rng, 2, 300, 300, 4, 2, 36, bf16, causal=True,
+                  window=100, check_only="Dh=36")]
+    return rows
+
+
+def grad_check(dev, rng):
+    """K11 and K12 have no backward: under grad mode each CUDA wrapper
+    must refuse an operand that requires grad (RuntimeError, "no
+    backward"), and under ``torch.no_grad()`` the same call runs and
+    matches its plain version (K11 in f32 within 1e-5, K12 within
+    1e-5·(1+max|y|)).  A refusal that is not seen fails the run."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    g = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    cases = (
+        ("flash_attention", flash_attention_cuda, fa_ref.flash_attention,
+         (g(1, 64, 4, 32), g(1, 64, 2, 32), g(1, 64, 2, 32))),
+        ("ssd_scan", lambda *a: ssd_scan_cuda(*a, chunk=32)[0],
+         lambda *a: ssd_ref.ssd_scan(*a, 32)[0],
+         (g(1, 64, 2, 16), g(1, 64, 2).abs() * 0.1, -g(2).abs(),
+          g(1, 64, 16), g(1, 64, 16))))
+    out = {}
+    for name, call, plain, args in cases:
+        for i in range(len(args)):
+            leaves = [t.clone().requires_grad_(j == i)
+                      for j, t in enumerate(args)]
+            try:
+                call(*leaves)
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+                msg = str(e)
+            else:
+                raise AssertionError(f"{name}: the CUDA wrapper ran under "
+                                     f"grad with operand {i} requiring grad")
+            with torch.no_grad():
+                got, want = call(*leaves), plain(*leaves)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if err > 1e-5 * (1 + float(want.abs().max())):
+                raise AssertionError(f"{name} under no_grad: {err} from "
+                                     "the plain version")
+        out[name] = dict(raised=msg, operands_refused=len(args),
+                         no_grad_max_abs_err=err)
+    emit({"phase": "grad", **out})
+    return out
 
 
 def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None):
@@ -953,30 +1098,17 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None):
 
 
 def llm_kernel_rows(dev, rng):
-    """K11 at the tinyllama prefill (B = 2, Sq = Sk = 2,048, H = 32,
-    KV = 4, Dh = 64, causal, bf16) and K12 at the mamba2-1.3b prefill
-    (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128); then K11 under
-    a window and prefix, a softcap, without the causal mask and with
-    Sq < Sk, and K12 at S = 1,000 (a padded last chunk) and at a 37-token
-    prompt (L = 37), as ``check_only`` rows."""
-    f32 = torch.float32
-    return [
-        flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, torch.bfloat16,
-                  causal=True),
-        flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, f32, causal=True,
-                  check_only="f32"),
-        flash_row(dev, rng, 1, 1024, 1024, 8, 2, 64, f32, causal=True,
-                  window=256, prefix=32, check_only="window+prefix"),
-        flash_row(dev, rng, 1, 512, 512, 16, 8, 128, f32, causal=True,
-                  window=128, logit_cap=50.0, check_only="softcap, Dh=128"),
-        flash_row(dev, rng, 2, 384, 384, 4, 4, 48, f32, causal=False,
-                  check_only="non-causal, Dh=48"),
-        flash_row(dev, rng, 2, 100, 700, 6, 3, 32, f32, causal=True,
-                  window=200, prefix=16, check_only="Sq<Sk"),
+    """K11's rows (``flash_rows``), then K12 at the mamba2-1.3b prefill
+    (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128), at S = 1,000 (a
+    padded last chunk) and at a 37-token prompt (L = 37, ``check_only``),
+    then both wrappers' refusal under grad (``grad_check``)."""
+    rows = flash_rows(dev, rng) + [
         ssd_row(dev, rng, 2, 2048, 64, 64, 128, 128),
         ssd_row(dev, rng, 2, 1000, 64, 64, 128, 128, check_only="S=1000"),
         ssd_row(dev, rng, 2, 37, 64, 64, 128, 37, check_only="L=37"),
     ]
+    grad_check(dev, rng)
+    return rows
 
 # ---------------------------------------------------------- pipeline phase
 
@@ -2051,7 +2183,11 @@ def _leaves(tree):
     else:
         yield tree
 
-def main() -> int:
+def main(argv) -> int:
+    only_llm = argv == ["--only", "llm-kernels"]
+    if argv and not only_llm:
+        print("usage: chip_smoke.py [--only llm-kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2059,14 +2195,34 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
     emit({"phase": "device", "nvidia_smi": smi,
           "torch_name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    secs = build.build_all()
+    secs = build.build_all(["flash_attention", "ssd_scan"] if only_llm
+                           else None)
+    # K11's bf16 instances must run both products on the tensor cores
+    sass = sass_census("flash_attention")
     emit({"phase": "build", "seconds": secs,
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
-                        or "spill" in ln] for k, v in
-                    build.PTXAS_REPORT.items()}})
+                        or "spill" in ln or "entry function" in ln]
+                    for k, v in build.PTXAS_REPORT.items()},
+          "flash_attention_sass": sass})
+    no_mma = [fn for fn, c in sass.items()
+              if "bf16_mma" in fn and not (c["HMMA"] or c["HGMMA"])]
+    if no_mma or not any("bf16_mma" in fn for fn in sass):
+        raise AssertionError(f"flash_attention: bf16 instances without "
+                             f"tensor-core instructions: {no_mma or sass}")
+    if only_llm:
+        # K11 and K12 against their plain versions, and the grad refusal:
+        # the quick check of an edit to those kernels (not the contract run)
+        rows = llm_kernel_rows(dev, np.random.default_rng(SEED))
+        for r in rows:
+            emit({"phase": "kernel", **r})
+        print(smi, flush=True)
+        emit({"ok": True, "only": "llm-kernels", "device": device})
+        return 0
     rows = kernel_phase(dev)
     launches, pipe_rows = pipeline_phase(dev)
     train_runs, train_rows = train_phase(dev)
@@ -2108,7 +2264,7 @@ def main() -> int:
     pipe_rows += [dense, ssm]
     kernels = []
     for r in rows:
-        if "check_only" in r:
+        if "check_only" in r or "timed_at" in r:
             continue
         kernels.append({key: r[key] for key in (
             "name", "route", "source", "replaces")} | {
@@ -2122,11 +2278,9 @@ def main() -> int:
                    "kernels": rows, "pipeline": pipe_rows}, f, indent=1)
     emit({"kernels": kernels})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": device})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

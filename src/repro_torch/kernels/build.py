@@ -41,8 +41,10 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build_all", "library",
-           "function", "check", "require_cuda"]
+           "function", "check", "refuse_grad", "require_cuda"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -148,6 +150,15 @@ def check(err: int, name: str) -> None:
     runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward through a kernel that
+    has none (K11, K12): the output would silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an "
+                           "operand requires grad; training takes the plain "
+                           "version (impl='ref')")
 
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:

@@ -2,7 +2,9 @@
 (``csrc/flash_attention.cu``), the port of ``repro/kernels/
 flash_attention/kernel.py::flash_attention_pallas``.  The tensors come in
 the framework layout, unpadded; the kernel folds the GQA groups and
-masks its own edges."""
+masks its own edges.  bf16 runs on the tensor cores (``mma.sync`` tiles,
+p carried in three bf16 pieces), f32 on the CUDA cores.  Forward only:
+under grad mode an operand that requires grad is refused."""
 from __future__ import annotations
 
 import math
@@ -11,8 +13,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the kernel's limits: one CTA holds all G = H / KV query heads of a kv
-#: head (at most 128 threads), and pads Dh in registers up to 256
+#: the kernel's limits: the f32 instance holds all G = H / KV query heads
+#: of a kv head in one CTA (at most 128 threads); both pad Dh up to 256
 MAX_GROUP = 128
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -24,6 +26,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """K11: q (B,Sq,H,Dh), k/v (B,Sk,KV,Dh), all f32 or all bf16, on one
     CUDA device -> (B,Sq,H,Dh) in q's dtype, f32 math inside."""
+    build.refuse_grad("flash_attention", q, k, v)
     build.require_cuda("flash_attention", q, k, v, dtype=q.dtype)
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: expected f32 or bf16, got "

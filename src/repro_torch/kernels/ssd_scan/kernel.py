@@ -21,7 +21,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K12: x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,N), f32 on one CUDA
     device -> (y (B,S,H,P), final_state (B,H,P,N)), chunks of ``chunk``
-    rows."""
+    rows.  Forward only: raises under grad mode if an operand requires
+    grad."""
+    build.refuse_grad("ssd_scan", x, dt, A, B, C)
     build.require_cuda("ssd_scan", x, dt, A, B, C, dtype=torch.float32)
     if x.dim() != 4:
         raise ValueError(f"ssd_scan: expected x (B,S,H,P), got "

@@ -127,9 +127,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(approximate=True)``'s formula, each op in x's dtype
-    (``F.gelu`` rounds once)."""
+    (``F.gelu`` rounds once); both constants are first put into x's dtype,
+    as JAX does (in bf16 the cubic coefficient is 0.044677734375)."""
     c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3)))))
+    a = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x ** 3)))))
 
 
 def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):

@@ -5,7 +5,9 @@ port of ``repro/serve/engine.py``).
 K11 in every attention layer, K12 in every Mamba2 layer) and builds the
 decode caches; ``make_serve_step`` decodes ONE new token against them;
 ``greedy_decode`` chains the two.  ``impl="ref"`` runs the kernels'
-plain versions on any device (decode itself runs no kernel).
+plain versions on any device (decode itself runs no kernel).  Serving
+needs no gradient, so both steps run under ``torch.no_grad()``: K11 and
+K12 have no backward and refuse operands that require grad.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ def make_prefill_step(cfg: ArchConfig, *, context_len: int,
                       impl: Optional[str] = None, last_only: bool = False):
     """prefill_step(params, batch) -> (logits, caches, next_index)."""
 
+    @torch.no_grad()
     def prefill_step(params, batch):
         return transformer.prefill(
             params, cfg, batch["tokens"], context_len=context_len,
@@ -34,6 +37,7 @@ def make_serve_step(cfg: ArchConfig):
     """serve_step(params, caches, cur_index, token) -> (next_token, logits,
     caches)."""
 
+    @torch.no_grad()
     def serve_step(params, caches, cur_index, token):
         logits, caches = api.serve_decode_step(params, cfg, caches,
                                                cur_index, token)

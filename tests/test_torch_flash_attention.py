@@ -7,8 +7,20 @@ Tolerance: <= 1e-5 abs in f32 (the reference's own kernel-vs-oracle gap is
 compute in f32 and round once, so they agree within one bf16 ulp
 (2^-7·|out|).  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` holds it against this plain version); here its wrapper
-must refuse a CPU tensor.
+must refuse a CPU tensor, and an operand that requires grad (the kernel
+has no backward), while the plain version's gradients match ``jax.grad``
+of the reference's oracle within 1e-5·(1 + max|grad|).
+
+The bf16 kernel's arithmetic (bf16 q·k products summed in f32, then
+``* scale``; p split into three bf16 pieces, each times bf16 v summed in
+f32; the online softmax a key tile at a time) is emulated here in torch
+and held to the reference's interpret-mode kernel within the card's bf16
+check, 2^-7·|ref| + 1e-6; p rounded to bf16 in one piece fails that check
+on outputs that come from cancellation.
 """
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,3 +128,140 @@ def test_plain_version_is_full_attention_in_f32():
                                     q_pos=pos, k_pos=pos, window=8)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_kernel_refuses_operands_that_require_grad(which):
+    """The CUDA kernel has no backward: under grad mode the
+    ``impl="kernel"`` dispatch refuses q, k or v that requires grad before
+    it looks at the device; under ``no_grad`` the same call passes that
+    check (and is then refused for its CPU tensors)."""
+    args = [torch.from_numpy(a).requires_grad_(i == which)
+            for i, a in enumerate(_inputs(1, 16, 16, 2, 1, 32))]
+    for call in (lambda: ops.flash_attention(*args, impl="kernel"),
+                 lambda: flash_attention_cuda(*args)):
+        with pytest.raises(RuntimeError,
+                           match=r"no backward.*impl='ref'"):
+            call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(*args, impl="kernel")
+
+
+def test_plain_version_gradients_match_reference():
+    """Training takes the plain version: its gradients into q, k and v
+    under a window, prefix and softcap equal ``jax.grad`` of the
+    reference's oracle within 1e-5·(1 + max|grad|) (measured 1.7e-6 at
+    max|grad| 6.5)."""
+    q, k, v = _inputs(1, 48, 48, 4, 2, 32, seed=5)
+    w = np.random.default_rng(6).normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=True, window=20, prefix=4, logit_cap=30.0)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = ops.flash_attention(*leaves, impl="ref", **kw)
+    (out * torch.from_numpy(w)).sum().backward()
+    want = jax.grad(lambda *a: (ref_ref.flash_attention(*a, **kw) * w).sum(),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for leaf, g in zip(leaves, want):
+        g = np.asarray(g)
+        assert np.abs(leaf.grad.numpy() - g).max() <= 1e-5 * (
+            1 + np.abs(g).max())
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal=True, window=0, prefix=0,
+                         logit_cap=0.0, pieces=3, block_k=64):
+    """The arithmetic of the bf16 CUDA kernel, in torch on bf16 q/k/v
+    (B,Sq,H,Dh)/(B,Sk,KV,Dh) -> (out bf16, Σ_j p_j|v_j| / l f32): scores
+    are bf16 products summed in f32, then ``* scale``, softcapped and
+    masked to -1e30; a tile of ``block_k`` keys at a time, the running
+    max, ``corr = exp(m - m_new)`` and ``l``; p split into ``pieces``
+    bf16 pieces, each times bf16 v summed in f32 (smallest piece first)
+    into the tile's sum, added to the rescaled output; out / max(l,
+    1e-30) rounded once to bf16.  The second output is the size of the
+    terms each output sums, to tell cancellation."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.float().reshape(b, sq, kvh, g, dh)
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / math.sqrt(dh)
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    m = torch.full((b, kvh, g, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, dh))
+    mag = torch.zeros_like(acc)
+    for k0 in range(0, sk, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kt) * scale
+        if logit_cap:
+            s = torch.tanh(s / logit_cap) * logit_cap
+        col = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        ok = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= col <= qpos
+        if window > 0:
+            ok &= ((qpos - col) < window) | (col < prefix)
+        s = s.masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        parts, rest = [], p
+        for _ in range(pieces):
+            parts.append(rest.to(torch.bfloat16).float())
+            rest = rest - parts[-1]
+        pv = torch.zeros_like(acc)
+        for part in reversed(parts):
+            pv = pv + torch.einsum("bkgqs,bskd->bkgqd", part, vt)
+        acc = acc * corr[..., None] + pv
+        mag = mag * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                   vt.abs())
+        m = m_new
+    den = torch.clamp(l, min=1e-30)[..., None]
+    fold = lambda t: t.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+    return fold(acc / den).to(torch.bfloat16), fold(mag / den)
+
+
+def _bf16_case(b, sq, sk, h, kv, dh, kw, seed=11):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(b, sq, sk, h, kv, dh, seed=seed))
+    want = ref_ops.flash_attention(*(jnp.asarray(t.float().numpy(),
+                                                 jnp.bfloat16)
+                                     for t in (q, k, v)), **kw)
+    return (q, k, v), np.asarray(want.astype(jnp.float32))
+
+
+def _bf16_check(got, want):
+    """The card's bf16 check: |got - want| <= 2^-7·|want| + 1e-6."""
+    return np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-6
+
+
+EMULATED = [(1, 160, 160, 4, 2, dict(causal=True)),
+            (1, 160, 160, 4, 2, dict(causal=True, window=48, prefix=8)),
+            (1, 160, 160, 4, 2, dict(causal=True, logit_cap=30.0)),
+            (2, 40, 200, 6, 3, dict(causal=True, window=64, prefix=16))]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 160])
+@pytest.mark.parametrize("b,sq,sk,h,kv,kw", EMULATED,
+                         ids=["causal", "window+prefix", "softcap", "Sq<Sk"])
+def test_kernel_arithmetic_matches_reference(b, sq, sk, h, kv, kw, dh):
+    """The bf16 kernel's numerics (three pieces of p, tiles of 64 keys,
+    Sk not a multiple of the tile) against the reference's interpret-mode
+    kernel on the same bf16 inputs, within the card's bf16 check."""
+    args, want = _bf16_case(b, sq, sk, h, kv, dh, kw)
+    got, _ = _emulate_bf16_kernel(*args, **kw)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_check(got.float().numpy(), want).all()
+
+
+def test_one_piece_p_fails_on_cancellation():
+    """Why three pieces: with p rounded to bf16 (8 bits), the same tiles
+    miss the check on outputs that cancel (|out| under a tenth of
+    Σ p|v| / l), while three pieces pass every output."""
+    kw = dict(causal=True)
+    args, want = _bf16_case(1, 160, 160, 4, 2, 64, kw)
+    three, mag = _emulate_bf16_kernel(*args, **kw)
+    one, _ = _emulate_bf16_kernel(*args, pieces=1, **kw)
+    assert _bf16_check(three.float().numpy(), want).all()
+    miss = ~_bf16_check(one.float().numpy(), want)
+    cancelled = np.abs(want) < 0.1 * mag.numpy()
+    assert (miss & cancelled).any()

@@ -169,8 +169,8 @@ def test_greedy_decode_matches_reference(arch, s):
     assert torch.equal(torch.stack(chain, 1), got)
 
 
-BF16_CASES = CASES[:3]                   # the dense and ssm families
-BF16_IDS = IDS[:3]
+BF16_CASES = CASES                       # dense (gelu too), ssm
+BF16_IDS = IDS
 
 
 def _bf16(arch: str):
@@ -203,6 +203,47 @@ def _bf16_close(got, want, *, rel, frac=0.02):
         assert (gap > 0).mean() <= frac, (gap > 0).mean()
 
 
+def _sandwich_block_steps(lp, plp, cfg, pcfg, x, y, window):
+    """A sandwich-norm block (gemma2) in bf16, each step fed the
+    reference's input: the attention norm, the q/k/v projections, the
+    attention core with its output projection and post-attention norm,
+    and the MLP half with its post-MLP norm, each held as a whole block
+    is (``_bf16_close``, 2^-6·max, at most 2% of bits).  Whole blocks are
+    not: a projection's f32 sum in another order flips one rounding (1 of
+    10,240 k elements at layer 1), and attention and the post-attention
+    norm spread it over whole rows (5.6% of the block's bits)."""
+    from repro.models import attention as ref_attn
+    from repro.models import layers as ref_layers
+    from repro_torch.models import attention as port_attn
+    from repro_torch.models import layers as port_layers
+
+    def close(got, want):
+        _bf16_close(got, want, rel=2.0 ** -6 * float(np.abs(_np64(want)).max()))
+
+    s, eps, theta = x.shape[1], cfg.norm_eps, cfg.rope_theta
+    pos, ppos = jnp.arange(s, dtype=jnp.int32), torch.arange(
+        s, dtype=torch.int32)
+    kw = dict(causal=True, window=window, logit_cap=cfg.attn_logit_softcap)
+    h = ref_layers.rmsnorm(lp["attn_norm"], x, eps)
+    close(port_layers.rmsnorm(plp["attn_norm"], _to_port(x), eps), h)
+    q, k, v = ref_attn.qkv_project(lp["attn"], h)
+    for got, want in zip(port_attn.qkv_project(plp["attn"], _to_port(h)),
+                         (q, k, v)):
+        close(got, want)
+    a = ref_attn.out_project(lp["attn"], ref_attn.attend(
+        ref_attn.rotary_embed(q, pos, theta),
+        ref_attn.rotary_embed(k, pos, theta), v, q_pos=pos, k_pos=pos,
+        impl="full", **kw))
+    a = ref_layers.rmsnorm(lp["post_attn_norm"], a, eps)
+    pq, pk, pv = map(_to_port, (q, k, v))
+    got = port_attn.out_project(plp["attn"], port_attn.attend(
+        port_layers.rotary_embed(pq, ppos, theta),
+        port_layers.rotary_embed(pk, ppos, theta), pv, q_pos=ppos,
+        k_pos=ppos, impl="full", **kw))
+    close(port_layers.rmsnorm(plp["post_attn_norm"], got, eps), a)
+    close(transformer._mlp_path(plp, _to_port(x + a), pcfg), y)
+
+
 @pytest.mark.parametrize("arch,s", BF16_CASES, ids=BF16_IDS)
 def test_bf16_blocks_match_reference(arch, s):
     """In bf16, each block of the prefill path from the reference's input
@@ -219,9 +260,13 @@ def test_bf16_blocks_match_reference(arch, s):
     for i in range(cfg.n_layers):
         lp = jax.tree_util.tree_map(lambda a: a[i], rp["layers"])
         y, _ = ref_tr.block_forward(lp, x, cfg, pos, wins[i], "full")
-        got, _ = transformer.block_forward(transformer._layer_params(pp, i),
-                                           _to_port(x), pcfg, ppos, wins[i])
-        _bf16_close(got, y, rel=2.0 ** -6 * float(np.abs(_np64(y)).max()))
+        plp = transformer._layer_params(pp, i)
+        if cfg.sandwich_norms:
+            _sandwich_block_steps(lp, plp, cfg, pcfg, x, y, wins[i])
+        else:
+            got, _ = transformer.block_forward(plp, _to_port(x), pcfg, ppos,
+                                               wins[i])
+            _bf16_close(got, y, rel=2.0 ** -6 * float(np.abs(_np64(y)).max()))
         x = y
     want = ref_tr.lm_logits(rp, cfg, x)
     got = transformer.lm_logits(pp, pcfg, _to_port(x))
@@ -290,6 +335,41 @@ def test_bf16_decode_matches_reference(arch, s):
                                    _to_port(tok))
     _bf16_close(got, want, rel=2.0 ** -7 * np.abs(_np64(want)).max(),
                 frac=1.0)
+
+
+def test_gelu_tanh_bitwise_jax_bf16():
+    """``_gelu_tanh`` on 10^5 seeded bf16 inputs equals
+    ``jax.nn.gelu(approximate=True)`` bit for bit: both put the constants
+    into x's dtype (the cubic coefficient is 0.044677734375 in bf16) and
+    round after every op."""
+    from repro_torch.models.layers import _gelu_tanh
+
+    x = np.random.default_rng(0).normal(0, 3, 10 ** 5).astype(np.float32)
+    xt, xj = torch.from_numpy(x).to(torch.bfloat16), jnp.asarray(
+        x, jnp.bfloat16)
+    assert np.array_equal(xt.float().numpy(), np.asarray(xj, np.float32))
+    got = _gelu_tanh(xt)
+    want = jax.nn.gelu(xj, approximate=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_serving_steps_run_without_grad():
+    """Serving needs no gradient: the prefill and serve steps run under
+    ``no_grad`` (K11 and K12 refuse operands that require grad), so
+    params that require grad give logits and caches that do not."""
+    cfg = get_config("tinyllama-1.1b-reduced")
+    _, _, pp, toks = _setup("tinyllama-1.1b-reduced", 40)
+    params = dict(pp, embed=pp["embed"].clone().requires_grad_())
+    logits, caches, nxt = make_prefill_step(cfg, context_len=41)(
+        params, {"tokens": torch.from_numpy(toks)})
+    assert not logits.requires_grad
+    assert not any(t.requires_grad for c in caches for kind in c.values()
+                   for t in kind.values())
+    tok, logits, _ = make_serve_step(cfg)(params, caches, nxt, torch.argmax(
+        logits[:, -1], -1).to(torch.int32))
+    assert not (logits.requires_grad or tok.requires_grad)
 
 
 def test_empty_prompt_raises():

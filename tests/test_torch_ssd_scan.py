@@ -7,8 +7,11 @@ Tolerance: y within 1e-5·(1 + max|y|) and the final state within
 1e-5·(1 + max|state|) (the reference's own kernel-vs-oracle gap is 9.5e-7
 on y at max|y| 23).  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` holds it against this plain version); here its wrapper
-must refuse a CPU tensor.
+must refuse a CPU tensor, and an operand that requires grad (the kernel
+has no backward), while the plain version's gradients match ``jax.grad``
+of the reference's oracle within 1e-5·(1 + max|grad|).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,3 +90,46 @@ def test_kernel_refuses_cpu_tensors():
         ssd_scan_cuda(*args, chunk=16)
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd_scan(*args, chunk=16, impl="kernel")
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_kernel_refuses_operands_that_require_grad(which):
+    """The CUDA kernel has no backward: under grad mode the
+    ``impl="kernel"`` dispatch refuses any of x, dt, A, B, C that
+    requires grad before it looks at the device; under ``no_grad`` the
+    same call passes that check (and is then refused for its CPU
+    tensors)."""
+    args = [torch.from_numpy(a).requires_grad_(i == which)
+            for i, a in enumerate(_inputs(1, 32, 2, 8, 8))]
+    for call in (lambda: ops.ssd_scan(*args, chunk=16, impl="kernel"),
+                 lambda: ssd_scan_cuda(*args, chunk=16)):
+        with pytest.raises(RuntimeError,
+                           match=r"no backward.*impl='ref'"):
+            call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(*args, chunk=16, impl="kernel")
+
+
+def test_plain_version_gradients_match_reference():
+    """Training takes the plain version: its gradients into x, dt, A, B
+    and C through y and the final state equal ``jax.grad`` of the
+    reference's oracle within 1e-5·(1 + max|grad|) (measured 2.3e-5 at
+    max|grad| 88)."""
+    args = _inputs(2, 40, 3, 8, 16, seed=5)
+    rng = np.random.default_rng(6)
+    wy = rng.normal(size=args[0].shape).astype(np.float32)
+    ws = rng.normal(size=(2, 3, 8, 16)).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, st = ops.ssd_scan(*leaves, chunk=16, impl="ref")
+    ((y * torch.from_numpy(wy)).sum()
+     + (st * torch.from_numpy(ws)).sum()).backward()
+
+    def loss(*a):
+        y, st = ref_ref.ssd_scan(*a, 16)
+        return (y * wy).sum() + (st * ws).sum()
+
+    want = jax.grad(loss, argnums=range(5))(*map(jnp.asarray, args))
+    for leaf, g in zip(leaves, want):
+        g = np.asarray(g)
+        assert np.abs(leaf.grad.numpy() - g).max() <= 1e-5 * (
+            1 + np.abs(g).max())
