@@ -42,6 +42,8 @@
 //     the three products with bf16 v are summed in f32 (lo, mid, then hi,
 //     into a per-tile accumulator that is added to the running output with
 //     an f32 FMA, so the tensor cores' own additions span one tile only).
+//     The output tiles go in groups of NG (8, or 4 at DP 32 and DP >= 160):
+//     NG independent accumulator chains a warp, the keys inside.
 //     One piece (p rounded to bf16, as SDPA does) or two (~16 bits) fail
 //     the bf16 check 2^-7·|plain| + 1e-6 on outputs that come from
 //     cancellation (tests/test_torch_flash_attention.py pins one piece).
@@ -60,8 +62,10 @@
 //   (64 + 4·BK)·(DP + 8)·2 B = 25.6 KB (DP 32), 46.1 KB (64), 87.0 KB (128),
 //   64.5 KB (160, BK 32), 101.4 KB (256, BK 32), dynamic above 48 KB.
 //   Registers a thread: the output accumulator DP/2, the score tile BK/2,
-//   the p pieces 3·BK/4 (128 + 16 + 24 at DP = 256); ptxas's counts and
-//   spills for each instance are in PERF.md.
+//   the p pieces 3·BK/4, a P·V group 4·NG (128 + 16 + 24 + 16 at DP = 256),
+//   capped by the CTAs an SM asked of the register allocator (MIN_CTAS: 4
+//   up to DP 64, 3 at 160, else 2, each within what shared memory allows);
+//   ptxas's counts and spills for each instance are in PERF.md.
 //   Bound: operations on bf16 tensor cores, 1 pass for QK^T and 3 for P·V,
 //   4 · 2·B·H·Dh·(visible pairs) at 989 TFLOP/s; q/k/v/out are a few MB.
 //
@@ -266,7 +270,7 @@ struct TcShape {
   static constexpr int BK = DP <= 128 ? 64 : 32;  // keys a tile
   static constexpr int LD = DP + 8;               // smem row stride (elems)
   static constexpr size_t SMEM = (size_t)(TC_ROWS + 4 * BK) * LD * 2;
-  // CTAs an SM that shared memory allows, asked of the register allocator
+  // CTAs an SM asked of the register allocator (shared memory allows them)
   static constexpr int MIN_CTAS = DP <= 64 ? 4 : DP == 160 ? 3 : 2;
 };
 
