@@ -13,8 +13,10 @@ Phases, each printing JSON lines:
               at once) into ``build/repro_torch_ext/``, with ptxas's
               registers and spills for each kernel instance, and counts
               the tensor-core instructions (``cuobjdump -sass``: HMMA,
-              HGMMA) of each K11 instance: every bf16 instance must have
-              them.
+              HGMMA) of each K11 instance, every bf16 one must have
+              them, and HMMA/HGMMA/FFMA of K12's two kernels, whose
+              products are f32 FMAs in the plain version's order (both
+              must have FFMA).
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the main paths give it (K6 on 2×2^17 ids, K7
               at P=2^17 with ~70% overlap, K3/K5 at M=3, N=49,000, d=11,
@@ -59,8 +61,13 @@ Phases, each printing JSON lines:
               ``kernels`` line), gemma2-9b (Dh=256, window, softcap) and
               hymba-1.5b (G=5, window, prefix) checked, and G=128 and
               Dh=36.  K12 (the SSD scan) at the mamba2-1.3b prefill (B=2,
-              S=2,048, H=64, P=64, N=128, L=128), at S=1,000 and at L=37,
-              y and state within 1e-5·(1+max|plain|).  Then ``grad``:
+              S=2,048, H=64, P=64, N=128, L=128) and at hymba-1.5b's
+              (H=50, N=16; ``timed_at``), each with the device time of
+              its two launches, the bound of its f32 FMAs, the 3xTF32
+              and PR 16 bounds and the bytes the design moves; at
+              S=1,000, L=37 and the CPU tests' ragged (P, N, L) = (8, 8,
+              16) and (16, 16, 32) checked; y and state within
+              1e-5·(1+max|plain|).  Then ``grad``:
               both CUDA wrappers must refuse, under grad mode, each
               operand that requires grad (they have no backward), and
               run under ``no_grad``.  Every library yardstick is timed
@@ -184,6 +191,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak bandwidth
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
 INT8_OPS = 1979e12             # H100 SXM int8 tensor cores, dense
 SEED = 0
 DELTA_N = 300_000              # ids a party in the delta-PSI sweep (fig7)
@@ -309,6 +317,18 @@ def sass_census(name: str, marks=("HMMA", "HGMMA")):
             for mark in marks:
                 counts[fn][mark] += len(re.findall(rf"\b{mark}\b", line))
     return counts
+
+
+def check_ssd_sass(counts) -> None:
+    """K12's SASS: C Bᵀ (``ssd_scan_cb_kernel``) and the chunk kernel
+    (the state, C·prevᵀ and the decayed C Bᵀ times dt·x) must both be
+    built, their products as f32 FMAs (FFMA): K12 sums in the plain
+    version's order on the CUDA cores (PERF.md, PR 17)."""
+    for kernel in ("ssd_scan_cb_kernel", "ssd_scan_chunk_kernel"):
+        found = [c for fn, c in counts.items() if kernel in fn]
+        if not (found and found[0]["FFMA"] > 0):
+            raise AssertionError(f"ssd_scan: {kernel} missing or without "
+                                 f"FFMA: {counts}")
 
 
 def nvidia_smi() -> str:
@@ -1047,12 +1067,17 @@ def grad_check(dev, rng):
     return out
 
 
-def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None):
+def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
+            timed_at=None):
     """K12 on tests/test_kernels.py's input distribution (x, B, C unit
     normal, dt = |N(0.1, 0.05)|, A = -|N(1, 0.3)|) against its plain
     version ``ssd_chunked``: y and the final state within 1e-5·(1 +
     max|plain|) (f32 sums in other orders).  No single PyTorch call
-    computes the scan: no library yardstick."""
+    computes the scan: no library yardstick.  Timed rows give the device
+    time of every launch of one call (the kernels named ``ssd_scan_*``)
+    and of each, the bound of the function's f32 products, the bounds on
+    3xTF32 tensor cores and by PR 16's count, and the bytes the design
+    moves."""
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
@@ -1076,36 +1101,73 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None):
                shape=[b, s, h, p, n, chunk])
     if check_only:
         return row | {"check_only": check_only}
-    # The products (C Bᵀ, its decayed tile times dt·x, C·state, the state
-    # update) are f32 × f32: on tensor cores exactly in nine bf16 passes
-    # (three 8-bit pieces of each operand).  dt·x and the state decay are
-    # elementwise f32.  The exps are not counted.
-    gemm = elem = 0
+    if timed_at:
+        row["timed_at"] = timed_at
+    # The products the function needs: per (b, h, chunk) the decayed
+    # lower triangle times dt·x, the state feed and the state update; C Bᵀ
+    # (no head axis) once per (b, chunk).  The kernel does them as f32
+    # FMAs, the plain version's order (bound_ms at 67 TFLOP/s); on tf32
+    # tensor cores in three passes (3xTF32) they would need bound_ms_tf32.
+    # dt·x and the state decay are elementwise f32.  The exps are not
+    # counted.
+    head = cbt = elem = old = 0
     for c0 in range(0, s, chunk):
         ln = min(chunk, s - c0)
         tri = ln * (ln + 1) // 2
-        gemm += 2 * tri * n + 2 * tri * p + 2 * ln * n * p + 2 * ln * p * n
+        head += 2 * tri * p + 2 * (2 * ln * n * p)
+        cbt += 2 * tri * n
         elem += ln * p + 2 * p * n
+        # PR 16's count: C Bᵀ per head too, in nine bf16 passes
+        old += 2 * tri * n + 2 * tri * p + 2 * ln * n * p + 2 * ln * p * n
     nbytes = 4 * (2 * x.numel() + dt.numel() + h + 2 * Bm.numel()
                   + fs.numel())
-    b_ms, b_by = bound(nbytes, [(9 * b * h * gemm, BF16_FLOPS),
+    flops = b * h * head + b * cbt
+    b_ms, b_by = bound(nbytes, [(flops, F32_FLOPS), (b * h * elem, F32_FLOPS)])
+    tf32_ms, _ = bound(nbytes, [(3 * flops, TF32_FLOPS),
                                 (b * h * elem, F32_FLOPS)])
+    old_ms, _ = bound(nbytes, [(9 * b * h * old, BF16_FLOPS),
+                               (b * h * elem, F32_FLOPS)])
+    # What the design moves through device memory besides the function's
+    # bytes (L2 reads counted as device memory): x staged twice; B staged
+    # by every head; (C Bᵀ)ᵀ and Cᵀ (lp × lp and N × lp a chunk) written
+    # once and staged by every head; each head's dt and cum written and
+    # read once; the state after each chunk but the last written once and
+    # read once by the next chunk.
+    nc, lp = -(-s // chunk), -(-chunk // 16) * 16
+    moved = (nbytes + 4 * x.numel() + 4 * (h - 1) * Bm.numel()
+             + 4 * b * nc * (h + 1) * (lp + n) * lp
+             + 2 * 2 * 4 * b * nc * lp * h
+             + 2 * 4 * b * (nc - 1) * h * p * n)
+    per_name = profile_device(call)[0]
+    phases = {re.search(r"ssd_scan_\w+?_kernel", k).group(0): t
+              for k, t in per_name.items() if "ssd_scan_" in k}
+    if not phases:
+        raise AssertionError(f"ssd_scan: the profiler saw none of its "
+                             f"kernels: {sorted(per_name)}")
     return row | dict(
-        ms=cuda_ms(call),
-        device_ms=kernel_device_ms(call, ["ssd_scan_kernel"]),
+        ms=cuda_ms(call), device_ms=sum(phases.values()), phase_ms=phases,
         plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, ctas=b * h)
+        bound_ms_tf32=tf32_ms, bound_ms_pr16=old_ms, flops=flops,
+        bytes_moved=moved,
+        bytes_moved_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None,
+        ctas=b * nc * h)
 
 
 def llm_kernel_rows(dev, rng):
     """K11's rows (``flash_rows``), then K12 at the mamba2-1.3b prefill
-    (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128), at S = 1,000 (a
-    padded last chunk) and at a 37-token prompt (L = 37, ``check_only``),
-    then both wrappers' refusal under grad (``grad_check``)."""
+    (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128), at hymba-1.5b's
+    SSD shape (H = 50, N = 16; timed, ``timed_at``), at S = 1,000 (a
+    padded last chunk), at a 37-token prompt (L = 37) and at the CPU
+    tests' ragged P/N shapes (``check_only``), then both wrappers' refusal
+    under grad (``grad_check``)."""
     rows = flash_rows(dev, rng) + [
         ssd_row(dev, rng, 2, 2048, 64, 64, 128, 128),
+        ssd_row(dev, rng, 2, 2048, 50, 64, 16, 128, timed_at="hymba-1.5b"),
         ssd_row(dev, rng, 2, 1000, 64, 64, 128, 128, check_only="S=1000"),
         ssd_row(dev, rng, 2, 37, 64, 64, 128, 37, check_only="L=37"),
+        ssd_row(dev, rng, 1, 64, 1, 8, 8, 16, check_only="P=8, N=8, L=16"),
+        ssd_row(dev, rng, 2, 100, 3, 16, 16, 32,
+                check_only="P=16, N=16, L=32"),
     ]
     grad_check(dev, rng)
     return rows
@@ -2020,9 +2082,12 @@ def scan64_chain(params, cfg32, prompts, feed):
         ssd_ops.ssd_scan = op
 
 
-def llm_profile(params, cfg, prompts):
+def llm_profile(params, cfg, prompts, kernel):
     """Device time, wall and top device ops of one prefill and of one
-    decode step (kernels), ``torch.profiler`` over 3 calls each."""
+    decode step (kernels), ``torch.profiler`` over 3 calls each, and the
+    device time of ``kernel``'s launches (every CUDA function whose name
+    starts with it: K12's ``ssd_scan_cb_kernel`` and
+    ``ssd_scan_chunk_kernel``) with its share."""
     from repro_torch.serve import make_prefill_step, make_serve_step
 
     prefill = make_prefill_step(cfg, context_len=LLM_PROMPT + LLM_NEW,
@@ -2036,9 +2101,12 @@ def llm_profile(params, cfg, prompts):
                      ("decode_step", lambda: step(params, caches, nxt,
                                                   cur))):
         per_name, device_ms, wall_ms = profile_device(fn, reps=3)
+        mine = sum(t for k, t in per_name.items() if kernel + "_" in k)
         out[name] = dict(
             device_ms=device_ms, wall_ms=wall_ms,
             busy=device_ms / wall_ms if device_ms else None,
+            kernel_ms=mine,
+            kernel_share=mine / device_ms if device_ms else None,
             top=sorted(per_name.items(), key=lambda kv: -kv[1])[:6])
     return out
 
@@ -2096,7 +2164,7 @@ def llm_phase(dev, arch, kernel):
                              f"{kernel} = {cfg.n_layers} per prefill")
     runs = [decode_chain(params, cfg, prompts, None) for _ in range(3)]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = llm_profile(params, cfg, prompts)
+    prof = llm_profile(params, cfg, prompts, kernel)
     plain = decode_chain(params, cfg, prompts, "ref")
     _, _, logits, k_toks = runs[0]
     for _, _, lg, tk in runs[1:]:
@@ -2202,18 +2270,21 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(["flash_attention", "ssd_scan"] if only_llm
                            else None)
-    # K11's bf16 instances must run both products on the tensor cores
+    # K11's bf16 instances must run both products on the tensor cores, and
+    # K12's kernels all of theirs
     sass = sass_census("flash_attention")
+    ssd_sass = sass_census("ssd_scan", marks=("HMMA", "HGMMA", "FFMA"))
     emit({"phase": "build", "seconds": secs,
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln or "entry function" in ln]
                     for k, v in build.PTXAS_REPORT.items()},
-          "flash_attention_sass": sass})
+          "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
     no_mma = [fn for fn, c in sass.items()
               if "bf16_mma" in fn and not (c["HMMA"] or c["HGMMA"])]
     if no_mma or not any("bf16_mma" in fn for fn in sass):
         raise AssertionError(f"flash_attention: bf16 instances without "
                              f"tensor-core instructions: {no_mma or sass}")
+    check_ssd_sass(ssd_sass)
     if only_llm:
         # K11 and K12 against their plain versions, and the grad refusal:
         # the quick check of an edit to those kernels (not the contract run)

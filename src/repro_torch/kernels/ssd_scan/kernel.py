@@ -1,7 +1,10 @@
 """Wrapper of the CUDA SSD scan kernel K12 (``csrc/ssd_scan.cu``), the
 port of ``repro/kernels/ssd_scan/kernel.py::ssd_scan_pallas``.  The
 tensors come in the framework layout, unpadded: rows past S read as
-zeros with dt = 0 inside the kernel, the reference wrapper's padding."""
+zeros with dt = 0 inside the kernel, the reference wrapper's padding.
+One call makes two CUDA launches (C Bᵀ per chunk, then the chunks,
+which pass the state on in chunk order) and counts once in
+``build.LAUNCHES["ssd_scan"]``; the wrapper allocates their scratch."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -10,9 +13,10 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the kernel's limits: its register tiles cover P <= 64, N <= 128 and
-#: chunks of L <= 128 (every Mamba2 config: P = 64 or 32, N <= 128, L =
-#: 128); its shared memory is then at most 207,104 B of the card's 227 KB
+#: the kernel's limits: its shared-memory tiles cover P <= 64, N <= 128
+#: and chunks of L <= 128 (every Mamba2 config: P = 64 or 32, N <= 128, L
+#: = 128); a chunk CTA then takes 104 KB of shared memory (two an SM), a
+#: C Bᵀ CTA 73 KB
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 128
 
 
@@ -41,11 +45,23 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"L <= {MAX_CHUNK})")
     y = torch.empty_like(x)
     fs = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    fn = build.function("ssd_scan", "ssd_scan_launch", 7, 6)
+    if s == 0:
+        return y, fs.zero_()
+    # scratch: the state after each chunk (transposed), a flag per chunk
+    # and a ticket (cleared by the first launch), and per chunk (C Bᵀ)ᵀ at
+    # L rounded up to 16, Cᵀ, then each head's dt and cum
+    nc, lp = -(-s // chunk), -(-chunk // 16) * 16
+    st = torch.empty((bsz, nc, h, n, p), dtype=torch.float32,
+                     device=x.device)
+    flags = torch.empty(bsz * nc * h + 1, dtype=torch.int32, device=x.device)
+    cb = torch.empty((bsz, nc, lp + n + 2 * h, lp), dtype=torch.float32,
+                     device=x.device)
+    fn = build.function("ssd_scan", "ssd_scan_launch", 10, 6)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), fs.data_ptr(), bsz, s, h, p, n,
-                 chunk, torch.cuda.current_stream().cuda_stream)
+                 C.data_ptr(), y.data_ptr(), fs.data_ptr(), st.data_ptr(),
+                 flags.data_ptr(), cb.data_ptr(), bsz, s, h, p, n, chunk,
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "ssd_scan")
     build.LAUNCHES["ssd_scan"] += 1
     return y, fs
