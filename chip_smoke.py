@@ -15,8 +15,8 @@ Phases, each printing JSON lines:
               the tensor-core instructions (``cuobjdump -sass``: HMMA,
               HGMMA) of each K11 instance, every bf16 one must have
               them, and HMMA/HGMMA/FFMA of K12's two kernels, whose
-              products are f32 FMAs in the plain version's order (both
-              must have FFMA).
+              products are f32 FMAs in the plain version's order (a
+              record, not checked).
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the main paths give it (K6 on 2×2^17 ids, K7
               at P=2^17 with ~70% overlap, K3/K5 at M=3, N=49,000, d=11,
@@ -63,8 +63,9 @@ Phases, each printing JSON lines:
               Dh=36.  K12 (the SSD scan) at the mamba2-1.3b prefill (B=2,
               S=2,048, H=64, P=64, N=128, L=128) and at hymba-1.5b's
               (H=50, N=16; ``timed_at``), each with the device time of
-              its two launches, the bound of its f32 FMAs, the 3xTF32
-              and PR 16 bounds and the bytes the design moves; at
+              its two launches, the bound of the function on 3xTF32
+              tensor cores, PR 16's bound and that of the f32 FMAs the
+              kernel does, and the bytes the design moves; at
               S=1,000, L=37 and the CPU tests' ragged (P, N, L) = (8, 8,
               16) and (16, 16, 32) checked; y and state within
               1e-5·(1+max|plain|).  Then ``grad``:
@@ -317,18 +318,6 @@ def sass_census(name: str, marks=("HMMA", "HGMMA")):
             for mark in marks:
                 counts[fn][mark] += len(re.findall(rf"\b{mark}\b", line))
     return counts
-
-
-def check_ssd_sass(counts) -> None:
-    """K12's SASS: C Bᵀ (``ssd_scan_cb_kernel``) and the chunk kernel
-    (the state, C·prevᵀ and the decayed C Bᵀ times dt·x) must both be
-    built, their products as f32 FMAs (FFMA): K12 sums in the plain
-    version's order on the CUDA cores (PERF.md, PR 17)."""
-    for kernel in ("ssd_scan_cb_kernel", "ssd_scan_chunk_kernel"):
-        found = [c for fn, c in counts.items() if kernel in fn]
-        if not (found and found[0]["FFMA"] > 0):
-            raise AssertionError(f"ssd_scan: {kernel} missing or without "
-                                 f"FFMA: {counts}")
 
 
 def nvidia_smi() -> str:
@@ -1075,9 +1064,9 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
     max|plain|) (f32 sums in other orders).  No single PyTorch call
     computes the scan: no library yardstick.  Timed rows give the device
     time of every launch of one call (the kernels named ``ssd_scan_*``)
-    and of each, the bound of the function's f32 products, the bounds on
-    3xTF32 tensor cores and by PR 16's count, and the bytes the design
-    moves."""
+    and of each, the function's bound (its products on tf32 tensor cores
+    in three passes), PR 16's count of it, the time of the f32 FMAs the
+    kernel does at the CUDA cores' rate, and the bytes the design moves."""
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
@@ -1105,11 +1094,11 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
         row["timed_at"] = timed_at
     # The products the function needs: per (b, h, chunk) the decayed
     # lower triangle times dt·x, the state feed and the state update; C Bᵀ
-    # (no head axis) once per (b, chunk).  The kernel does them as f32
-    # FMAs, the plain version's order (bound_ms at 67 TFLOP/s); on tf32
-    # tensor cores in three passes (3xTF32) they would need bound_ms_tf32.
-    # dt·x and the state decay are elementwise f32.  The exps are not
-    # counted.
+    # (no head axis) once per (b, chunk).  bound_ms charges them on tf32
+    # tensor cores in three passes (3xTF32, enough for f32 operands); the
+    # kernel does them as f32 FMAs in the plain version's order, whose
+    # time at the CUDA cores' 67 TFLOP/s is f32_fma_ms.  dt·x and the
+    # state decay are elementwise f32.  The exps are not counted.
     head = cbt = elem = old = 0
     for c0 in range(0, s, chunk):
         ln = min(chunk, s - c0)
@@ -1122,9 +1111,9 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
     nbytes = 4 * (2 * x.numel() + dt.numel() + h + 2 * Bm.numel()
                   + fs.numel())
     flops = b * h * head + b * cbt
-    b_ms, b_by = bound(nbytes, [(flops, F32_FLOPS), (b * h * elem, F32_FLOPS)])
-    tf32_ms, _ = bound(nbytes, [(3 * flops, TF32_FLOPS),
+    b_ms, b_by = bound(nbytes, [(3 * flops, TF32_FLOPS),
                                 (b * h * elem, F32_FLOPS)])
+    fma_ms, _ = bound(nbytes, [(flops, F32_FLOPS), (b * h * elem, F32_FLOPS)])
     old_ms, _ = bound(nbytes, [(9 * b * h * old, BF16_FLOPS),
                                (b * h * elem, F32_FLOPS)])
     # What the design moves through device memory besides the function's
@@ -1147,7 +1136,7 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
     return row | dict(
         ms=cuda_ms(call), device_ms=sum(phases.values()), phase_ms=phases,
         plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
-        bound_ms_tf32=tf32_ms, bound_ms_pr16=old_ms, flops=flops,
+        bound_ms_pr16=old_ms, f32_fma_ms=fma_ms, flops=flops,
         bytes_moved=moved,
         bytes_moved_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None,
         ctas=b * nc * h)
@@ -2270,8 +2259,8 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(["flash_attention", "ssd_scan"] if only_llm
                            else None)
-    # K11's bf16 instances must run both products on the tensor cores, and
-    # K12's kernels all of theirs
+    # K11's bf16 instances must run both products on the tensor cores;
+    # K12's census is a record (its products are f32 FMAs, PERF.md)
     sass = sass_census("flash_attention")
     ssd_sass = sass_census("ssd_scan", marks=("HMMA", "HGMMA", "FFMA"))
     emit({"phase": "build", "seconds": secs,
@@ -2284,7 +2273,6 @@ def main(argv) -> int:
     if no_mma or not any("bf16_mma" in fn for fn in sass):
         raise AssertionError(f"flash_attention: bf16 instances without "
                              f"tensor-core instructions: {no_mma or sass}")
-    check_ssd_sass(ssd_sass)
     if only_llm:
         # K11 and K12 against their plain versions, and the grad refusal:
         # the quick check of an edit to those kernels (not the contract run)

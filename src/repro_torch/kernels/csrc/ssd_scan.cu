@@ -37,23 +37,25 @@
 // ascending order from zero, the order of cuBLAS's f32 GEMMs in the plain
 // version, with the elementwise steps rounded as the plain version rounds
 // them (no contraction).  A thread holds 32 outputs (4 × 8 or 8 × 4), fed
-// by three 16-byte shared loads a k.  3xTF32 tensor-core tiles were built
-// and held every kernel row, but their other summation order put the
-// random 48-layer f32 mamba2 model's logits outside its end-to-end gate at
-// the prefill and over decode steps, with exact 6-pass products too: that
-// model turns any rounding pattern but the plain version's into such gaps
-// (PERF.md).  The output rows pair blocks w and 15 − w of 8, so every warp
-// does the same lower-triangle work.
+// by three 16-byte shared loads a k.  The output rows pair blocks w and
+// 15 − w of 8, so every warp does the same lower-triangle work.
+// Tensor cores were tried and not kept: one TF32 pass keeps 11 of the 24
+// significand bits and misses the 1e-5·(1 + max|y|) kernel gate by far;
+// 3xTF32 (big = rna(a), small = rna(a − big), small·big + big·small +
+// big·big) meets it, but its summation order, as every other one tried, put
+// the random 48-layer f32 mamba2 model's logits outside its end-to-end
+// gate at the prefill and over decode steps, 4- and 6-pass products too
+// (PERF.md).
 //
 // Bound at the mamba2 prefill: 10.82 GFLOP of products (the decayed
 // triangle times dt·x, the state feed and update per head, C Bᵀ per
-// (b, chunk)) at the CUDA cores' 67 TFLOP/s: 161.5 µs, 162.3 with the
-// elementwise work; the function's 143.6 MB at 3.35 TB/s: 42.9 µs.  The
-// design moves 602 MB more (x staged twice; B, Cᵀ and (C Bᵀ)ᵀ staged by
-// every head; the state buffer written and read once), most of it from
-// L2.
-// Measured: 2.5× that bound (PERF.md); the staging, the exps of the decay
-// and the C Bᵀ launch are what two CTAs an SM do not hide.
+// (b, chunk)) in three TF32 passes at 495 TFLOP/s, with the elementwise
+// work at 67: 66.3 µs; the function's 143.6 MB at 3.35 TB/s: 42.9 µs.
+// The FMAs this design does take 162.3 µs at the CUDA cores' 67 TFLOP/s.
+// The design moves 602 MB more (x staged twice; B, Cᵀ and (C Bᵀ)ᵀ staged
+// by every head; the state buffer written and read once), most of it from
+// L2.  Measured: 6.1× the bound (PERF.md); the staging, the exps of the
+// decay and the C Bᵀ launch are what two CTAs an SM do not hide.
 #include <cuda_runtime.h>
 
 #include <cstdint>

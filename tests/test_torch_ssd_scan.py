@@ -133,136 +133,3 @@ def test_plain_version_gradients_match_reference():
         g = np.asarray(g)
         assert np.abs(leaf.grad.numpy() - g).max() <= 1e-5 * (
             1 + np.abs(g).max())
-
-
-# ---- products on tf32 tensor-core tiles, the K12 variant measured on the
-# card and not kept (PERF.md): each f32 operand rounded to tf32 (cvt.rna:
-# the low 13 bits rounded half away from zero) as big = rna(a) and small =
-# rna(a - big), and small·big + big·small + big·big added in f32
-# (3xTF32).  A test-local emulation of those products in
-# ``ssd_chunked``'s decomposition is held to the card's per-call K12 gate
-# on the model's kind of inputs (dt = softplus, A down to -16, |cum| in
-# the hundreds and more) and on the test distribution; single-pass TF32
-# must fail the same gate, so the test guards the scheme and not only the
-# rounding helper.  (What the per-call gate cannot see: on the card the
-# random f32 mamba2 model turned 3xTF32's other summation order into
-# logit gaps outside its end-to-end gate, so the kernel sums as the plain
-# version does.)
-
-def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
-    bits = a.contiguous().view(torch.int32)
-    sign = bits & torch.tensor(-2 ** 31, dtype=torch.int32)
-    mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
-    return (sign | mag).view(torch.float32)
-
-
-def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
-    big_a, big_b = _tf32_rna(a), _tf32_rna(b)
-    if passes == 1:
-        return big_a @ big_b
-    small_a, small_b = _tf32_rna(a - big_a), _tf32_rna(b - big_b)
-    return (small_a @ big_b + big_a @ small_b) + big_a @ big_b
-
-
-def _ssd_tf32(x, dt, A, B, C, chunk, passes):
-    """``models.ssm.ssd_chunked`` with its four products (C Bᵀ, the
-    decayed triangle times dt·x, the chunk states, C·prevᵀ) emulated on
-    tf32 tiles."""
-    import torch.nn.functional as F
-    from repro_torch.models.ssm import _segsum_decay
-
-    mm = lambda a, b: _tf32_matmul(a, b, passes)
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    pad = -s % chunk
-    x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
-    B, C = F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad))
-    nc = (s + pad) // chunk
-    xc = x.reshape(b, nc, chunk, h, p)
-    dtc = dt.reshape(b, nc, chunk, h)
-    Bc, Cc = B.reshape(b, nc, chunk, n), C.reshape(b, nc, chunk, n)
-    cum = torch.cumsum(dtc * A, dim=2)
-    xdt = xc * dtc[..., None]
-    w = mm(Cc, Bc.transpose(-1, -2))[..., None] * _segsum_decay(cum)
-    y = mm(w.permute(0, 1, 4, 2, 3),
-           xdt.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
-    dte = torch.exp(cum[:, :, -1:, :] - cum)
-    states = mm((dte[..., None] * xdt).permute(0, 1, 3, 4, 2),
-                Bc[:, :, None])
-    keep = torch.exp(cum[:, :, -1])
-    prev, run = [], torch.zeros_like(states[:, 0])
-    for c in range(nc):
-        prev.append(run)
-        run = run * keep[:, c, :, None, None] + states[:, c]
-    inter = mm(Cc[:, :, None], torch.stack(prev, 1).transpose(-1, -2))
-    y = y + inter.permute(0, 1, 3, 2, 4) * torch.exp(cum)[..., None]
-    return y.reshape(b, nc * chunk, h, p)[:, :s], run
-
-
-def _model_like(b, s, h, p, n, seed=11):
-    """The mamba2 model's kind of scan inputs: dt = softplus(0.5·z) (~0.7)
-    and A in {-1, -4, -9, -16}, so a chunk's |cum| reaches the hundreds
-    (L = 32) or ~10^3 (L = 128)."""
-    rng = np.random.default_rng(seed)
-    z = rng.normal(size=(b, s, h)).astype(np.float32)
-    return (rng.normal(size=(b, s, h, p)).astype(np.float32),
-            np.log1p(np.exp(0.5 * z)).astype(np.float32),
-            (-((np.arange(h) % 4) + 1.0) ** 2).astype(np.float32),
-            rng.normal(size=(b, s, n)).astype(np.float32),
-            rng.normal(size=(b, s, n)).astype(np.float32))
-
-
-def _gate(args, chunk, passes):
-    """The card's K12 gate for an emulated scan: (within 1e-5·(1 + max)
-    of the plain version, within twice the plain version's distance to
-    the float64 scan + 1e-6·(1 + max)), for y and the final state, with
-    the distances measured."""
-    t = [torch.from_numpy(a) for a in args]
-    plain = ops.ssd_scan(*t, chunk=chunk)
-    f64 = ops.ssd_scan(*(a.double() for a in t), chunk=chunk)
-    got = _ssd_tf32(*t, chunk, passes)
-    near, close, dist = True, True, {}
-    for k, (g, pl, d) in enumerate(zip(got, plain, f64)):
-        scale = 1 + float(d.abs().max())
-        vs_plain = float((g.double() - pl.double()).abs().max())
-        vs_f64 = float((g.double() - d).abs().max())
-        plain_f64 = float((pl.double() - d).abs().max())
-        near &= vs_plain <= 1e-5 * scale
-        close &= vs_f64 <= 2 * plain_f64 + 1e-6 * scale
-        dist[("y", "state")[k]] = (vs_plain, vs_f64, plain_f64, scale)
-    return near, close, dist
-
-
-TF32_CASES = [(2, 256, 4, 64, 128, 128), (2, 100, 3, 16, 16, 32)]
-
-
-def test_tf32_rna_rounds_half_away_from_zero():
-    one = 1.0 + 2.0 ** -10                 # a tf32 value (10 mantissa bits)
-    half = 2.0 ** -11                      # half a tf32 ulp at 1
-    a = torch.tensor([1.0 + half, -(1.0 + half), 1.0 + half / 2,
-                      one + half, 3.0, -0.0], dtype=torch.float32)
-    want = torch.tensor([one, -one, 1.0, 1.0 + 2.0 ** -9, 3.0, -0.0])
-    assert torch.equal(_tf32_rna(a), want)
-    v = torch.from_numpy(np.random.default_rng(3).normal(
-        size=10_000).astype(np.float32))
-    big = _tf32_rna(v)
-    assert bool((big.view(torch.int32) & 0x1FFF == 0).all())
-    assert float(((v - big).abs() / v.abs()).max()) <= 2.0 ** -11
-
-
-@pytest.mark.parametrize("inputs", ["model", "test"])
-@pytest.mark.parametrize("b,s,h,p,n,chunk", TF32_CASES)
-def test_three_pass_tf32_meets_the_card_gate(inputs, b, s, h, p, n, chunk):
-    make = _model_like if inputs == "model" else _inputs
-    args = make(b, s, h, p, n)
-    near, close, dist = _gate(args, chunk, passes=3)
-    assert near and close, dist
-
-
-@pytest.mark.parametrize("inputs", ["model", "test"])
-@pytest.mark.parametrize("b,s,h,p,n,chunk", TF32_CASES)
-def test_single_pass_tf32_fails_the_card_gate(inputs, b, s, h, p, n, chunk):
-    make = _model_like if inputs == "model" else _inputs
-    args = make(b, s, h, p, n)
-    near, close, dist = _gate(args, chunk, passes=1)
-    assert not (near and close), dist
