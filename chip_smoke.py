@@ -2,8 +2,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py                      # every phase (the contract)
-    python3 chip_smoke.py --only llm-kernels   # build K11/K12, their rows
+    python3 chip_smoke.py                         # every phase (the contract)
+    python3 chip_smoke.py --only llm-kernels      # build K11/K12, their rows
+    python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
 
 Phases, each printing JSON lines:
 
@@ -11,7 +12,8 @@ Phases, each printing JSON lines:
 2. build    — compiles every CUDA kernel of the slice from
               ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
               at once) into ``build/repro_torch_ext/``, with ptxas's
-              registers and spills for each kernel instance, and counts
+              registers and spills for each kernel instance (K3/K4's
+              fused kernel: one line an instance, none may spill), counts
               the tensor-core instructions (``cuobjdump -sass``: HMMA,
               HGMMA) of each K11 instance, every bf16 one must have
               them, and HMMA/HGMMA/FFMA of K12's two kernels, whose
@@ -33,13 +35,21 @@ Phases, each printing JSON lines:
               K1/K2 outputs within 1e-6 + 1e-5·(Σ_k|x_k w_k| + |b|) of the
               plain version, and K2 bitwise equal to K1 on the gathered
               rows.  The same checks at the YP job's shapes: K3/K5 at
-              M=3, N=249,900, d=30, K=12; K1 at an eval block of 512 rows
-              and K2 over a coreset-sized slab of 300 rows and at a
-              3,570-row step out of (3, 249,900, 30), o=1 without ReLU.
-              K4 at a YP minibatch step (1,024 seeded indices with
-              duplicates into a (1, 357,000, 30) client, K=12): bitwise
-              equal to K3 on the pre-gathered rows, and within K3's
-              tolerances of its plain version.  K8 (the merge kernel past
+              M=3, N=249,900, d=30, K=12 (``timed_at``); K1 at an eval
+              block of 512 rows and K2 over a coreset-sized slab of 300
+              rows and at a 3,570-row step out of (3, 249,900, 30), o=1
+              without ReLU.  K3's assign and sqd bitwise K5's on the same
+              centroids, and two K3 calls bitwise; its profiled launches
+              a call must be one ``kmeans_update_kernel``.  K4 at a YP
+              minibatch step (1,024 seeded indices with duplicates into
+              a (1, 357,000, 30) client, K=12): bitwise equal to K3 on
+              the pre-gathered rows and to a second call, one launch a
+              call, within K3's tolerances of its plain version; again
+              over (3, 49,000, 11) with 1,000 indices a client, and with
+              indices outside [0, N) (assign -1, sqd NaN, no count, the
+              other rows' bits kept; ``check_only``).  K3 and K4 at edge
+              shapes (``EDGE_SHAPES``) against the plain version, K5 and
+              each other.  K8 (the merge kernel past
               the reference's single-pass bound) at P=2^19, at 2^20 and
               as nine pairs at 2^19 (the delta probe's batch), ~70%
               overlap, bitwise; ``torch.sort`` of the 2P keys beside it.
@@ -257,6 +267,22 @@ def kernel_device_ms(fn, marks):
     return sum(hits) if hits else None
 
 
+def device_launches(fn, reps: int = 5):
+    """The device kernels one call of ``fn`` launches: {name: launches
+    a call}, from the profiler's event counts over ``reps`` calls (after
+    one unprofiled call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count / reps for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def host_profile(fn, top: int = 12):
     """cProfile of one call of ``fn`` (ended by a synchronize): the
     port's functions by cumulative host ms, and every function by its own
@@ -336,6 +362,8 @@ def near_tie_rows(points, cents, assign_a, assign_b):
     p = points.double()
     c = cents.double()
     d = ((p[:, :, None, :] - c[:, None, :, :]) ** 2).sum(-1)
+    if d.shape[-1] < 2:     # one centroid: no row has a second choice
+        d = torch.cat([d, torch.full_like(d, torch.inf)], -1)
     two = torch.topk(d, 2, dim=-1, largest=False).values
     margin = two[..., 1] - two[..., 0]
     tie = margin <= 1e-4 * (1 + two[..., 0])
@@ -361,6 +389,34 @@ def sqd_scale(points, cents, assign):
     """‖p‖² + ‖c_assign‖² per row: the size of the terms d² cancels."""
     c2 = (cents * cents).sum(-1)
     return (points * points).sum(-1) + torch.gather(c2, 1, assign.long())
+
+
+def same_bits(got, want) -> bool:
+    """Every tensor of ``got`` equal to ``want``'s bit for bit (NaNs
+    included)."""
+    torch.cuda.synchronize()
+    return all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(
+        g.view(torch.int32) if g.dtype == torch.float32 else g,
+        w.view(torch.int32) if w.dtype == torch.float32 else w)
+        for g, w in zip(got, want))
+
+
+#: the name K3 and K4 launch under (``csrc/kmeans_update.cu``)
+KMEANS_UPDATE_MARKS = ["kmeans_update_kernel"]
+
+
+def update_timing(name, call):
+    """K3's or K4's times: events, the profiler's device time of its
+    launches, and the launches one call makes, which must be one launch
+    of the fused kernel (the reduce across CTAs runs inside it)."""
+    launched = device_launches(call)
+    if (sum(launched.values()) != 1 or not all(
+            any(m in k for m in KMEANS_UPDATE_MARKS) for k in launched)):
+        raise AssertionError(f"{name}: a call launched {launched}, not one "
+                             f"{KMEANS_UPDATE_MARKS[0]}")
+    return dict(ms=cuda_ms(call),
+                device_ms=kernel_device_ms(call, KMEANS_UPDATE_MARKS),
+                device_launches=launched)
 
 
 def check_update(name, pts, cents, got, want):
@@ -507,17 +563,8 @@ def kernel_phase(dev):
             n_common, **extra))
         del a, b
 
-    # K3 / K5 at the coreset fit's shapes: the HI clients' slices (11/11/10
-    # columns zero-padded to 11) of 49,000 rows, 14 centroids from the rows,
-    # and the YP job's: 3 clients × 30 columns, as many rows as it aligns
-    # (249,900), 12 centroids
-    tr, _ = partitions()
-    slab = client_slab(tr, 49_000, dev)
-    rows += lloyd_kernel_rows(slab, 14, rng)
-    ytr, _ = partitions("YP")
-    yslab = client_slab(ytr, YP_ALIGNED, dev)
-    rows += lloyd_kernel_rows(yslab, 12, rng, check_only="YP")
-    rows.append(gather_update_row(dev, rng))
+    kmeans_rows, slab, yslab = kmeans_kernel_rows(dev, rng)
+    rows += kmeans_rows
     rows += bottom_kernel_rows(dev, slab, yslab, rng)
     rows += int8_kernel_rows(dev, slab, rng)
     quantizer_check(dev, slab, rng)
@@ -525,6 +572,68 @@ def kernel_phase(dev):
     for r in rows:
         emit({"phase": "kernel", **r})
     return rows
+
+
+def kmeans_kernel_rows(dev, rng):
+    """K3 / K5 at the coreset fit's shapes: the HI clients' slices
+    (11/11/10 columns zero-padded to 11) of 49,000 rows, 14 centroids
+    from the rows, and the YP job's (``timed_at``): 3 clients × 30
+    columns, as many rows as it aligns (249,900), 12 centroids; then K4
+    at a YP minibatch step.  Returns the rows and the HI and YP slabs."""
+    tr, _ = partitions()
+    slab = client_slab(tr, 49_000, dev)
+    rows = lloyd_kernel_rows(slab, 14, rng)
+    ytr, _ = partitions("YP")
+    yslab = client_slab(ytr, YP_ALIGNED, dev)
+    rows += lloyd_kernel_rows(yslab, 12, rng, timed_at="YP")
+    ypts = torch.from_numpy(ytr.client_features[0]).to(dev)[None]
+    rows.append(gather_update_row(rng, ypts, 12, 1024))
+    rows.append(gather_update_row(rng, slab, 14, 1000,
+                                  check_only="HI, 3 clients"))
+    rows.append(edge_update_checks(dev, rng))
+    return rows, slab, yslab
+
+
+#: (M, rows, K, d) where K3/K4's geometry and loops have edges: a single
+#: row, ragged tiles, K = 1, d = 1, widths past the compiled ones and past
+#: the CTA's 128 threads, more (cluster, warp) offsets than a warp holds,
+#: partial rows too wide for more than one in the reduce's stage (64-row
+#: tiles)
+EDGE_SHAPES = [(1, 1, 3, 5), (2, 127, 7, 2), (1, 129, 1, 1),
+               (1, 1000, 12, 30), (3, 4097, 40, 64), (2, 3000, 9, 130),
+               (1, 300, 16, 300)]
+
+
+def edge_update_checks(dev, rng):
+    """K3 at ``EDGE_SHAPES`` against its plain version (``check_update``)
+    and K5 (assign and sqd bitwise), K4 over a draw of as many rows with
+    duplicates bitwise K3 on the gathered rows.  Seeded normal points."""
+    from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
+    from repro_torch.kernels.kmeans_update import ref as ku_ref
+    from repro_torch.kernels.kmeans_update.kernel import (
+        kmeans_update_cuda, kmeans_update_gather_cuda)
+    worst = 0.0
+    for m, n, k, d in EDGE_SHAPES:
+        pts = torch.from_numpy(rng.normal(0, 1, (m, n, d)).astype(
+            np.float32)).to(dev)
+        cents = torch.from_numpy(rng.normal(0, 1, (m, k, d)).astype(
+            np.float32)).to(dev)
+        got = kmeans_update_cuda(pts, cents)
+        err = check_update(f"kmeans_update {m, n, k, d}", pts, cents, got,
+                           ku_ref.kmeans_update(pts, cents))[0]
+        worst = max(worst, err)
+        if not same_bits(got[:2], kmeans_assign_cuda(pts, cents)):
+            raise AssertionError(f"kmeans_update {m, n, k, d}: assign/sqd "
+                                 "differ from kmeans_assign's")
+        idx = torch.from_numpy(rng.integers(0, n, (m, n)).astype(
+            np.int32)).to(dev)
+        rows = torch.gather(pts, 1, idx.long()[..., None].expand(-1, -1, d))
+        if not same_bits(kmeans_update_gather_cuda(pts, cents, idx),
+                         kmeans_update_cuda(rows, cents)):
+            raise AssertionError(f"kmeans_update_gather {m, n, k, d}: K4 "
+                                 "differs from K3 on the gathered rows")
+    return dict(name="kmeans_update", check_only="edge shapes",
+                shapes=EDGE_SHAPES, max_abs_err=worst)
 
 
 def client_slab(part, n, dev):
@@ -551,9 +660,16 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
     ops_assign = m * n * (2 * d + k * (2 * d + 3) + k)
     io_bytes = m * n * d * 4 + m * k * d * 4 + m * n * 8
 
+    got = kmeans_update_cuda(pts, cents)
     err, n_diff, min_margin = check_update(
-        "kmeans_update", pts, cents, kmeans_update_cuda(pts, cents),
-        ku_ref.kmeans_update(pts, cents))
+        "kmeans_update", pts, cents, got, ku_ref.kmeans_update(pts, cents))
+    # the assignment and distances are K5's, bit for bit (one thread runs
+    # a row's whole FMA chain in both); a second call repeats every bit
+    if not same_bits(got[:2], kmeans_assign_cuda(pts, cents)):
+        raise AssertionError("kmeans_update: assign/sqd differ from "
+                             "kmeans_assign's on the same centroids")
+    if not same_bits(kmeans_update_cuda(pts, cents), got):
+        raise AssertionError("kmeans_update: two calls differ")
     b_ms, b_by = bound(io_bytes + m * k * (d + 1) * 4,
                        ops_assign + m * n * d)
     rows = [dict(
@@ -562,9 +678,9 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
         replaces="src/repro/kernels/kmeans_update/kernel.py:94",
         max_abs_err=err, assign_mismatch=n_diff,
         min_mismatch_margin=min_margin,
-        ms=cuda_ms(lambda: kmeans_update_cuda(pts, cents)),
-        device_ms=kernel_device_ms(lambda: kmeans_update_cuda(pts, cents),
-                                   ["update_kernel", "reduce_kernel"]),
+        k3_assign_sqd_equal_k5_bitwise=True, two_calls_bitwise=True,
+        **update_timing("kmeans_update",
+                        lambda: kmeans_update_cuda(pts, cents)),
         plain_ms=cuda_ms(lambda: ku_ref.kmeans_update(pts, cents)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=[m, n, d, k], **extra)]
@@ -596,51 +712,94 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
     return rows
 
 
-def gather_update_row(dev, rng):
-    """K4 at one YP minibatch step: 1,024 seeded indices, duplicates
-    among them, into the first YP client's 357,000 × 30 training rows,
-    K = 12 centroids from the rows.  Bitwise equal to K3 on the
-    pre-gathered rows; against its plain version as K3."""
+def gather_update_row(rng, pts, k, bsz, **extra):
+    """K4 at one minibatch step: ``bsz`` seeded indices a client, with
+    duplicates, into ``pts`` (M, N, d), K = ``k`` centroids from the
+    rows.  Bitwise equal to K3 on the pre-gathered rows, and a second
+    call to the first; against its plain version as K3.  With
+    ``check_only``, also indices outside [0, N): their rows get assign
+    -1 and sqd NaN and count for no cluster, and every other row keeps
+    its bits."""
     from repro_torch.kernels.kmeans_update import ref as ku_ref
     from repro_torch.kernels.kmeans_update.kernel import (
         kmeans_update_cuda, kmeans_update_gather_cuda)
 
-    tr, _ = partitions("YP")
-    pts = torch.from_numpy(tr.client_features[0]).to(dev)[None]
-    _, n, d = pts.shape
-    k, bsz = 12, 1024
+    m, n, d = pts.shape
+    dev = pts.device
     cents = pts[:, torch.from_numpy(rng.choice(n, k, replace=False)).to(
         dev)].contiguous()
-    idx = torch.from_numpy(rng.integers(0, n, (1, bsz)).astype(
+    idx = torch.from_numpy(rng.integers(0, n, (m, bsz)).astype(
         np.int32)).to(dev)
-    idx[0, 1::50] = idx[0, 0]                # duplicates, as a draw has
+    idx[:, 1::50] = idx[:, :1]               # duplicates, as a draw has
     call = lambda: kmeans_update_gather_cuda(pts, cents, idx)
     got = call()
-    rows = pts[:, idx[0].long()].contiguous()
+    rows = torch.gather(pts, 1, idx.long()[..., None].expand(-1, -1, d))
     k3 = kmeans_update_cuda(rows, cents)
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, k3)):
+    if not same_bits(got, k3):
         raise AssertionError("kmeans_update_gather: K4 differs from K3 on "
                              "the gathered rows")
+    if not same_bits(call(), got):
+        raise AssertionError("kmeans_update_gather: two calls differ")
     err, n_diff, min_margin = check_update(
         "kmeans_update_gather", rows, cents, got,
         ku_ref.kmeans_update_gather(pts, cents, idx))
-    unique = int(torch.unique(idx).numel())
+    if "check_only" in extra:
+        out_of_range(pts, cents, idx, rows, got)
+    unique = sum(int(torch.unique(i).numel()) for i in idx)
     b_ms, b_by = bound(
-        4 * (unique * d + bsz + k * d + 2 * bsz + k * (d + 1)),
-        bsz * (2 * d + k * (2 * d + 3) + k) + bsz * d)
+        4 * (unique * d + m * bsz + m * k * d + 2 * m * bsz
+             + m * k * (d + 1)),
+        m * bsz * (2 * d + k * (2 * d + 3) + k) + m * bsz * d)
     return dict(
         name="kmeans_update_gather", route="cuda",
         source="src/repro_torch/kernels/csrc/kmeans_update.cu",
         replaces="src/repro/kernels/kmeans_update/kernel.py:164",
         max_abs_err=err, assign_mismatch=n_diff,
         min_mismatch_margin=min_margin, k4_equals_k3_bitwise=True,
-        ms=cuda_ms(call),
-        device_ms=kernel_device_ms(call, ["update_kernel", "reduce_kernel"]),
+        two_calls_bitwise=True, **update_timing("kmeans_update_gather", call),
         plain_ms=cuda_ms(lambda: ku_ref.kmeans_update_gather(pts, cents,
                                                              idx)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=[1, n, d, k, bsz])
+        shape=[m, n, d, k, bsz], **extra)
+
+
+def out_of_range(pts, cents, idx, rows, good):
+    """K4 with every 97th index of each client set to -1 or N: those
+    rows get assign -1 and sqd NaN, the others the bits of ``good`` (the
+    call on in-range indices), and counts and sums cover exactly the
+    in-range rows (counts exact, sums as ``check_update``)."""
+    from repro_torch.kernels.kmeans_update.kernel import \
+        kmeans_update_gather_cuda
+    m, n, d = pts.shape
+    k = cents.shape[1]
+    bad_idx = idx.clone()
+    bad_idx[:, ::194] = -1
+    bad_idx[:, 97::194] = n
+    bad = bad_idx != idx
+    ga, gs, gsum, gcnt = kmeans_update_gather_cuda(pts, cents, bad_idx)
+    torch.cuda.synchronize()
+    if not (bool((ga[bad] == -1).all()) and bool(gs[bad].isnan().all())):
+        raise AssertionError("kmeans_update_gather: an index outside "
+                             "[0, N) did not give assign -1 and sqd NaN")
+    if not same_bits((ga[~bad], gs[~bad]), (good[0][~bad], good[1][~bad])):
+        raise AssertionError("kmeans_update_gather: an index outside [0, "
+                             "N) moved the bits of another row")
+    keep = (~bad).double()[..., None]
+    seg = (torch.arange(m, device=pts.device)[:, None] * k
+           + ga.long().clamp_min(0)).reshape(-1)
+    vals = (rows.double() * keep).reshape(-1, d)
+    exact = torch.zeros((m * k, d), dtype=torch.float64, device=pts.device
+                        ).index_add_(0, seg, vals).view(m, k, d)
+    abs_sums = torch.zeros((m * k, d), dtype=torch.float64,
+                           device=pts.device
+                           ).index_add_(0, seg, vals.abs()).view(m, k, d)
+    want_cnt = torch.zeros(m * k, dtype=torch.float64, device=pts.device
+                           ).index_add_(0, seg, keep.reshape(-1)).view(m, k)
+    if not torch.equal(gcnt.double(), want_cnt):
+        raise AssertionError("kmeans_update_gather: counts with indices "
+                             "outside [0, N) are not exact")
+    check_close("kmeans_update_gather sums, indices outside [0, N)", gsum,
+                exact, abs_sums)
 
 
 def bottom_kernel_rows(dev, slab, yslab, rng):
@@ -2240,10 +2399,36 @@ def _leaves(tree):
     else:
         yield tree
 
+def kmeans_update_ptxas(report: str):
+    """K3/K4's kernel instances in a ``-Xptxas -v`` report: {"K3 D=30":
+    "40 registers, 0+0 spill bytes", ...} (D=0: the instance that reads
+    the width at run time), and the instances that spill."""
+    out, spills, name = {}, [], None
+    for ln in report.splitlines():
+        hit = re.search(r"kmeans_update_kernelILb(\d)ELi(\d+)E", ln)
+        if "entry function" in ln:
+            name = hit and f"K{4 if hit[1] == '1' else 3} D={hit[2]}"
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if name and spill:
+            out[name] = f"{spill[1]}+{spill[2]} spill bytes"
+            if spill[1] != "0" or spill[2] != "0":
+                spills.append(name)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if name and regs:
+            out[name] = f"{regs[1]} registers, " + out.get(name, "")
+    return out, spills
+
+
+ONLY = {"llm-kernels": ["flash_attention", "ssd_scan"],
+        "kmeans-kernels": ["kmeans_update", "kmeans_assign"]}
+
+
 def main(argv) -> int:
-    only_llm = argv == ["--only", "llm-kernels"]
-    if argv and not only_llm:
-        print("usage: chip_smoke.py [--only llm-kernels]", file=sys.stderr)
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ONLY:
+        print("usage: chip_smoke.py [--only llm-kernels|kmeans-kernels]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2257,30 +2442,46 @@ def main(argv) -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "torch_name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    secs = build.build_all(["flash_attention", "ssd_scan"] if only_llm
-                           else None)
-    # K11's bf16 instances must run both products on the tensor cores;
-    # K12's census is a record (its products are f32 FMAs, PERF.md)
-    sass = sass_census("flash_attention")
-    ssd_sass = sass_census("ssd_scan", marks=("HMMA", "HGMMA", "FFMA"))
+    secs = build.build_all(ONLY.get(only))
+    sass = ssd_sass = None
+    if only != "kmeans-kernels":
+        # K11's bf16 instances must run both products on the tensor cores;
+        # K12's census is a record (its products are f32 FMAs, PERF.md)
+        sass = sass_census("flash_attention")
+        ssd_sass = sass_census("ssd_scan", marks=("HMMA", "HGMMA", "FFMA"))
+    # K3/K4: one line an instance (34 widths × 2), none may spill
+    update_ptxas, spills = kmeans_update_ptxas(
+        build.PTXAS_REPORT.get("kmeans_update", ""))
     emit({"phase": "build", "seconds": secs,
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln or "entry function" in ln]
-                    for k, v in build.PTXAS_REPORT.items()},
+                    for k, v in build.PTXAS_REPORT.items()
+                    if k != "kmeans_update"} | {
+                        "kmeans_update": update_ptxas},
           "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
+    if spills:
+        raise AssertionError(f"kmeans_update: ptxas spills in {spills}")
+    if only == "kmeans-kernels":
+        # K3 at HI and YP, K4, K5: the quick check of an edit to
+        # kmeans_update.cu (not the contract run)
+        for r in kmeans_kernel_rows(dev, np.random.default_rng(SEED))[0]:
+            emit({"phase": "kernel", **r})
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     no_mma = [fn for fn, c in sass.items()
               if "bf16_mma" in fn and not (c["HMMA"] or c["HGMMA"])]
     if no_mma or not any("bf16_mma" in fn for fn in sass):
         raise AssertionError(f"flash_attention: bf16 instances without "
                              f"tensor-core instructions: {no_mma or sass}")
-    if only_llm:
+    if only == "llm-kernels":
         # K11 and K12 against their plain versions, and the grad refusal:
         # the quick check of an edit to those kernels (not the contract run)
         rows = llm_kernel_rows(dev, np.random.default_rng(SEED))
         for r in rows:
             emit({"phase": "kernel", **r})
         print(smi, flush=True)
-        emit({"ok": True, "only": "llm-kernels", "device": device})
+        emit({"ok": True, "only": only, "device": device})
         return 0
     rows = kernel_phase(dev)
     launches, pipe_rows = pipeline_phase(dev)

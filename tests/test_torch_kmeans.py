@@ -1,7 +1,9 @@
 """The port's k-means against the reference on identical inputs: the
 Lloyd-step and assign plain versions against the JAX ref and Pallas
 kernels on the same centroids, k-means++ seeding, the ragged batched
-fit with its n_valid correction, and the empty-cluster reseed.
+fit with its n_valid correction, and the empty-cluster reseed; then the
+CUDA Lloyd step's launch geometry (``kmeans_update/kernel.py``), which
+the CPU can check without the card.
 
 Tolerances: assignments equal (and, should one differ, the failure
 shows its best/second-best d² margin: a flip is legitimate only below
@@ -9,7 +11,9 @@ shows its best/second-best d² margin: a flip is legitimate only below
 Squared distances take atol=1e-5 plus rtol=1e-5 of ‖p‖² + ‖c‖²: the f32
 formula ‖p‖² − 2p·c + ‖c‖² cancels terms of that size, so two summation
 orders differ by ulps of them, not of the (possibly small) result."""
+import contextlib
 import importlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from repro.kernels.kmeans_update import ref as jax_update_ref
 from repro_torch import interop
 from repro_torch.core import coreset
 from repro_torch.kernels.kmeans_assign import ref as assign_ref
+from repro_torch.kernels.kmeans_update import kernel as update_kernel
 from repro_torch.kernels.kmeans_update import ref as update_ref
 
 # the packages' ``core`` re-exports the function ``kmeans`` over the module
@@ -157,3 +162,95 @@ def test_empty_cluster_reseed_matches_jax():
     assert np.array_equal(ga, wa)
     assert np.array_equal(gs, ws)
     assert np.isfinite(gc).all() and gs.max() < 1e-3
+
+
+# (M, rows a client): the edges of a 128-row tile, a YP minibatch step,
+# the HI and YP coreset fits
+GEOMETRY_CASES = [(1, 1), (1, 127), (1, 128), (1, 129), (1, 1024),
+                  (3, 49_000), (3, 249_900)]
+
+
+@pytest.mark.parametrize("m,rows", GEOMETRY_CASES)
+def test_update_geometry_covers_every_row_once(m, rows):
+    """Every row falls in exactly one tile, every tile in one CTA, each
+    CTA's tiles contiguous and ascending; the CTA count stays under the
+    helper's cap and the CTA fits shared memory."""
+    k, d = 12, 30
+    geo = update_kernel.geometry(m, rows, k, d)
+    assert geo.tile in update_kernel.TILE_ROWS
+    assert geo.tile <= update_kernel.THREADS
+    # tiles [i·tile, (i+1)·tile) cover rows [0, rows), the last one ragged
+    assert geo.n_tiles == max(1, -(-rows // geo.tile))
+    owner = np.full(geo.n_tiles, -1)
+    for c, (first, end) in enumerate(geo.tile_ranges()):
+        assert first < end, f"CTA {c} has no tile"
+        assert (owner[first:end] == -1).all()
+        owner[first:end] = c
+    assert (owner >= 0).all()
+    assert (np.diff(owner) >= 0).all()       # ascending, contiguous ranges
+    row_tile = np.arange(rows) // geo.tile
+    assert np.bincount(row_tile, minlength=geo.n_tiles).sum() == rows
+    cap = update_kernel.ctas_cap(m, geo.tile, k, d)
+    assert geo.ctas <= cap
+    # every CTA of a call resident at once: at most CTAS_PER_SM an SM
+    assert m * geo.ctas <= update_kernel.SMS * update_kernel.CTAS_PER_SM
+    if geo.n_tiles >= cap:                    # rows to fill the card
+        assert geo.ctas > cap // 2
+    else:                                     # one tile a CTA
+        assert geo.ctas == geo.n_tiles
+    assert geo.width == k * d + k and geo.row % 4 == 0
+    assert geo.width <= geo.row < geo.width + 4
+    assert geo.smem_bytes <= update_kernel.SMEM_MAX
+    # groups of CTAs cover the CTAs once, in order
+    group = update_kernel.GROUP
+    assert (geo.groups - 1) * group < geo.ctas <= geo.groups * group
+
+
+@pytest.mark.parametrize("m,rows", GEOMETRY_CASES)
+def test_k3_and_k4_launch_one_geometry(monkeypatch, m, rows):
+    """K3 over ``rows`` rows and K4 over ``rows`` gathered indices pass
+    the launcher the same geometry and partials scratch, with as many
+    arguments as the C launchers take."""
+    calls = []
+
+    def fake_function(name, symbol, n_pointers, n_ints, n_floats=0):
+        def launch(*args):
+            assert len(args) == n_pointers + n_ints + n_floats + 1, symbol
+            calls.append((symbol, args[n_pointers:n_pointers + n_ints]))
+            return 0
+        return launch
+
+    scratch = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        scratch.append(tuple(shape[0] if len(shape) == 1 else shape))
+        return real_empty(*shape, **kw)
+
+    monkeypatch.setattr(update_kernel.build, "require_cuda",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(update_kernel.build, "function", fake_function)
+    monkeypatch.setattr(update_kernel, "_tickets",
+                        lambda dev, size: torch.zeros(size, dtype=torch.int32))
+    monkeypatch.setattr(update_kernel.torch, "empty", empty)
+    monkeypatch.setattr(update_kernel.torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(update_kernel.torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    k, d = 5, 2
+    cents = torch.zeros((m, k, d))
+    update_kernel.kmeans_update_cuda(torch.zeros((m, rows, d)), cents)
+    update_kernel.kmeans_update_gather_cuda(
+        torch.zeros((m, 7, d)), cents, torch.zeros((m, rows),
+                                                   dtype=torch.int32))
+    (s3, ints3), (s4, ints4) = calls
+    assert (s3, s4) == ("kmeans_update_launch", "kmeans_update_gather_launch")
+    geo = update_kernel.geometry(m, rows, k, d)
+    want = (geo.tile, geo.tiles_per_cta, geo.ctas)
+    assert ints3[-3:] == want and ints4[-3:] == want
+    # (m, n, k, k_real, d) for K3; (m, n, b, k, k_real, d) for K4
+    assert ints3[:5] == (m, rows, k, k, d)
+    assert ints4[:6] == (m, 7, rows, k, k, d)
+    # a partial row a CTA and one a group
+    partials = (m, geo.ctas + geo.groups, geo.row)
+    assert scratch.count(partials) == 2
