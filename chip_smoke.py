@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py                         # every phase (the contract)
     python3 chip_smoke.py --only llm-kernels      # build K11/K12, their rows
     python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
+    python3 chip_smoke.py --only int8-kernels     # build K9/K10, their rows
 
 Phases, each printing JSON lines:
 
@@ -53,12 +54,22 @@ Phases, each printing JSON lines:
               the reference's single-pass bound) at P=2^19, at 2^20 and
               as nine pairs at 2^19 (the delta probe's batch), ~70%
               overlap, bitwise; ``torch.sort`` of the 2P keys beside it.
-              K9 (the int8 bottom pass) at the int8 eval block (3, 512, 11)
-              → 8 with ReLU and at lr's o=1 without, K10 at a 700-row
-              train step with duplicates out of (3, 49,000, 11): bitwise
-              their plain versions, K10 bitwise K9 on the gathered rows;
-              ``torch.baddbmm`` on the dequantized operands beside them.
-              The quantizers on the card bitwise the same quantizers on
+              K9 (the int8 bottom pass) and K10 (over gathered rows) in
+              the wire form the quantized wire runs (quantizers in the
+              operand loads, the wire rounding in the epilogue, one
+              launch a call): bitwise the plain composition
+              quantize_rows → int8 pass → fake_quantize, one device
+              kernel a call (the profiler); K9 at the int8 eval block
+              (3, 512, 11) → 8 with ReLU, at lr's o=1 without, at a
+              serving dispatch of 64 rows, at B=509 and at o=3, K10 at
+              a 700-row train step with duplicates out of (3, 49,000,
+              11), with and without its pre-rounding output; each timed
+              beside the parent's eager path (the same result) and
+              ``torch.baddbmm`` on the dequantized operands.  The
+              operands form (the first design, ``timed_at``) at the eval
+              block, o=1 and the train step: bitwise their plain
+              versions, K10 bitwise K9 on the gathered rows.  The
+              quantizers on the card bitwise the same quantizers on
               the CPU, int8 and fp8.  K11 (flash attention) at the
               tinyllama prefill (B=2, Sq=Sk=2,048, H=32, KV=4, Dh=64,
               causal, bf16) within one bf16 ulp of its plain version (f32
@@ -145,8 +156,9 @@ Phases, each printing JSON lines:
               (starall's losses bitwise: no coreset, the same rows); the
               int8 accuracy at most 0.01 below phase 5's f32 run of the
               same job, the gathered payload <= 0.3× f32's; K10 launches
-              = train steps and K9 = eval blocks under int8, K2/K1 under
-              fp8.  Then ``VFLScoringEngine(slots=64, quant="int8")``
+              = train steps and K9 = eval blocks under int8 (the wire
+              form; the operands form never), K2/K1 under fp8.  Then
+              ``VFLScoringEngine(slots=64, quant="int8")``
               serves the test rows with the int8-trained treecss-mlp
               params: kernel and plain engines bitwise, ServeStats equal,
               each within one wire step of ``score_partition(quant=
@@ -265,6 +277,28 @@ def kernel_device_ms(fn, marks):
     per_name, _, _ = profile_device(fn)
     hits = [t for k, t in per_name.items() if any(m in k for m in marks)]
     return sum(hits) if hits else None
+
+
+def launch_device_ms(fn, marks, reps: int = 20) -> float:
+    """Mean device time of one launch whose name contains one of
+    ``marks``, over the launches the profiler recorded in ``reps`` calls
+    (unlike ``kernel_device_ms``, a dropped event does not lower it)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and any(m in ev.key for m in marks)):
+            t = getattr(ev, "device_time_total", None)
+            total += getattr(ev, "cuda_time_total", 0) if t is None else t
+            count += ev.count
+    return total / 1e3 / count
 
 
 def device_launches(fn, reps: int = 5):
@@ -891,11 +925,15 @@ def bottom_kernel_rows(dev, slab, yslab, rng):
 
 
 def int8_kernel_rows(dev, slab, rng):
-    """K9 at the int8 eval block (3, 512, 11) → 8 with ReLU and at lr's
+    """K9 and K10 in both forms.  The operands form (the first design,
+    the TPU kernels' function; ``timed_at`` rows, outside the ``kernels``
+    line):
+    K9 at the int8 eval block (3, 512, 11) → 8 with ReLU and at lr's
     o = 1 without it, K10 at a 700-row train step with duplicates out of
-    the (3, 49,000, 11) slab; the operands quantized as the quant path
-    does (rows of x, columns of w, pow2 scales).  Each bitwise its plain
-    version; K10 bitwise K9 on the gathered rows.  The library yardstick
+    the (3, 49,000, 11) slab; the operands quantized as the eager path did
+    (rows of x, columns of w, pow2 scales); each bitwise its plain
+    version, K10 bitwise K9 on the gathered rows.  Then the wire form the
+    quantized wire runs (``wire_kernel_rows``).  The library yardstick
     is ``torch.baddbmm`` on the dequantized f32 operands (the same product
     in f32); ``torch._int_mm`` takes 2-D operands with K and N multiples
     of 8, which d = 11 is not."""
@@ -938,11 +976,8 @@ def int8_kernel_rows(dev, slab, rng):
                          + (0 if idx is None else bsz)))
         # int8 products at the int8 tensor-core peak, the f32 epilogue
         # (scale product, scale, bias) at the f32 peak
-        t_ops = (2 * m * bsz * d * o / INT8_OPS + 3 * m * bsz * o
-                 / F32_FLOPS) * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                      else (t_ops, "operations"))
+        b_ms, b_by = bound(nbytes, [(2 * m * bsz * d * o, INT8_OPS),
+                                    (3 * m * bsz * o, F32_FLOPS)])
         xf = xg.float() * sx[:, :, None]
         wf = wq.float() * sw[:, None, :]
         bb = b[:, None, :]
@@ -957,29 +992,177 @@ def int8_kernel_rows(dev, slab, rng):
             library="torch.baddbmm on the dequantized f32 operands (the "
                     "same product in f32), without the ReLU; "
                     "torch._int_mm does not take K = 11",
-            shape=[m, bsz, d, o], relu=relu, **extra)
+            shape=[m, bsz, d, o], relu=relu,
+            timed_at="the operands form (the first design, the TPU "
+                     "kernel's function)", **extra)
 
     m, n, d = slab.shape
     xq, sx = int8_rows(slab)
     eval_q, eval_s = xq[:, :512].contiguous(), sx[:, :512].contiguous()
     rows = []
-    for o, relu, extra in ((8, True, {}), (1, False, {"check_only": "lr"})):
+    for o, relu in ((8, True), (1, False)):
         w, b = g(m, d, o, scale=d ** -0.5), g(m, o, scale=0.1)
         wq, ew = quantize_columns(w, "int8")
         sw = pow2(ew)
-        rows.append(row("splitnn_bottom_int8", eval_q, eval_s, wq, sw, b,
-                        relu, replaces="src/repro/kernels/splitnn_bottom/"
-                        "kernel.py:83", **extra))
+        rows.append(row("splitnn_bottom_int8_operands", eval_q, eval_s, wq,
+                        sw, b, relu, replaces="src/repro/kernels/"
+                        "splitnn_bottom/kernel.py:83"))
         if o == 8:
             idx = torch.from_numpy(rng.integers(0, n, 700).astype(
                 np.int32)).to(dev)
             idx[1::50] = idx[0]              # duplicates, as a schedule
             rows.append(row(
-                "splitnn_bottom_int8_gather", xq,
+                "splitnn_bottom_int8_gather_operands", xq,
                 sx.index_select(1, idx).contiguous(), wq, sw, b, relu,
                 idx=idx, replaces="src/repro/kernels/splitnn_bottom/"
                 "kernel.py:208"))
-    return rows
+    return rows + wire_kernel_rows(dev, slab, rng)
+
+
+def wire_kernel_rows(dev, slab, rng):
+    """K9 and K10 in the wire form, the quantized wire's one launch a
+    call, each against the plain composition ``quantize_rows`` → int8
+    pass → ``fake_quantize`` (``ref.splitnn_bottom_int8_wire``) on the
+    card, bitwise: the wire value and, where the kernel writes it, the
+    output before the rounding.  K9 at the int8 eval block (3, 512, 11)
+    → 8 with ReLU (the ``kernels`` line's K9), at lr's o = 1 without, at
+    a serving dispatch (3, 64, 11) → 8, at B = 509 and at o = 3; K10 at a
+    700-row train step with duplicates out of the (3, 49,000, 11) slab,
+    writing the pre-rounding output as training does (the ``kernels``
+    line's K10), and without it.  Each call must be one device kernel
+    (the profiler).  Times: events and device, beside the parent's path
+    (the quantizers, the operands form and ``fake_quantize`` as eager
+    ops, bitwise the same result: ``parent_path_ms``,
+    ``parent_path_device_ms``, ``parent_path_launches``), the plain
+    composition and ``torch.baddbmm`` on the dequantized operands.
+    ``device_ms`` is the mean of the launches the profiler recorded: it
+    drops an event of these 2-4 µs kernels now and then."""
+    from repro_torch import quant as Q
+    from repro_torch.kernels.splitnn_bottom import ref as sb_ref
+    from repro_torch.kernels.splitnn_bottom.kernel import (
+        splitnn_bottom_int8_cuda, splitnn_bottom_int8_gather_cuda,
+        splitnn_bottom_int8_wire_cuda, splitnn_bottom_int8_wire_gather_cuda)
+    from repro_torch.kernels.splitnn_bottom.ops import int8_rows
+
+    marks = ["bottom_int8_kernel"]
+    xq_slab, sx_slab = int8_rows(slab)
+    g = lambda *shape, scale=1.0: (torch.from_numpy(rng.normal(
+        size=shape).astype(np.float32)) * scale).to(dev)
+
+    def differ(name, what, got, want):
+        if not same_bits([got], [want]):
+            bad = got.view(torch.int32) != want.view(torch.int32)
+            raise AssertionError(f"{name}: {what} differ at {int(bad.sum())}"
+                                 f" of {bad.numel()} elements")
+
+    def row(name, x, w, b, relu, idx=None, keep_pre=False, **extra):
+        m, _, d = x.shape
+        o = w.shape[2]
+        wq, ew = Q.quantize_columns(w, "int8")
+        sw = Q.pow2(ew)
+        if idx is None:
+            call = lambda: splitnn_bottom_int8_wire_cuda(x, w, b, relu,
+                                                         keep_pre)
+            plain = lambda: sb_ref.splitnn_bottom_int8_wire(
+                *int8_rows(x), w, b, relu)
+
+            def parent():
+                xq, sx = int8_rows(x)
+                wq, ew = Q.quantize_columns(w, "int8")
+                return Q.fake_quantize(splitnn_bottom_int8_cuda(
+                    xq, sx, wq, Q.pow2(ew), b, relu), "int8")
+            xq, sx = int8_rows(x)
+            rows_read, bsz = x.shape[1], x.shape[1]
+            x_bytes = 4 * m * bsz * d
+            x_ops = 2 * m * bsz * d      # the row quantizer's |max|, scale
+        else:
+            call = lambda: splitnn_bottom_int8_wire_gather_cuda(
+                idx, xq_slab, sx_slab, w, b, relu, keep_pre)
+            plain = lambda: sb_ref.splitnn_bottom_int8_wire(
+                xq_slab, sx_slab, w, b, relu, idx)
+
+            def parent():
+                wq, ew = Q.quantize_columns(w, "int8")
+                return Q.fake_quantize(splitnn_bottom_int8_gather_cuda(
+                    idx, xq_slab, sx_slab.index_select(1, idx), wq,
+                    Q.pow2(ew), b, relu), "int8")
+            xq = xq_slab.index_select(1, idx)
+            sx = sx_slab.index_select(1, idx)
+            rows_read, bsz = int(torch.unique(idx).numel()), idx.shape[0]
+            x_bytes = (d + 4) * m * rows_read + 4 * bsz
+            x_ops = 0
+        (got, pre), (want, want_pre) = call(), plain()
+        torch.cuda.synchronize()
+        differ(name, "the wire values of the kernel and the plain "
+               "composition", got, want)
+        if keep_pre:
+            differ(name, "the pre-rounding outputs", pre, want_pre)
+        elif pre is not None:
+            raise AssertionError(f"{name}: wrote pre without keep_pre")
+        differ(name, "the parent's path and the plain composition",
+               parent(), want)
+        # the profiler may drop an event (0.8 launches a call over 5
+        # calls on the card), so count over 20 and round
+        launched = device_launches(call, reps=20)
+        if round(sum(launched.values())) != 1 or not all(
+                any(k in n for k in marks) for n in launched):
+            raise AssertionError(f"{name}: a call launched {launched}, not "
+                                 f"one {marks[0]}")
+        parent_launched = device_launches(parent, reps=20)
+        # bytes: x (f32 rows; K10 the gathered int8 rows and scales, the
+        # indices), w and b read, the wire value (and pre) written; the
+        # int8 products at the int8 peak, the f32 work at the f32 peak:
+        # the quantizers' |max| and scaling (2 an element of x for K9, and
+        # of w), the epilogue (3 an output) and the wire (|max|, encode,
+        # decode: 3 an output)
+        nbytes = x_bytes + 4 * (m * d * o + m * o
+                                + m * bsz * o * (2 if keep_pre else 1))
+        b_ms, b_by = bound(nbytes, [
+            (2 * m * bsz * d * o, INT8_OPS),
+            (x_ops + 2 * m * d * o + 6 * m * bsz * o, F32_FLOPS)])
+        xf = xq.float() * sx[:, :, None]
+        wf = wq.float() * sw[:, None, :]
+        bb = b[:, None, :]
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/splitnn_bottom.cu",
+            max_abs_err=0.0, ms=cuda_ms(call),
+            device_ms=launch_device_ms(call, marks),
+            device_launches=launched,
+            parent_path_ms=cuda_ms(parent),
+            parent_path_device_ms=profile_device(parent)[1],
+            parent_path_launches=sum(parent_launched.values()),
+            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            nbytes=nbytes,
+            **library_times(lambda: torch.baddbmm(bb, xf, wf)),
+            library="torch.baddbmm on the dequantized f32 operands (the "
+                    "product alone, in f32), without the ReLU",
+            shape=[m, bsz, d, o], relu=relu, keep_pre=keep_pre, **extra)
+
+    m, n, d = slab.shape
+    eval_x = slab[:, :512].contiguous()
+    w8, b8 = g(m, d, 8, scale=d ** -0.5), g(m, 8, scale=0.1)
+    w1, b1 = g(m, d, 1, scale=0.1 * d ** -0.5), g(m, 1, scale=0.1)
+    w3, b3 = g(m, d, 3, scale=d ** -0.5), g(m, 3, scale=0.1)
+    idx = torch.from_numpy(rng.integers(0, n, 700).astype(np.int32)).to(dev)
+    idx[1::50] = idx[0]                      # duplicates, as a schedule
+    k9 = "src/repro/kernels/splitnn_bottom/kernel.py:83"
+    k10 = "src/repro/kernels/splitnn_bottom/kernel.py:208"
+    return [
+        row("splitnn_bottom_int8", eval_x, w8, b8, True, replaces=k9),
+        row("splitnn_bottom_int8", eval_x, w1, b1, False, replaces=k9,
+            check_only="lr, o=1"),
+        row("splitnn_bottom_int8", slab[:, :64].contiguous(), w8, b8, True,
+            replaces=k9, check_only="a serving dispatch, B=64"),
+        row("splitnn_bottom_int8", slab[:, :509].contiguous(), w8, b8, True,
+            replaces=k9, check_only="B=509, a ragged wire block"),
+        row("splitnn_bottom_int8", eval_x, w3, b3, True, replaces=k9,
+            check_only="o=3, 80 rows a CTA"),
+        row("splitnn_bottom_int8_gather", slab, w8, b8, True, idx=idx,
+            keep_pre=True, replaces=k10),
+        row("splitnn_bottom_int8_gather", slab, w8, b8, True, idx=idx,
+            replaces=k10, check_only="no pre-rounding output (no_grad)"),
+    ]
 
 
 def quantizer_check(dev, slab, rng):
@@ -1768,6 +1951,8 @@ def quant_phase(dev, f32_runs):
             check_launches(tag, row_k["launches"], {
                 "splitnn_bottom_int8_gather": rk.train.steps if int8 else 0,
                 "splitnn_bottom_int8": n_eval_batches if int8 else 0,
+                "splitnn_bottom_int8_operands": 0,
+                "splitnn_bottom_int8_gather_operands": 0,
                 "splitnn_bottom_gather": 0 if int8 else rk.train.steps,
                 "splitnn_bottom": 0 if int8 else n_eval_batches})
     return runs, rows
@@ -1897,13 +2082,15 @@ def yp_phase(dev):
         raise AssertionError(f"yp: merge launches {launched}, expected "
                              f"{merges} in {rk.mpsi.rounds} rounds")
     # every kernel of the f32 path runs; K4 (minibatch coresets), the
-    # int8 twins K9/K10 (the quantized wire) and K11/K12 (LLM serving)
-    # have paths of their own
+    # int8 twins K9/K10 (the quantized wire; their operands form, on no
+    # path) and K11/K12 (LLM serving) have paths of their own
     missing = [k for k, v in launched.items() if not v
                and k not in (*merges, "kmeans_update_gather",
                              "splitnn_bottom_int8",
-                             "splitnn_bottom_int8_gather", "flash_attention",
-                             "ssd_scan")]
+                             "splitnn_bottom_int8_gather",
+                             "splitnn_bottom_int8_operands",
+                             "splitnn_bottom_int8_gather_operands",
+                             "flash_attention", "ssd_scan")]
     if missing:
         raise AssertionError(f"yp: kernels {missing} were not launched")
     if any(row_r["launches"].values()):
@@ -2421,14 +2608,15 @@ def kmeans_update_ptxas(report: str):
 
 
 ONLY = {"llm-kernels": ["flash_attention", "ssd_scan"],
-        "kmeans-kernels": ["kmeans_update", "kmeans_assign"]}
+        "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
+        "int8-kernels": ["splitnn_bottom"]}
 
 
 def main(argv) -> int:
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ONLY:
-        print("usage: chip_smoke.py [--only llm-kernels|kmeans-kernels]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--only "
+              "llm-kernels|kmeans-kernels|int8-kernels]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2444,7 +2632,7 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(ONLY.get(only))
     sass = ssd_sass = None
-    if only != "kmeans-kernels":
+    if only in (None, "llm-kernels"):
         # K11's bf16 instances must run both products on the tensor cores;
         # K12's census is a record (its products are f32 FMAs, PERF.md)
         sass = sass_census("flash_attention")
@@ -2461,6 +2649,17 @@ def main(argv) -> int:
           "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
     if spills:
         raise AssertionError(f"kmeans_update: ptxas spills in {spills}")
+    if only == "int8-kernels":
+        # K9/K10 in both forms and the quantizers on the card: the quick
+        # check of an edit to splitnn_bottom.cu (not the contract run)
+        rng = np.random.default_rng(SEED)
+        slab = client_slab(partitions()[0], 49_000, dev)
+        for r in int8_kernel_rows(dev, slab, rng):
+            emit({"phase": "kernel", **r})
+        quantizer_check(dev, slab, rng)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     if only == "kmeans-kernels":
         # K3 at HI and YP, K4, K5: the quick check of an edit to
         # kmeans_update.cu (not the contract run)

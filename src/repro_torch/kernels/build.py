@@ -20,7 +20,10 @@ wrapper adds one right where its kernel launched and nowhere else.  A
 source may hold more than one kernel, counted apart: ``splitnn_bottom.cu``
 holds K1 (``splitnn_bottom``), K2 (``splitnn_bottom_gather``) and their
 int8 twins K9 (``splitnn_bottom_int8``) and K10
-(``splitnn_bottom_int8_gather``),
+(``splitnn_bottom_int8_gather``), which count the wire form the quantized
+wire runs; their operands form, on operands quantized outside, counts
+apart (``splitnn_bottom_int8_operands``,
+``splitnn_bottom_int8_gather_operands``);
 ``kmeans_update.cu`` K3 (``kmeans_update``) and K4
 (``kmeans_update_gather``).  ``sorted_intersect.cu``'s merge counts as
 K7 (``sorted_intersect``) up to the reference's single-pass bound and as
@@ -60,7 +63,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     *SOURCES, "splitnn_bottom_gather", "splitnn_bottom_int8",
-    "splitnn_bottom_int8_gather", "kmeans_update_gather",
+    "splitnn_bottom_int8_gather", "splitnn_bottom_int8_operands",
+    "splitnn_bottom_int8_gather_operands", "kmeans_update_gather",
     "sorted_intersect_tiled")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: per kernel, the ``-Xptxas -v`` report of its last build (registers,

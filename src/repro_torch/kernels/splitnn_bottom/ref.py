@@ -1,12 +1,17 @@
 """Plain PyTorch versions of the block-diagonal SplitNN bottom layer
 (``repro.kernels.splitnn_bottom.ref``), unpadded: one batched GEMM, then
-the bias, then the ReLU, in the reference's order; and the int8 twin,
-an exact integer accumulator under the reference's f32 epilogue."""
+the bias, then the ReLU, in the reference's order; the int8 twin, an
+exact integer accumulator under the reference's f32 epilogue; and the
+int8 twin's wire form, the plain composition the quantized wire runs
+(the weights' column quantizer, the int8 pass, the wire rounding)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.quant import (dequantize_row_blocks, pow2,
+                               quantize_columns, quantize_row_blocks)
 
 
 def splitnn_bottom(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -40,3 +45,21 @@ def splitnn_bottom_int8(xq: torch.Tensor, sx: torch.Tensor,
     acc = torch.bmm(xq.double(), wq.double()).to(torch.int32)
     out = acc.float() * (sx[:, :, None] * sw[:, None, :]) + b[:, None, :]
     return torch.relu(out) if relu else out
+
+
+def splitnn_bottom_int8_wire(xq: torch.Tensor, sx: torch.Tensor,
+                             w: torch.Tensor, b: torch.Tensor, relu: bool,
+                             idx: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 bottom pass as the quantized wire runs it: xq (M, N, d)
+    int8 with its row scales sx (M, N) (``ops.int8_rows`` of x; the full
+    slab with ``idx`` (B,), sx not yet gathered), w (M, d, o) f32
+    quantized here by columns, b (M, o) f32 -> (wire, pre), each (M, B,
+    o) f32: ``pre`` the int8 pass's output, ``wire`` its wire rounding,
+    ``quant.fake_quantize(pre, "int8")``'s forward (pow2 exponents a
+    block of ``QUANT_BLOCK_ROWS`` rows a client)."""
+    wq, ew = quantize_columns(w, "int8")
+    if idx is not None:      # row scales commute with the row gather
+        sx = sx.index_select(1, idx)
+    pre = splitnn_bottom_int8(xq, sx, wq, pow2(ew), b, relu, idx)
+    return dequantize_row_blocks(*quantize_row_blocks(pre, "int8")), pre

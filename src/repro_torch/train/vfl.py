@@ -21,12 +21,14 @@ as the parity oracle, as in the reference.
 
 ``EngineOptions.quant`` ("int8"|"fp8", DESIGN.md §12) narrows the
 activation send to a 1-byte wire dtype: on one device the bottom
-activations go through ``quant.fake_quantize`` (the wire rounding, an
-identity backward), and under int8 the bottom GEMM itself runs on the
-int8 kernels (K10 in training, K9 in evaluation and serving).  The
-slab's int8 rows are loop-invariant, so ``train_scan`` quantizes them
-once per run, as the reference's hoisted per-step quantization does;
-the weights' columns are quantized every step.
+activations take the wire rounding of ``quant.fake_quantize`` (an
+identity backward).  Under int8 the bottom GEMM itself runs on the int8
+kernels (K10 in training, K9 in evaluation and serving), in their wire
+form: the weights' column quantizer (every step), K9's row quantizer and
+the wire rounding run inside the one launch.  The slab's int8 rows are
+loop-invariant, so ``train_scan`` quantizes them once per run, as the
+reference's hoisted per-step quantization does, and K10 gathers them
+and their scales.  fp8 runs the f32 kernels, then ``fake_quantize``.
 
 Left out, being TPU-only: the slab's 128-lane pre-padding (``d_eff``:
 the CUDA kernels take unpadded widths) and the warm-up compile epoch
@@ -166,7 +168,7 @@ def _bottom_acts(packed, cfg, m: int, x_slab, bottom_impl, idx, quant,
                         device=w.device)
     acts = splitnn_bottom(x_slab, w, b, cfg.model == "mlp", bottom_impl, idx,
                           quant, x_int8)
-    if quant is not None:   # the wire rounding of the activation send
+    if quant == "fp8":    # the wire rounding; int8's runs in the bottom pass
         acts = fake_quantize(acts, quant)
     return acts[:m]                              # drop dummy-client padding
 
@@ -189,8 +191,8 @@ def forward_slab_packed(packed, cfg, m: int, x_slab: torch.Tensor, *,
     (M, N, d_max) slab whose minibatch gather fuses into the bottom pass
     (K2; K10 under int8).  Matches ``splitnn_forward`` on the per-client
     slices up to GEMM summation order.  ``quant`` applies the wire
-    rounding after the bottom pass (``fake_quantize``); ``x_int8`` is
-    ``int8_rows(x_slab)`` where the caller has it."""
+    rounding to the bottom pass's output (int8: inside the pass);
+    ``x_int8`` is ``int8_rows(x_slab)`` where the caller has it."""
     acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, idx, quant,
                         x_int8)
     if cfg.model in ("lr", "linreg"):

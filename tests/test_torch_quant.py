@@ -272,10 +272,12 @@ def _port_bottom(x, w, b, idx, relu, quant, grad=False):
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_int8_bottom_bitwise_matches_reference(shape, relu, idx_mode, impl):
+    """The port's int8 op returns the wire value: the reference's int8
+    pass followed by its wire rounding."""
     x, w, b, idx, _ = _bottom_inputs(shape, idx_mode)
-    want = np.asarray(jax_bottom(
+    want = np.asarray(Q.fake_quantize(jax_bottom(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), relu, impl, 64,
-        None if idx is None else jnp.asarray(idx), "int8"))
+        None if idx is None else jnp.asarray(idx), "int8"), "int8"))
     _, _, got = _port_bottom(x, w, b, idx, relu, "int8")
     assert np.array_equal(got.numpy(), want)
 
@@ -284,7 +286,8 @@ def test_int8_bottom_bitwise_matches_reference(shape, relu, idx_mode, impl):
 @pytest.mark.parametrize("relu", [True, False])
 def test_int8_bottom_grads_match_reference(relu, idx_mode):
     """The straight-through f32 backward, with the ReLU mask of the
-    quantized forward: within the f32 term tolerance (R2)."""
+    quantized forward before its wire rounding (whose own backward is
+    the identity): within the f32 term tolerance (R2)."""
     x, w, b, idx, gct = _bottom_inputs(SHAPES[0], idx_mode, seed=2)
     jidx = None if idx is None else jnp.asarray(idx)
     out, vjp = jax.vjp(lambda w_, b_: jax_bottom(
@@ -292,7 +295,8 @@ def test_int8_bottom_grads_match_reference(relu, idx_mode):
         jnp.asarray(w), jnp.asarray(b))
     jdw, jdb = [np.asarray(a) for a in vjp(jnp.asarray(gct))]
     wt, bt, got = _port_bottom(x, w, b, idx, relu, "int8", grad=True)
-    assert np.array_equal(got.detach().numpy(), np.asarray(out))
+    assert np.array_equal(got.detach().numpy(),
+                          np.asarray(Q.fake_quantize(out, "int8")))
     got.backward(torch.from_numpy(gct))
     xg = x if idx is None else x[:, idx]
     dpre = np.where(np.asarray(out) > 0, gct, 0) if relu else gct
@@ -390,8 +394,9 @@ def test_train_scan_quant_matches_reference(same_init, model, n_classes,
 
 @pytest.mark.parametrize("model,n_classes", [("lr", 2), ("mlp", 4)])
 def test_first_step_bottom_output_bitwise(model, n_classes):
-    """The first step's int8 bottom pass and wire rounding, from the
-    same params on the same schedule rows: bitwise."""
+    """The first step's int8 bottom pass and wire rounding (the port's
+    int8 op, the reference's op then ``fake_quantize``), from the same
+    params on the same schedule rows: bitwise."""
     part = make_cls_partition(n=230, d=11, classes=max(n_classes, 2), seed=1)
     jcfg, _ = _cfgs(model, n_classes)
     fd = [f.shape[1] for f in part.client_features]
@@ -409,9 +414,9 @@ def test_first_step_bottom_output_bitwise(model, n_classes):
         jnp.asarray(slab), jp["bw"], jb, relu, "pallas", 512,
         jnp.asarray(idx[0]), "int8"), "int8")
     ts = torch.from_numpy(slab)
-    got = P.fake_quantize(splitnn_bottom(
-        ts, tp["bw"], tb, relu, "ref", torch.from_numpy(idx[0]), "int8",
-        x_int8=int8_rows(ts)), "int8")
+    got = splitnn_bottom(ts, tp["bw"], tb, relu, "ref",
+                         torch.from_numpy(idx[0]), "int8",
+                         x_int8=int8_rows(ts))
     assert np.array_equal(got.detach().numpy(), np.asarray(want))
 
 
