@@ -1,8 +1,9 @@
-"""The int8 wire's path on the card, for a parent-against-change comparison.
+"""A quantized wire's path on the card, for a parent-against-change
+comparison.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_int8_wire.py [--src DIR] [--tag NAME]
+    python3 chip_int8_wire.py [--src DIR] [--tag NAME] [--quant int8|fp8]
 
 ``--src`` is the ``src`` directory of the tree to measure (default: this
 checkout's).  Another tree, such as a parent commit unpacked with ``git
@@ -10,21 +11,31 @@ archive`` into a git-ignored directory, is measured by this same script,
 and its kernels are built from its own sources into its own
 ``build/``; run the two in turns (parent, change, change, parent) in one
 call.  The script reaches the port only through entry points every
-tree since the int8 slice has:
+tree since the int8 slice has (``--quant``, default int8, picks the
+wire):
 
-- ``train.vfl._bottom_acts`` under ``quant="int8"`` with the kernels, the
+- ``train.vfl._bottom_acts`` under the wire with the kernels, the
   bottom pass plus the wire rounding that evaluation, serving and a
   train step call: the eval block (3, 512, 11) → 8 with ReLU and a
   serving dispatch (3, 64, 11) → 8 under ``no_grad``, and a 700-row
   train step with duplicates out of the HI slab (3, 49,000, 11), its
   forward and the gradient of w and b: event ms a call (median of 50),
   device ms a call and device kernels a call (``torch.profiler``);
-- the HI treecss × mlp × int8 job, ``run_pipeline`` at full size with
-  Table-2's settings (as ``chip_smoke.py``'s quant phase runs it), one
-  untimed run, then 3: ``eval_wall_s`` (the ``pipeline.serve`` span),
-  ``ms_per_step``, the job's wall;
-- ``VFLScoringEngine(slots=64, quant="int8")`` over the 30,000 HI test
-  rows as ``chip_smoke.py``'s seeded requests of 1-256 rows, with the
+- the f32 K1 and K2 wrappers (``splitnn_bottom_cuda`` at the eval block,
+  ``splitnn_bottom_gather_cuda`` at the train step), the same numbers;
+  then their host path in µs a call (mean of 2,000 calls, no
+  synchronize): the whole K1 wrapper and the pieces a wrapper may pay,
+  ``torch.cuda.device`` entered and left, ``current_stream().
+  cuda_stream``, the raw stream handle, ``current_device()``,
+  ``build.require_cuda`` of three tensors, ``torch.empty`` of the
+  output, typing a ctypes function's 11 arguments;
+- the HI treecss × {mlp, lr} jobs under the wire, ``run_pipeline`` at
+  full size with Table-2's settings (as ``chip_smoke.py``'s quant phase
+  runs them), one untimed run each, then 3: ``eval_wall_s`` (the
+  ``pipeline.serve`` span), ``ms_per_step``, the job's wall, accuracy,
+  epochs, ``comm_bytes`` and ``gather_payload_bytes``;
+- ``VFLScoringEngine(slots=64, quant=...)`` over the 30,000 HI test rows
+  as ``chip_smoke.py``'s seeded requests of 1-256 rows, with the mlp
   job's params, kernels and plain versions in turns, 3 runs each; then
   one run of each under ``torch.profiler`` (device ms, busy share, top
   device ops) and ``cProfile`` (the host functions by own time).
@@ -36,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import ctypes
 import json
 import os
 import pstats
@@ -110,8 +122,24 @@ def partitions():
             partition_features(x[order[n_tr:]], y[order[n_tr:]], 3))
 
 
-def call_rows(tag, tr, dev):
+def host_us(fn, reps: int = 2000) -> float:
+    """Mean host µs of ``fn`` over ``reps`` calls after 100 unmeasured,
+    with no synchronize (what the host pays to enqueue)."""
+    for _ in range(100):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def call_rows(tag, tr, dev, quant):
     from repro_torch.core.splitnn import SplitNNConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.splitnn_bottom.kernel import (
+        splitnn_bottom_cuda, splitnn_bottom_gather_cuda)
     from repro_torch.kernels.splitnn_bottom.ops import int8_rows
     from repro_torch.train.vfl import _bottom_acts, pack_slab
 
@@ -125,10 +153,10 @@ def call_rows(tag, tr, dev):
     w, b = g(m, d, 8, scale=d ** -0.5), g(m, 8, scale=0.1)
     idx = torch.from_numpy(rng.integers(0, n, 700).astype(np.int32)).to(dev)
     idx[1::50] = idx[0]
-    x_int8 = int8_rows(slab)
+    x_int8 = int8_rows(slab) if quant == "int8" else None
 
     def acts(x, packed, i=None, rows=None):
-        return _bottom_acts(packed, cfg, m, x, "kernel", i, "int8", rows)
+        return _bottom_acts(packed, cfg, m, x, "kernel", i, quant, rows)
 
     def nograd(x):
         def fn():
@@ -142,50 +170,86 @@ def call_rows(tag, tr, dev):
         out = acts(slab, {"bw": wg, "bb": bg}, idx, x_int8)
         return torch.autograd.grad(out.sum(), [wg, bg])
 
-    for name, fn in (("eval_block", nograd(slab[:, :512].contiguous())),
+    eval_x = slab[:, :512].contiguous()
+    k1 = lambda: splitnn_bottom_cuda(eval_x, w, b, True)
+    k2 = lambda: splitnn_bottom_gather_cuda(idx, slab, w, b, True)
+    for name, fn in (("eval_block", nograd(eval_x)),
                      ("serving_dispatch", nograd(slab[:, :64].contiguous())),
-                     ("train_step_fwd_bwd", step)):
+                     ("train_step_fwd_bwd", step),
+                     ("k1_f32", k1), ("k2_f32", k2)):
         dev_ms, launches, top, _ = device_profile(fn)
-        emit(tag, {"phase": "call", "name": name, "ms": event_ms(fn),
-                   "device_ms": dev_ms, "device_kernels": launches,
-                   "top_device_ops_ms": top})
+        emit(tag, {"phase": "call", "name": name, "quant": quant,
+                   "ms": event_ms(fn), "device_ms": dev_ms,
+                   "device_kernels": launches, "top_device_ops_ms": top})
+
+    def enter_device():
+        with torch.cuda.device(dev):
+            pass
+
+    typed = ctypes.CDLL(None).strlen
+
+    def retype():
+        typed.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [
+            ctypes.c_void_p]
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    index = torch.cuda.current_device()
+    emit(tag, {"phase": "host_path", "us": {
+        "k1_wrapper": host_us(k1), "k2_wrapper": host_us(k2),
+        "torch.cuda.device": host_us(enter_device),
+        "current_stream().cuda_stream": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "raw_stream": None if raw is None else host_us(lambda: raw(index)),
+        "current_device": host_us(torch.cuda.current_device),
+        "require_cuda": host_us(lambda: build.require_cuda(
+            "k1", eval_x, w, b, dtype=torch.float32)),
+        "torch.empty": host_us(lambda: torch.empty(
+            (m, 512, 8), dtype=torch.float32, device=dev)),
+        "ctypes_argtypes": host_us(retype)}})
 
 
-def job_rows(tag, tr, te, dev):
+def job_rows(tag, tr, te, dev, quant):
     from repro_torch.config import AlignOptions, EngineOptions
     from repro_torch.core.splitnn import SplitNNConfig
     from repro_torch.core.treecss import run_pipeline
 
-    cfg = SplitNNConfig(model="mlp", n_classes=2, lr=0.01,
-                        batch_size=max(8, tr.n_samples // 100),
-                        max_epochs=200, seed=SEED)
+    out = {}
+    for model, lr in (("mlp", 0.01), ("lr", 0.05)):
+        cfg = SplitNNConfig(model=model, n_classes=2, lr=lr,
+                            batch_size=max(8, tr.n_samples // 100),
+                            max_epochs=200, seed=SEED)
 
-    def run():
-        return run_pipeline(
-            tr, te, cfg, variant="treecss", clusters_per_client=14,
-            seed=SEED, options=EngineOptions(device=dev, trace=True,
-                                             quant="int8"),
-            align=AlignOptions(protocol="oprf", psi_backend="device"))
+        def run():
+            return run_pipeline(
+                tr, te, cfg, variant="treecss", clusters_per_client=14,
+                seed=SEED, options=EngineOptions(device=dev, trace=True,
+                                                 quant=quant),
+                align=AlignOptions(protocol="oprf", psi_backend="device"))
 
-    run()                                       # untimed: first use
-    rep = None
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rep = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        emit(tag, {"phase": "job", "run": i, "metric": rep.metric,
-                   "epochs": rep.train.epochs, "steps": rep.train.steps,
-                   "eval_wall_s": rep.tracer.total_seconds("pipeline.serve"),
-                   "ms_per_step": rep.train.train_seconds * 1e3
-                   / rep.train.steps,
-                   "train_wall_s": rep.train_wall_seconds,
-                   "total_wall_s": wall})
-    return rep.train.params, cfg
+        run()                                   # untimed: first use
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            emit(tag, {"phase": "job", "model": model, "run": i,
+                       "quant": quant, "metric": rep.metric,
+                       "epochs": rep.train.epochs, "steps": rep.train.steps,
+                       "eval_wall_s": rep.tracer.total_seconds(
+                           "pipeline.serve"),
+                       "ms_per_step": rep.train.train_seconds * 1e3
+                       / rep.train.steps,
+                       "train_wall_s": rep.train_wall_seconds,
+                       "total_wall_s": wall,
+                       "comm_bytes": rep.train.comm_bytes,
+                       "gather_payload_bytes":
+                       rep.train.engine_stats.gather_payload_bytes})
+        out[model] = rep.train.params, cfg
+    return out["mlp"]
 
 
-def serve_rows(tag, te, params, cfg):
+def serve_rows(tag, te, params, cfg, quant):
     from repro_torch.serve.vfl import VFLScoringEngine
 
     feats = te.client_features
@@ -200,7 +264,7 @@ def serve_rows(tag, te, params, cfg):
 
     def serve(impl):
         eng = VFLScoringEngine(params, cfg, slots=64, bottom_impl=impl,
-                               quant="int8")
+                               quant=quant)
         eng.score_requests(requests)
         torch.cuda.synchronize()
         return eng
@@ -212,6 +276,7 @@ def serve_rows(tag, te, params, cfg):
             t0 = time.perf_counter()
             eng = serve(impl)
             emit(tag, {"phase": "serve", "run": i, "impl": impl,
+                       "quant": quant,
                        "wall_s": time.perf_counter() - t0,
                        "dispatches": eng.stats.dispatches,
                        "requests": len(bounds)})
@@ -226,7 +291,7 @@ def serve_rows(tag, te, params, cfg):
                       for (path, line, fn), (_, _, tt, _, _)
                       in pstats.Stats(prof).stats.items()),
                      key=lambda r: -r[1])[:12]
-        emit(tag, {"phase": "serve_profile", "impl": impl,
+        emit(tag, {"phase": "serve_profile", "impl": impl, "quant": quant,
                    "device_ms": dev_ms, "device_kernels": launches,
                    "wall_ms_profiled": wall,
                    "device_busy_share": dev_ms / wall,
@@ -237,6 +302,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="change")
+    ap.add_argument("--quant", default="int8", choices=("int8", "fp8"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_int8_wire: no CUDA device", file=sys.stderr)
@@ -250,9 +316,9 @@ def main() -> int:
         os.path.dirname(os.path.abspath(repro_torch.__file__)), ROOT),
         "build_s": build.build_all(["splitnn_bottom"])})
     tr, te = partitions()
-    call_rows(args.tag, tr, dev)
-    params, cfg = job_rows(args.tag, tr, te, dev)
-    serve_rows(args.tag, te, params, cfg)
+    call_rows(args.tag, tr, dev, args.quant)
+    params, cfg = job_rows(args.tag, tr, te, dev, args.quant)
+    serve_rows(args.tag, te, params, cfg, args.quant)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py                         # every phase (the contract)
     python3 chip_smoke.py --only llm-kernels      # build K11/K12, their rows
     python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
-    python3 chip_smoke.py --only int8-kernels     # build K9/K10, their rows
+    python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
 
 Phases, each printing JSON lines:
 
@@ -68,9 +68,20 @@ Phases, each printing JSON lines:
               ``torch.baddbmm`` on the dequantized operands.  The
               operands form (the first design, ``timed_at``) at the eval
               block, o=1 and the train step: bitwise their plain
-              versions, K10 bitwise K9 on the gathered rows.  The
-              quantizers on the card bitwise the same quantizers on
-              the CPU, int8 and fp8.  K11 (flash attention) at the
+              versions, K10 bitwise K9 on the gathered rows.  K1 and K2
+              in the fp8 wire form the fp8 wire runs (the f32 pass,
+              then the wire rounding in the epilogue, one launch a
+              call), at K9/K10's shapes: the output before the rounding
+              bitwise the f32 form's, the wire value bitwise the eager
+              ``fake_quantize(·, "fp8")`` of it, the pass within K1's
+              tolerance of cuBLAS, one device kernel a call; each timed
+              beside the parent's path (the f32 form, then the eager
+              rounding).  The quantizers on the card bitwise the same
+              quantizers on the CPU, int8 and fp8; the fp8 wire
+              rounding through the wire K1 bitwise the eager one over
+              every finite f32 of magnitude <= 448 and 10^6 seeded
+              values at each exponent (``fp8_encode_sweep``).  K11
+              (flash attention) at the
               tinyllama prefill (B=2, Sq=Sk=2,048, H=32, KV=4, Dh=64,
               causal, bf16) within one bf16 ulp of its plain version (f32
               full attention rounded once), SDPA with ``enable_gqa``
@@ -127,7 +138,8 @@ Phases, each printing JSON lines:
               dispatches.
 7. profile  — spans, device busy share and top device ops of one traced
               full-HI treecss run, k-NN, mlp and mlp under the int8 wire
-              (with a cProfile of the int8 run's host time).
+              (with a cProfile of the int8 run's host time) and the fp8
+              wire.
 8. yp       — Table-2 YP × linreg ``treecss`` at full size (357,000 train /
               153,000 test rows, 3 clients × 30 columns, k=12, batches of
               3,570 rows, the 200-epoch cap or convergence, OPRF on the
@@ -157,13 +169,16 @@ Phases, each printing JSON lines:
               int8 accuracy at most 0.01 below phase 5's f32 run of the
               same job, the gathered payload <= 0.3× f32's; K10 launches
               = train steps and K9 = eval blocks under int8 (the wire
-              form; the operands form never), K2/K1 under fp8.  Then
-              ``VFLScoringEngine(slots=64, quant="int8")``
-              serves the test rows with the int8-trained treecss-mlp
-              params: kernel and plain engines bitwise, ServeStats equal,
-              each within one wire step of ``score_partition(quant=
-              "int8")`` (a wire block groups other rows in the two), K9
-              launches = dispatches.
+              form; the operands form never), K2/K1's fp8 wire form
+              under fp8 (their f32 form never).  Then
+              ``VFLScoringEngine(slots=64, quant=...)`` serves the test
+              rows with the int8- and the fp8-trained treecss-mlp
+              params: ServeStats equal, each engine within one wire step
+              of ``score_partition(quant=...)`` (a wire block groups
+              other rows in the two), the kernel and plain engines
+              bitwise under int8 and within one wire step of each other
+              under fp8 (cuBLAS rounds the f32 pass apart), K9 (the fp8
+              wire K1) launches = dispatches.
 12. llm_dense — LLM serving at full width: tinyllama-1.1b (22 layers,
               d 2,048, GQA 32/4, bf16) with seeded ``torch.Generator``
               params on the card, 2 prompts of 2,048 seeded tokens,
@@ -435,6 +450,15 @@ def same_bits(got, want) -> bool:
         for g, w in zip(got, want))
 
 
+def differ(name, what, got, want) -> None:
+    """Raise unless f32 tensors ``got`` and ``want`` are equal bit for
+    bit, with the count of elements that differ."""
+    if not same_bits([got], [want]):
+        bad = got.view(torch.int32) != want.view(torch.int32)
+        raise AssertionError(f"{name}: {what} differ at {int(bad.sum())} "
+                             f"of {bad.numel()} elements")
+
+
 #: the name K3 and K4 launch under (``csrc/kmeans_update.cu``)
 KMEANS_UPDATE_MARKS = ["kmeans_update_kernel"]
 
@@ -601,6 +625,7 @@ def kernel_phase(dev):
     rows += kmeans_rows
     rows += bottom_kernel_rows(dev, slab, yslab, rng)
     rows += int8_kernel_rows(dev, slab, rng)
+    rows += fp8_wire_rows(dev, slab, np.random.default_rng(SEED + 3))
     quantizer_check(dev, slab, rng)
     rows += llm_kernel_rows(dev, rng)
     for r in rows:
@@ -883,7 +908,7 @@ def bottom_kernel_rows(dev, slab, yslab, rng):
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/splitnn_bottom.cu",
             max_abs_err=err, ms=cuda_ms(call),
-            device_ms=kernel_device_ms(call, ["bottom_kernel"]),
+            device_ms=launch_device_ms(call, ["bottom_kernel"]),
             plain_ms=cuda_ms(lambda: sb_ref.splitnn_bottom(x, w, b, relu,
                                                            idx)),
             bound_ms=b_ms, bound_by=b_by,
@@ -1049,12 +1074,6 @@ def wire_kernel_rows(dev, slab, rng):
     g = lambda *shape, scale=1.0: (torch.from_numpy(rng.normal(
         size=shape).astype(np.float32)) * scale).to(dev)
 
-    def differ(name, what, got, want):
-        if not same_bits([got], [want]):
-            bad = got.view(torch.int32) != want.view(torch.int32)
-            raise AssertionError(f"{name}: {what} differ at {int(bad.sum())}"
-                                 f" of {bad.numel()} elements")
-
     def row(name, x, w, b, relu, idx=None, keep_pre=False, **extra):
         m, _, d = x.shape
         o = w.shape[2]
@@ -1165,6 +1184,224 @@ def wire_kernel_rows(dev, slab, rng):
     ]
 
 
+def fp8_wire_rows(dev, slab, rng):
+    """K1 and K2 in the fp8 wire form, the fp8 wire's one launch a call:
+    K1 at the eval block (3, 512, 11) → 8 with ReLU (the ``kernels``
+    line's ``splitnn_bottom_fp8``), at lr's o = 1 without, at a serving
+    dispatch (3, 64, 11) → 8, at B = 509 and at o = 3; K2 at a 700-row
+    train step with duplicates out of the (3, 49,000, 11) slab, writing
+    ``pre`` as training does (the ``kernels`` line's
+    ``splitnn_bottom_fp8_gather``), and without it.  Each row is checked
+    four ways: ``pre`` bitwise the f32 form's output on the same operands
+    (a second call writes it where the row does not); the wire value
+    bitwise ``quant.fake_quantize(pre, "fp8")``, eager on the card;
+    ``pre`` within K1's tolerance of ``ref.splitnn_bottom`` (cuBLAS), and
+    the wire value within that plus one fp8 step of its block (32·2^e)
+    of the plain composition ``ref.splitnn_bottom_fp8_wire``
+    (``max_abs_err``); one device kernel a call.  Times: events and
+    device, beside the parent's path (the f32 form, then
+    ``fake_quantize`` as eager ops: ``parent_path_*``), the plain
+    composition and ``torch.baddbmm``."""
+    from repro_torch import quant as Q
+    from repro_torch.kernels.splitnn_bottom import ref as sb_ref
+    from repro_torch.kernels.splitnn_bottom.kernel import (
+        splitnn_bottom_cuda, splitnn_bottom_fp8_cuda,
+        splitnn_bottom_fp8_gather_cuda, splitnn_bottom_gather_cuda)
+
+    marks = ["bottom_kernel"]
+    g = lambda *shape, scale=1.0: (torch.from_numpy(rng.normal(
+        size=shape).astype(np.float32)) * scale).to(dev)
+
+    def row(name, x, w, b, relu, idx=None, keep_pre=False, **extra):
+        m, _, d = x.shape
+        o = w.shape[2]
+        if idx is None:
+            call = lambda keep=keep_pre: splitnn_bottom_fp8_cuda(x, w, b,
+                                                                 relu, keep)
+            f32 = lambda: splitnn_bottom_cuda(x, w, b, relu)
+            xg, rows_read, bsz = x, x.shape[1], x.shape[1]
+        else:
+            call = lambda keep=keep_pre: splitnn_bottom_fp8_gather_cuda(
+                idx, x, w, b, relu, keep)
+            f32 = lambda: splitnn_bottom_gather_cuda(idx, x, w, b, relu)
+            xg = x.index_select(1, idx).contiguous()
+            rows_read, bsz = int(torch.unique(idx).numel()), idx.shape[0]
+        parent = lambda: Q.fake_quantize(f32(), "fp8")
+        plain = lambda: sb_ref.splitnn_bottom_fp8_wire(x, w, b, relu, idx)
+        (got, pre), (_, pre_k), k12 = call(), call(True), f32()
+        (want, want_pre) = plain()
+        torch.cuda.synchronize()
+        if keep_pre:
+            differ(name, "the pre-rounding outputs of two calls", pre, pre_k)
+        elif pre is not None:
+            raise AssertionError(f"{name}: wrote pre without keep_pre")
+        differ(name, "pre and the f32 form's output", pre_k, k12)
+        differ(name, "the wire value and fake_quantize(pre) on the card",
+               got, Q.fake_quantize(pre_k, "fp8"))
+        differ(name, "the parent's path and the wire value", parent(), got)
+        scale = torch.bmm(xg.abs(), w.abs()) + b.abs()[:, None, :]
+        pre_err = check_close(f"{name} pre vs cuBLAS", pre_k, want_pre,
+                              scale, rtol=1e-5, atol=1e-6)
+        e = torch.maximum(Q.quantize_row_blocks(pre_k, "fp8")[1],
+                          Q.quantize_row_blocks(want_pre, "fp8")[1])
+        step = (Q.pow2(e).double() * 32.0).repeat_interleave(
+            Q.QUANT_BLOCK_ROWS, 1)[:, :bsz, None]
+        err = check_close(f"{name} wire vs the plain composition", got,
+                          want, scale, rtol=1e-5, atol=1e-6 + step)
+        # the profiler may drop an event of a 2-4 µs kernel, so count over
+        # 20 calls and round
+        launched = device_launches(call, reps=20)
+        if round(sum(launched.values())) != 1 or not all(
+                any(k in n for k in marks) for n in launched):
+            raise AssertionError(f"{name}: a call launched {launched}, not "
+                                 f"one {marks[0]}")
+        parent_launched = device_launches(parent, reps=20)
+        # bytes: x (K2: the rows it gathers and the indices), w and b
+        # read, the wire value (and pre) written; the f32 products and
+        # the epilogue (bias, ReLU; the wire's |max|, encode, decode) at
+        # the f32 peak
+        nbytes = 4 * (m * rows_read * d + (0 if idx is None else bsz)
+                      + m * d * o + m * o
+                      + m * bsz * o * (2 if keep_pre else 1))
+        b_ms, b_by = bound(nbytes, 2 * m * bsz * d * o + 5 * m * bsz * o)
+        bb = b[:, None, :]
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/splitnn_bottom.cu",
+            max_abs_err=err, pre_max_abs_err=pre_err,
+            pre_equals_f32_form_bitwise=True,
+            wire_equals_fake_quantize_bitwise=True,
+            ms=cuda_ms(call), device_ms=launch_device_ms(call, marks),
+            device_launches=launched,
+            parent_path_ms=cuda_ms(parent),
+            parent_path_device_ms=profile_device(parent)[1],
+            parent_path_launches=sum(parent_launched.values()),
+            plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            nbytes=nbytes,
+            **library_times(lambda: torch.baddbmm(bb, xg, w)),
+            library="torch.baddbmm on the same (gathered) operands, "
+                    "without the ReLU and the rounding",
+            shape=[m, bsz, d, o], relu=relu, keep_pre=keep_pre, **extra)
+
+    m, n, d = slab.shape
+    eval_x = slab[:, :512].contiguous()
+    w8, b8 = g(m, d, 8, scale=d ** -0.5), g(m, 8, scale=0.1)
+    w1, b1 = g(m, d, 1, scale=0.1 * d ** -0.5), g(m, 1, scale=0.1)
+    w3, b3 = g(m, d, 3, scale=d ** -0.5), g(m, 3, scale=0.1)
+    idx = torch.from_numpy(rng.integers(0, n, 700).astype(np.int32)).to(dev)
+    idx[1::50] = idx[0]                      # duplicates, as a schedule
+    k1 = "src/repro/kernels/splitnn_bottom/kernel.py:40"
+    k2 = "src/repro/kernels/splitnn_bottom/kernel.py:141"
+    return [
+        row("splitnn_bottom_fp8", eval_x, w8, b8, True, replaces=k1),
+        row("splitnn_bottom_fp8", eval_x, w1, b1, False, replaces=k1,
+            check_only="lr, o=1"),
+        row("splitnn_bottom_fp8", slab[:, :64].contiguous(), w8, b8, True,
+            replaces=k1, check_only="a serving dispatch, B=64"),
+        row("splitnn_bottom_fp8", slab[:, :509].contiguous(), w8, b8, True,
+            replaces=k1, check_only="B=509, a ragged wire block"),
+        row("splitnn_bottom_fp8", eval_x, w3, b3, True, replaces=k1,
+            check_only="o=3, 80 rows a CTA"),
+        row("splitnn_bottom_fp8_gather", slab, w8, b8, True, idx=idx,
+            keep_pre=True, replaces=k2),
+        row("splitnn_bottom_fp8_gather", slab, w8, b8, True, idx=idx,
+            replaces=k2, check_only="no pre-rounding output (no_grad)"),
+    ]
+
+
+#: values a chunk of the fp8 encode sweep
+FP8_SWEEP_CHUNK = 1 << 26
+
+
+def fp8_encode_sweep(dev):
+    """The fp8 wire rounding through the wire K1, bitwise against the
+    eager ``quant.fake_quantize(·, "fp8")`` on the card.  With d = 1,
+    w = 1, b = 0 and no ReLU the pass's output is x itself, -0 aside
+    (``fmaf(-0, 1, 0)`` is +0; checked), so the sweep drives the
+    epilogue's exponent, encode and decode.  First every finite f32 with
+    |x| <= 448 (both signs, -0 aside: the pass never gives it), 7 a wire
+    block behind a first row pinned at 448
+    (exponent 0), in chunks; then 10^6 seeded values at each exponent a
+    finite f32 |max| reaches under fp8 (e in [-126, 120]: 448 · 2^121 is
+    past FLT_MAX), the first row pinned at min(448 · 2^e, FLT_MAX), the
+    others of magnitude 2^u · 2^e with u uniform over [-24, log2 448]
+    (e4m3's normal and subnormal values and those that round to 0), half
+    of them cut to 5 significant bits (e4m3's grid and its halfway
+    points), clamped to the pin.  The first mismatch goes to
+    ``chiprun_out/fp8_sweep_mismatch.json``."""
+    import math
+
+    from repro_torch import quant as Q
+    from repro_torch.kernels.splitnn_bottom.kernel import (
+        splitnn_bottom_fp8_cuda)
+
+    w1 = torch.ones((1, 1, 1), device=dev)
+    b0 = torch.zeros((1, 1), device=dev)
+    f32_max = float(torch.finfo(torch.float32).max)
+
+    def through(vals, pin):
+        """vals (n,) f32, 7 a block behind ``pin`` (nb,): the number of
+        values checked."""
+        nb = -(-vals.numel() // 7)
+        rest = torch.zeros(nb * 7, device=dev)
+        rest[:vals.numel()] = vals
+        x = torch.cat([torch.as_tensor(pin, device=dev).expand(nb)[:, None],
+                       rest.view(nb, 7)], 1).view(1, nb * 8, 1)
+        wire, pre = splitnn_bottom_fp8_cuda(x, w1, b0, False, True)
+        want = Q.fake_quantize(pre, "fp8")
+        x = x + 0.0        # the pass's output: x, but +0 for -0
+        torch.cuda.synchronize()
+        ok = [same_bits([pre], [x]), same_bits([wire], [want])]
+        if not all(ok):
+            bad = ((pre.view(torch.int32) != x.view(torch.int32))
+                   | (wire.view(torch.int32) != want.view(torch.int32)))
+            i = int(bad.view(-1).nonzero()[0])
+            blk = slice(i // 8 * 8, i // 8 * 8 + 8)
+            hexs = lambda t: [f"{v:#010x}" for v in
+                              t.view(-1)[blk].view(torch.int32).tolist()]
+            info = {"block_x": hexs(x), "block_pre": hexs(pre),
+                    "block_wire": hexs(wire), "block_fake_quantize":
+                    hexs(want), "element": i % 8}
+            os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out",
+                                   "fp8_sweep_mismatch.json"), "w") as f:
+                json.dump(info, f, indent=1)
+            raise AssertionError(f"fp8 encode sweep: the wire K1 and "
+                                 f"fake_quantize differ: {info}")
+        return vals.numel()
+
+    t0 = time.perf_counter()
+    top = 0x43E00000                          # the bits of 448.0
+    exhaustive = 0
+    for lo in range(0, top + 1, FP8_SWEEP_CHUNK):
+        vals = torch.arange(lo, min(lo + FP8_SWEEP_CHUNK, top + 1),
+                            dtype=torch.int32, device=dev).view(
+                                torch.float32)
+        exhaustive += through(vals, 448.0)
+        exhaustive += through(-vals[1:] if lo == 0 else -vals, 448.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+    per, seeded = 10 ** 6, 0
+    for e0 in range(-126, 121, 16):
+        es = torch.arange(e0, min(e0 + 16, 121), device=dev,
+                          dtype=torch.float64)[:, None]
+        pin = torch.clamp(448.0 * torch.exp2(es), max=f32_max)
+        u = torch.rand((es.shape[0], per), generator=gen, device=dev,
+                       dtype=torch.float64) * (math.log2(448.0) + 24) - 24
+        mant, ex = torch.frexp(torch.exp2(u))
+        coarse = torch.rand(u.shape, generator=gen, device=dev) < 0.5
+        mant = torch.where(coarse, torch.round(mant * 32) / 32, mant)
+        sign = torch.where(torch.rand(u.shape, generator=gen, device=dev)
+                           < 0.5, -1.0, 1.0).double()
+        v = sign * torch.ldexp(mant, ex) * torch.exp2(es)
+        v = torch.minimum(torch.maximum(v, -pin), pin).float()
+        for j in range(es.shape[0]):
+            seeded += through(v[j], pin[j].float())
+    return {"fp8_sweep_exhaustive": exhaustive, "fp8_sweep_seeded": seeded,
+            "fp8_sweep_exponents": [-126, 120],
+            "fp8_sweep_s": time.perf_counter() - t0}
+
+
 def quantizer_check(dev, slab, rng):
     """The quantizers on the card against the same quantizers on the
     CPU, bitwise, for int8 and fp8: rows and columns, row blocks and
@@ -1172,7 +1409,8 @@ def quantizer_check(dev, slab, rng):
     the HI rows, on weights, and on seeded magnitudes over 2^-120 ...
     2^100 (scales are built from exponent bits, not ``exp2``).  A
     mismatch raises with the first differing elements, and the input
-    that showed it goes to ``chiprun_out/quantizer_mismatch.pt``."""
+    that showed it goes to ``chiprun_out/quantizer_mismatch.pt``.  Then
+    the fp8 wire rounding through the wire K1 (``fp8_encode_sweep``)."""
     from repro_torch import quant as Q
     from repro_torch.kernels.splitnn_bottom.ops import int8_rows
 
@@ -1222,7 +1460,8 @@ def quantizer_check(dev, slab, rng):
         check(f"int8_rows({name})", x, int8_rows(x.to(dev)), int8_rows(x))
         checked += 2
     out = {"phase": "quantizer_check", "tensors_bitwise": checked,
-           "cases": {k: list(v.shape) for k, v in cases.items()}}
+           "cases": {k: list(v.shape) for k, v in cases.items()},
+           **fp8_encode_sweep(dev)}
     emit(out)
     return out
 
@@ -1825,9 +2064,12 @@ def wire_step(params, te, quant, dev):
 def serve_phase(dev, params, cfg, quant=None):
     """The test set as seeded requests through ``VFLScoringEngine``,
     kernel and plain engines, against ``score_partition``: within the K1
-    tolerance in f32; under a quant the two engines bitwise and each
-    within one wire step of ``score_partition`` (R3: the engine's slots
-    and score_partition's blocks put other rows in a wire block)."""
+    tolerance in f32; under a quant each within one wire step of
+    ``score_partition`` (R3: the engine's slots and score_partition's
+    blocks put other rows in a wire block), and the two engines bitwise
+    under int8 (an exact pass), within one wire step of each other under
+    fp8 (cuBLAS and the kernel's FMA chain round the f32 pass apart, and
+    a wire rounding may go the other way)."""
     from repro_torch.kernels.build import LAUNCHES, reset_launches
     from repro_torch.serve.vfl import VFLScoringEngine, score_partition
 
@@ -1873,10 +2115,16 @@ def serve_phase(dev, params, cfg, quant=None):
     fields = sk.CONTRACT_FIELDS + ("quant",)
     if [getattr(sk, f) for f in fields] != [getattr(sr, f) for f in fields]:
         raise AssertionError("serve: ServeStats differ between engines")
-    if quant is not None and not torch.equal(gk, gr):
+    if quant == "int8" and not torch.equal(gk, gr):
         raise AssertionError(f"serve[{quant}]: the kernel and plain engines "
                              "differ")
-    k1 = "splitnn_bottom_int8" if quant == "int8" else "splitnn_bottom"
+    if quant == "fp8":
+        emit({"phase": "serve_engines", "quant": quant,
+              "max_abs_err_kernel_vs_plain": check_close(
+                  "serve[fp8]: kernel vs plain engine", gk, gr, scale,
+                  rtol=1e-5, atol=1e-6 + step)})
+    k1 = {None: "splitnn_bottom", "int8": "splitnn_bottom_int8",
+          "fp8": "splitnn_bottom_fp8"}[quant]
     if lk[k1] != sk.dispatches:
         raise AssertionError(f"serve: {k1} launched {lk[k1]} times in "
                              f"{sk.dispatches} dispatches")
@@ -1901,7 +2149,8 @@ def quant_phase(dev, f32_runs):
     against plain versions, each held against the f32 run of the same
     job (``f32_runs``, the train phase's): accuracy drop, payload ratio,
     and the launches of the path (int8: K10 every step, K9 every eval
-    block; fp8: K2 and K1 carry the f32 GEMM)."""
+    block, their wire form; fp8: K2 and K1 in their fp8 wire form, the
+    f32 form never)."""
     tr, te = partitions()
     n_eval_batches = -(-te.n_samples // 512)
     for model in ("mlp", "lr"):              # untimed: first use of each
@@ -1951,10 +2200,11 @@ def quant_phase(dev, f32_runs):
             check_launches(tag, row_k["launches"], {
                 "splitnn_bottom_int8_gather": rk.train.steps if int8 else 0,
                 "splitnn_bottom_int8": n_eval_batches if int8 else 0,
+                "splitnn_bottom_fp8_gather": 0 if int8 else rk.train.steps,
+                "splitnn_bottom_fp8": 0 if int8 else n_eval_batches,
                 "splitnn_bottom_int8_operands": 0,
                 "splitnn_bottom_int8_gather_operands": 0,
-                "splitnn_bottom_gather": 0 if int8 else rk.train.steps,
-                "splitnn_bottom": 0 if int8 else n_eval_batches})
+                "splitnn_bottom_gather": 0, "splitnn_bottom": 0})
     return runs, rows
 
 
@@ -1962,7 +2212,7 @@ def profile_phase(dev):
     """Where the time of one full-HI treecss run goes: the obs spans of a
     traced run (host wall per stage), then, under torch.profiler, the
     device time and the top device ops; k-NN, mlp, and mlp under the
-    int8 wire (with a cProfile of its host time)."""
+    int8 wire (with a cProfile of its host time) and the fp8 wire."""
     from repro_torch.config import AlignOptions, EngineOptions
     from repro_torch.core.splitnn import SplitNNConfig
     from repro_torch.core.treecss import run_pipeline
@@ -1978,8 +2228,11 @@ def profile_phase(dev):
                                          trace)
     mlp_int8 = lambda trace=None: drive_split(tr, te, dev, "treecss", cfg,
                                               None, trace, quant="int8")
+    mlp_fp8 = lambda trace=None: drive_split(tr, te, dev, "treecss", cfg,
+                                             None, trace, quant="fp8")
     rows = []
-    for model, fn in (("knn", run), ("mlp", mlp), ("mlp/int8", mlp_int8)):
+    for model, fn in (("knn", run), ("mlp", mlp), ("mlp/int8", mlp_int8),
+                      ("mlp/fp8", mlp_fp8)):
         tracer = fn(trace=True).tracer
         spans = {}
         for sp in tracer.finished():
@@ -2081,11 +2334,14 @@ def yp_phase(dev):
     if {k: launched[k] for k in merges} != merges:
         raise AssertionError(f"yp: merge launches {launched}, expected "
                              f"{merges} in {rk.mpsi.rounds} rounds")
-    # every kernel of the f32 path runs; K4 (minibatch coresets), the
-    # int8 twins K9/K10 (the quantized wire; their operands form, on no
-    # path) and K11/K12 (LLM serving) have paths of their own
+    # every kernel of the f32 path runs; K4 (minibatch coresets), K1/K2's
+    # fp8 wire form and the int8 twins K9/K10 (the quantized wires; their
+    # operands form, on no path) and K11/K12 (LLM serving) have paths of
+    # their own
     missing = [k for k, v in launched.items() if not v
                and k not in (*merges, "kmeans_update_gather",
+                             "splitnn_bottom_fp8",
+                             "splitnn_bottom_fp8_gather",
                              "splitnn_bottom_int8",
                              "splitnn_bottom_int8_gather",
                              "splitnn_bottom_int8_operands",
@@ -2609,14 +2865,14 @@ def kmeans_update_ptxas(report: str):
 
 ONLY = {"llm-kernels": ["flash_attention", "ssd_scan"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
-        "int8-kernels": ["splitnn_bottom"]}
+        "bottom-kernels": ["splitnn_bottom"]}
 
 
 def main(argv) -> int:
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ONLY:
         print("usage: chip_smoke.py [--only "
-              "llm-kernels|kmeans-kernels|int8-kernels]", file=sys.stderr)
+              "llm-kernels|kmeans-kernels|bottom-kernels]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2649,12 +2905,17 @@ def main(argv) -> int:
           "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
     if spills:
         raise AssertionError(f"kmeans_update: ptxas spills in {spills}")
-    if only == "int8-kernels":
-        # K9/K10 in both forms and the quantizers on the card: the quick
-        # check of an edit to splitnn_bottom.cu (not the contract run)
+    if only == "bottom-kernels":
+        # K1/K2 in both forms, K9/K10 in both forms, the quantizers on the
+        # card and the fp8 encode sweep: the quick check of an edit to
+        # splitnn_bottom.cu (not the contract run)
         rng = np.random.default_rng(SEED)
         slab = client_slab(partitions()[0], 49_000, dev)
-        for r in int8_kernel_rows(dev, slab, rng):
+        yslab = client_slab(partitions("YP")[0], YP_ALIGNED, dev)
+        rows = bottom_kernel_rows(dev, slab, yslab, rng)
+        rows += int8_kernel_rows(dev, slab, rng)
+        rows += fp8_wire_rows(dev, slab, np.random.default_rng(SEED + 3))
+        for r in rows:
             emit({"phase": "kernel", **r})
         quantizer_check(dev, slab, rng)
         print(smi, flush=True)
@@ -2700,15 +2961,18 @@ def main(argv) -> int:
         "sorted_intersect_tiled": yp_launches["sorted_intersect_tiled"],
         "kmeans_update_gather": mb_launches["kmeans_update_gather"]}
     pipe_rows += yp_rows + mb_rows + delta_phase(dev)
-    # K9 and K10 count on their own main path, treecss × mlp under int8
+    # K9 and K10 count on their own main path, treecss × mlp under int8,
+    # K1 and K2's fp8 wire form on treecss × mlp under fp8
     quant_runs, quant_rows = quant_phase(dev, train_runs)
-    qrep, qrow = quant_runs["treecss", "mlp", "int8", "kernel"]
-    launches = launches | {k: qrow["launches"][k] for k in
-                           ("splitnn_bottom_int8",
-                            "splitnn_bottom_int8_gather")}
     pipe_rows += quant_rows
-    pipe_rows += serve_phase(dev, qrep.train.params, train_cfg(
-        "mlp", 0.01, 70_000, 200), quant="int8")
+    for quant, names in (("int8", ("splitnn_bottom_int8",
+                                   "splitnn_bottom_int8_gather")),
+                         ("fp8", ("splitnn_bottom_fp8",
+                                  "splitnn_bottom_fp8_gather"))):
+        qrep, qrow = quant_runs["treecss", "mlp", quant, "kernel"]
+        launches = launches | {k: qrow["launches"][k] for k in names}
+        pipe_rows += serve_phase(dev, qrep.train.params, train_cfg(
+            "mlp", 0.01, 70_000, 200), quant=quant)
     # K11 and K12 count on their own main paths, one prefill each
     dense = llm_phase(dev, "tinyllama-1.1b", "flash_attention")
     ssm = llm_phase(dev, "mamba2-1.3b", "ssd_scan")

@@ -15,12 +15,18 @@ first use costs one compile's wall time, not one per source.  A failed
 build raises with the compiler's output: nothing falls back to the
 plain versions.
 
+``function`` types a launcher once and caches it per (library,
+symbol); ``launch`` calls it on the tensors' device with that device's
+current stream.
+
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a
 wrapper adds one right where its kernel launched and nowhere else.  A
 source may hold more than one kernel, counted apart: ``splitnn_bottom.cu``
-holds K1 (``splitnn_bottom``), K2 (``splitnn_bottom_gather``) and their
-int8 twins K9 (``splitnn_bottom_int8``) and K10
-(``splitnn_bottom_int8_gather``), which count the wire form the quantized
+holds K1 (``splitnn_bottom``) and K2 (``splitnn_bottom_gather``), which
+count their f32 form, with their fp8 wire form, which the fp8 wire runs,
+counted apart (``splitnn_bottom_fp8``, ``splitnn_bottom_fp8_gather``),
+and their int8 twins K9 (``splitnn_bottom_int8``) and K10
+(``splitnn_bottom_int8_gather``), which count the wire form the int8
 wire runs; their operands form, on operands quantized outside, counts
 apart (``splitnn_bottom_int8_operands``,
 ``splitnn_bottom_int8_gather_operands``);
@@ -42,12 +48,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build_all", "library",
-           "function", "check", "refuse_grad", "require_cuda"]
+           "function", "launch", "check", "refuse_grad", "require_cuda"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -62,11 +68,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
-    *SOURCES, "splitnn_bottom_gather", "splitnn_bottom_int8",
+    *SOURCES, "splitnn_bottom_gather", "splitnn_bottom_fp8",
+    "splitnn_bottom_fp8_gather", "splitnn_bottom_int8",
     "splitnn_bottom_int8_gather", "splitnn_bottom_int8_operands",
     "splitnn_bottom_int8_gather_operands", "kmeans_update_gather",
     "sorted_intersect_tiled")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], Any] = {}
 #: per kernel, the ``-Xptxas -v`` report of its last build (registers,
 #: shared memory, spills) — printed by chip_smoke.py
 PTXAS_REPORT: Dict[str, str] = {}
@@ -140,13 +148,29 @@ def function(name: str, symbol: str, n_pointers: int, n_ints: int,
              n_floats: int = 0):
     """The C launcher ``symbol`` of kernel ``name``, typed as
     ``(n_pointers × void*, n_ints × long long, n_floats × double, void*
-    stream) -> int`` (every launcher in csrc/ has that shape)."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                   + [ctypes.c_longlong] * n_ints
-                   + [ctypes.c_double] * n_floats + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    stream) -> int`` (every launcher in csrc/ has that shape) the first
+    time it is asked for, then taken from the cache."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers
+                       + [ctypes.c_longlong] * n_ints
+                       + [ctypes.c_double] * n_floats + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FUNCS[name, symbol] = fn
     return fn
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with ``device``'s current stream, made the
+    current device for the call where it is not: the launcher's error
+    code.  The raw stream handle costs no ``torch.cuda.Stream`` object,
+    and the device switch is paid only where it is needed."""
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(err: int, name: str) -> None:

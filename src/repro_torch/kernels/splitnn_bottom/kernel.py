@@ -3,17 +3,28 @@ K1 ``splitnn_bottom_cuda``, the port of ``repro/kernels/splitnn_bottom/
 kernel.py::splitnn_bottom_pallas``, K2 ``splitnn_bottom_gather_cuda``,
 the port of ``::splitnn_bottom_gather_pallas``, and their int8 twins K9
 (``::splitnn_bottom_int8_pallas``) and K10
-(``::splitnn_bottom_int8_gather_pallas``) in two forms, instances of one
-template: the wire form, ``splitnn_bottom_int8_wire_cuda`` and
-``splitnn_bottom_int8_wire_gather_cuda``, which the quantized wire runs
-(quantizers in the operand loads, the wire rounding in the epilogue, one
-launch a call; counted as ``splitnn_bottom_int8`` and
-``splitnn_bottom_int8_gather``), and the operands form,
-``splitnn_bottom_int8_cuda`` and ``splitnn_bottom_int8_gather_cuda``, the
-TPU kernels' function on operands quantized outside (counted as
-``splitnn_bottom_int8_operands`` and
-``splitnn_bottom_int8_gather_operands``).  The tensors come in unpadded;
-the kernels mask their own edges."""
+(``::splitnn_bottom_int8_gather_pallas``).  Each pair comes in two forms,
+instances of one template:
+
+- K1/K2's f32 form (the TPU kernels' function, the f32 wire's pass) and
+  their fp8 wire form, ``splitnn_bottom_fp8_cuda`` and
+  ``splitnn_bottom_fp8_gather_cuda``, which the fp8 wire runs: the same
+  f32 pass, then the wire rounding of ``quant.fake_quantize(·, "fp8")``
+  in the epilogue, one launch a call (counted as ``splitnn_bottom_fp8``
+  and ``splitnn_bottom_fp8_gather``);
+- K9/K10's wire form, ``splitnn_bottom_int8_wire_cuda`` and
+  ``splitnn_bottom_int8_wire_gather_cuda``, which the int8 wire runs
+  (quantizers in the operand loads, the wire rounding in the epilogue,
+  one launch a call; counted as ``splitnn_bottom_int8`` and
+  ``splitnn_bottom_int8_gather``), and their operands form,
+  ``splitnn_bottom_int8_cuda`` and ``splitnn_bottom_int8_gather_cuda``,
+  the TPU kernels' function on operands quantized outside (counted as
+  ``splitnn_bottom_int8_operands`` and
+  ``splitnn_bottom_int8_gather_operands``).
+
+The tensors come in unpadded; the kernels mask their own edges.  The
+wrappers check what guards a pointer (CUDA, one device, contiguity,
+dtype, shapes, shared memory) and launch through ``build.launch``."""
 from __future__ import annotations
 
 import torch
@@ -21,26 +32,40 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.quant import QUANT_BLOCK_ROWS
 
-#: bytes of shared memory a block may stage (K1/K2: w[m], b[m] and a
-#: tile of up to 256 indices; K9/K10: ``int8_smem_bytes``); wider layers
-#: raise instead of falling back
+#: bytes of shared memory a block may stage (``f32_smem_bytes``,
+#: ``int8_smem_bytes``); wider layers raise instead of falling back
 SMEM_CAP = 48 * 1024
-_ROWS_PER_BLOCK_MAX = 256
 #: threads a CTA (``THREADS`` in the source)
 THREADS = 256
+#: whether K1/K2 stage their tile's rows in shared memory
+#: (``SPLITNN_F32_STAGE`` in the source: off, slower on the card at every
+#: shape ``chip_bottom_f32.py`` times)
+F32_STAGE = False
 
 
 def rows_per_cta(o: int) -> int:
-    """Rows a CTA of the int8 kernels takes at output width ``o``: one
-    thread an output, ``THREADS // o`` rows but at most ``THREADS // 2``
-    (so that the wire form's quantizers, a thread a row and a thread a
+    """Rows a CTA of every form takes at output width ``o``: one thread
+    an output, ``THREADS // o`` rows but at most ``THREADS // 2`` (so that
+    the int8 wire form's quantizers, a thread a row and a thread a
     column, take one trip at o <= 2, and lr's eval block spreads over
-    more CTAs), rounded down to a multiple of the wire block's
-    ``QUANT_BLOCK_ROWS``, and at least one block, so no wire block
-    straddles two CTAs."""
+    more CTAs: K1 at o = 1 is faster so, ``chip_bottom_f32.py``), rounded
+    down to a multiple of the wire block's ``QUANT_BLOCK_ROWS``, and at
+    least one block, so no wire block straddles two CTAs."""
     rows = min(THREADS // o, THREADS // 2)
     return max(QUANT_BLOCK_ROWS,
                rows // QUANT_BLOCK_ROWS * QUANT_BLOCK_ROWS)
+
+
+def f32_smem_bytes(d: int, o: int, rows: int, gather: bool,
+                   wire: bool) -> int:
+    """Shared memory of a K1/K2 CTA of ``rows`` rows, as the source's
+    ``carve`` lays it out: the bias, the indices (gather), the wire
+    blocks' maxima and the outputs before the rounding (wire), w[m], and
+    the tile's rows where they are staged (``F32_STAGE``)."""
+    words = o + (rows if gather else 0) + d * o
+    if wire:
+        words += rows // QUANT_BLOCK_ROWS + rows * o
+    return 4 * (words + (rows * d if F32_STAGE else 0))
 
 
 def int8_smem_bytes(d: int, o: int, rows: int, gather: bool,
@@ -78,14 +103,15 @@ def _smem_check(name: str, d: int, o: int, smem: int) -> None:
                          f"of shared memory, over the {SMEM_CAP} B cap")
 
 
-def _check(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-           ) -> tuple:
-    """K1/K2's operands; the block stages w[m], b[m] and a tile of up to
-    ``_ROWS_PER_BLOCK_MAX`` indices."""
+def _check(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           gather: bool, wire: bool) -> tuple:
+    """K1/K2's operands, f32 on one CUDA device, and the rows a CTA of
+    the form takes: (M, N, d, o, rows)."""
     build.require_cuda(name, x, w, b, dtype=torch.float32)
     m, n, d, o = _shapes(name, x, w, b)
-    _smem_check(name, d, o, 4 * (d * o + o + _ROWS_PER_BLOCK_MAX))
-    return m, n, d, o
+    rows = rows_per_cta(o)
+    _smem_check(name, d, o, f32_smem_bytes(d, o, rows, gather, wire))
+    return m, n, d, o, rows
 
 
 def _int8_rows(name: str, d: int, o: int, gather: bool, wire: bool) -> int:
@@ -122,22 +148,25 @@ def _check_idx(name: str, idx: torch.Tensor, x: torch.Tensor) -> int:
     return idx.shape[0]
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _wire_outputs(m: int, bsz: int, o: int, device, keep_pre: bool):
+    out = torch.empty((m, bsz, o), dtype=torch.float32, device=device)
+    pre = torch.empty_like(out) if keep_pre else None
+    return out, pre, 0 if pre is None else pre.data_ptr()
 
 
 def splitnn_bottom_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         relu: bool) -> torch.Tensor:
     """K1: x (M, B, d), w (M, d, o), b (M, o) f32 on one CUDA device ->
     (M, B, o) f32, ``relu?(x[m] @ w[m] + b[m])``."""
-    m, n, d, o = _check("splitnn_bottom", x, w, b)
+    name = "splitnn_bottom"
+    m, n, d, o, rows = _check(name, x, w, b, False, False)
     out = torch.empty((m, n, o), dtype=torch.float32, device=x.device)
-    fn = build.function("splitnn_bottom", "splitnn_bottom_launch", 4, 5)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 m, n, d, o, int(relu), _stream())
-    build.check(err, "splitnn_bottom")
-    build.LAUNCHES["splitnn_bottom"] += 1
+    build.check(build.launch(
+        build.function("splitnn_bottom", "splitnn_bottom_launch", 4, 6),
+        x.device,
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d,
+        o, int(relu), rows), name)
+    build.LAUNCHES[name] += 1
     return out
 
 
@@ -148,17 +177,56 @@ def splitnn_bottom_gather_cuda(idx: torch.Tensor, x: torch.Tensor,
     (M, o) f32 on one CUDA device -> (M, B, o) f32 over the rows
     ``x[:, idx]``, bitwise K1 on those rows.  Every idx value must lie in
     [0, N); the kernel writes NaN for one that does not."""
-    m, n, d, o = _check("splitnn_bottom_gather", x, w, b)
-    bsz = _check_idx("splitnn_bottom_gather", idx, x)
+    name = "splitnn_bottom_gather"
+    m, n, d, o, rows = _check(name, x, w, b, True, False)
+    bsz = _check_idx(name, idx, x)
     out = torch.empty((m, bsz, o), dtype=torch.float32, device=x.device)
-    fn = build.function("splitnn_bottom", "splitnn_bottom_gather_launch",
-                        5, 6)
-    with torch.cuda.device(x.device):
-        err = fn(idx.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), m, n, bsz, d, o, int(relu), _stream())
-    build.check(err, "splitnn_bottom_gather")
-    build.LAUNCHES["splitnn_bottom_gather"] += 1
+    build.check(build.launch(
+        build.function("splitnn_bottom", "splitnn_bottom_gather_launch", 5,
+                       7), x.device,
+        idx.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), m, n, bsz, d, o, int(relu), rows), name)
+    build.LAUNCHES[name] += 1
     return out
+
+
+def splitnn_bottom_fp8_cuda(x: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor, relu: bool,
+                            keep_pre: bool = False):
+    """K1, the fp8 wire form: x (M, B, d), w (M, d, o), b (M, o) f32 on
+    one CUDA device -> (wire, pre): K1's f32 pass, then the wire rounding
+    of ``quant.fake_quantize(·, "fp8")``, in one launch.  ``pre`` (M, B,
+    o) f32, bitwise K1's output, is written only with ``keep_pre`` (else
+    None); ``wire`` is bitwise ``quant.fake_quantize(pre, "fp8")``."""
+    name = "splitnn_bottom_fp8"
+    m, n, d, o, rows = _check(name, x, w, b, False, True)
+    out, pre, pre_ptr = _wire_outputs(m, n, o, x.device, keep_pre)
+    build.check(build.launch(
+        build.function("splitnn_bottom", "splitnn_bottom_fp8_launch", 5, 6),
+        x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        pre_ptr, m, n, d, o, int(relu), rows), name)
+    build.LAUNCHES[name] += 1
+    return out, pre
+
+
+def splitnn_bottom_fp8_gather_cuda(idx: torch.Tensor, x: torch.Tensor,
+                                   w: torch.Tensor, b: torch.Tensor,
+                                   relu: bool, keep_pre: bool = False):
+    """K2, the fp8 wire form: the fp8 wire K1 over the rows ``x[:, idx]``
+    of the full (M, N, d) slab, gathered in the kernel -> (wire, pre),
+    ``pre`` bitwise K2's output.  An idx value outside [0, N) writes NaN
+    to both and stays out of its wire block's maximum."""
+    name = "splitnn_bottom_fp8_gather"
+    m, n, d, o, rows = _check(name, x, w, b, True, True)
+    bsz = _check_idx(name, idx, x)
+    out, pre, pre_ptr = _wire_outputs(m, bsz, o, x.device, keep_pre)
+    build.check(build.launch(
+        build.function("splitnn_bottom", "splitnn_bottom_fp8_gather_launch",
+                       6, 7), x.device,
+        idx.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), pre_ptr, m, n, bsz, d, o, int(relu), rows), name)
+    build.LAUNCHES[name] += 1
+    return out, pre
 
 
 def splitnn_bottom_int8_cuda(xq: torch.Tensor, sx: torch.Tensor,
@@ -169,14 +237,14 @@ def splitnn_bottom_int8_cuda(xq: torch.Tensor, sx: torch.Tensor,
     b (M, o) f32 on one CUDA device -> (M, B, o) f32,
     ``relu?(i32(xq[m] @ wq[m]) * (sx·sw) + b)``, bitwise the plain
     version ``ref.splitnn_bottom_int8``."""
-    m, n, d, o, rows = _check_int8("splitnn_bottom_int8", xq, sx, wq, sw, b)
+    name = "splitnn_bottom_int8"
+    m, n, d, o, rows = _check_int8(name, xq, sx, wq, sw, b)
     out = torch.empty((m, n, o), dtype=torch.float32, device=xq.device)
-    fn = build.function("splitnn_bottom", "splitnn_bottom_int8_launch", 6, 6)
-    with torch.cuda.device(xq.device):
-        err = fn(xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-                 b.data_ptr(), out.data_ptr(), m, n, d, o, int(relu), rows,
-                 _stream())
-    build.check(err, "splitnn_bottom_int8")
+    build.check(build.launch(
+        build.function("splitnn_bottom", "splitnn_bottom_int8_launch", 6, 6),
+        xq.device, xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
+        sw.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d, o, int(relu),
+        rows), name)
     build.LAUNCHES["splitnn_bottom_int8_operands"] += 1
     return out
 
@@ -190,25 +258,18 @@ def splitnn_bottom_int8_gather_cuda(idx: torch.Tensor, xq: torch.Tensor,
     the scales of the gathered rows (``sx_full[:, idx]``, gathered by the
     caller).  Bitwise K9 on the gathered rows; an idx value outside
     [0, N) writes NaN."""
-    bsz = _check_idx("splitnn_bottom_int8_gather", idx, xq)
-    m, n, d, o, rows = _check_int8("splitnn_bottom_int8_gather", xq, sx, wq,
-                                   sw, b, bsz)
+    name = "splitnn_bottom_int8_gather"
+    bsz = _check_idx(name, idx, xq)
+    m, n, d, o, rows = _check_int8(name, xq, sx, wq, sw, b, bsz)
     out = torch.empty((m, bsz, o), dtype=torch.float32, device=xq.device)
-    fn = build.function("splitnn_bottom",
-                        "splitnn_bottom_int8_gather_launch", 7, 7)
-    with torch.cuda.device(xq.device):
-        err = fn(idx.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-                 wq.data_ptr(), sw.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 m, n, bsz, d, o, int(relu), rows, _stream())
-    build.check(err, "splitnn_bottom_int8_gather")
+    build.check(build.launch(
+        build.function("splitnn_bottom",
+                       "splitnn_bottom_int8_gather_launch", 7, 7),
+        xq.device, idx.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        wq.data_ptr(), sw.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+        bsz, d, o, int(relu), rows), name)
     build.LAUNCHES["splitnn_bottom_int8_gather_operands"] += 1
     return out
-
-
-def _wire_outputs(m: int, bsz: int, o: int, device, keep_pre: bool):
-    out = torch.empty((m, bsz, o), dtype=torch.float32, device=device)
-    pre = torch.empty_like(out) if keep_pre else None
-    return out, pre, 0 if pre is None else pre.data_ptr()
 
 
 def splitnn_bottom_int8_wire_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -226,12 +287,11 @@ def splitnn_bottom_int8_wire_cuda(x: torch.Tensor, w: torch.Tensor,
     m, n, d, o = _shapes(name, x, w, b)
     rows = _int8_rows(name, d, o, False, True)
     out, pre, pre_ptr = _wire_outputs(m, n, o, x.device, keep_pre)
-    fn = build.function("splitnn_bottom", "splitnn_bottom_int8_wire_launch",
-                        5, 6)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 pre_ptr, m, n, d, o, int(relu), rows, _stream())
-    build.check(err, name)
+    build.check(build.launch(
+        build.function("splitnn_bottom", "splitnn_bottom_int8_wire_launch",
+                       5, 6), x.device,
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), pre_ptr,
+        m, n, d, o, int(relu), rows), name)
     build.LAUNCHES["splitnn_bottom_int8"] += 1
     return out, pre
 
@@ -258,12 +318,11 @@ def splitnn_bottom_int8_wire_gather_cuda(idx: torch.Tensor,
                          f"= {(m, n)}, got {tuple(sx.shape)}")
     rows = _int8_rows(name, d, o, True, True)
     out, pre, pre_ptr = _wire_outputs(m, bsz, o, xq.device, keep_pre)
-    fn = build.function("splitnn_bottom",
-                        "splitnn_bottom_int8_wire_gather_launch", 7, 7)
-    with torch.cuda.device(xq.device):
-        err = fn(idx.data_ptr(), xq.data_ptr(), sx.data_ptr(), w.data_ptr(),
-                 b.data_ptr(), out.data_ptr(), pre_ptr, m, n, bsz, d, o,
-                 int(relu), rows, _stream())
-    build.check(err, name)
+    build.check(build.launch(
+        build.function("splitnn_bottom",
+                       "splitnn_bottom_int8_wire_gather_launch", 7, 7),
+        xq.device, idx.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), pre_ptr, m, n, bsz, d,
+        o, int(relu), rows), name)
     build.LAUNCHES["splitnn_bottom_int8_gather"] += 1
     return out, pre

@@ -3,10 +3,10 @@
 
 ``splitnn_bottom(x, w, b, relu, impl, idx=None, quant=None, x_int8=None)``
 runs the CUDA kernel (``impl="kernel"``: K1, or K2 with ``idx``; under
-``quant="int8"`` their int8 twins K9 and K10) or the plain PyTorch
-version (``impl="ref"``); ``None`` picks the kernel for CUDA tensors and
-the plain version for CPU tensors.  There is no fallback: the kernel on
-a CPU tensor raises.
+``quant="fp8"`` their fp8 wire form, under ``quant="int8"`` their int8
+twins K9 and K10) or the plain PyTorch version (``impl="ref"``);
+``None`` picks the kernel for CUDA tensors and the plain version for CPU
+tensors.  There is no fallback: the kernel on a CPU tensor raises.
 
 ``quant="int8"`` is the int8 activation wire: x quantized by rows and w
 by columns (pow2 scales, ``repro_torch.quant``), the i8×i8→i32 GEMM with
@@ -19,11 +19,15 @@ wire form, which quantizes w, and K9's rows, in its operand loads and
 rounds in its epilogue; with ``idx`` it takes the slab's int8 rows and
 row scales (``x_int8``, else ``int8_rows(x)``) and gathers both.  On the
 CPU it is the plain composition ``ref.splitnn_bottom_int8_wire``.
-``quant="fp8"`` is comm-only: the GEMM stays f32 (K1/K2), bitwise the
-f32 output, and the caller applies its wire rounding.  The reference
-pads before it quantizes; the port works on unpadded operands, which
-quantize each real element identically (zero padding never changes a
-row or column amax).
+``quant="fp8"`` is comm-only: the GEMM stays f32 (as the reference's,
+``repro/kernels/splitnn_bottom/ops.py:93-96``), then the wire rounding
+of the activation send, ``quant.fake_quantize(·, "fp8")``; the op
+returns the wire value.  On CUDA that is ONE launch of K1/K2's fp8 wire
+form, whose pass is bitwise the f32 form's and whose epilogue rounds; on
+the CPU the plain composition ``ref.splitnn_bottom_fp8_wire``.  The
+reference pads before it quantizes; the port works on unpadded operands,
+which quantize each real element identically (zero padding never
+changes a row or column amax).
 
 A ``torch.autograd.Function`` routes every impl and quant through ONE
 backward, the reference's f32 straight-through pass (``ops.py:155-179``),
@@ -40,7 +44,7 @@ so their gradients cannot diverge:
 as batched ``torch.bmm``s on the f32 ``x`` and ``w``: the reference
 computes them outside any Pallas kernel, so the backward adds no kernel.
 The wire rounding's own backward is the identity (the STE), so an
-activation the wire rounds to 0 keeps its gradient.  The int8 kernels
+activation the wire rounds to 0 keeps its gradient.  The wire kernels
 write ``pre`` only where that mask is needed (ReLU, and an operand that
 requires grad under grad mode).
 """
@@ -53,7 +57,8 @@ import torch
 from repro_torch.config import resolve_impl
 from repro_torch.kernels.splitnn_bottom import ref
 from repro_torch.kernels.splitnn_bottom.kernel import (
-    splitnn_bottom_cuda, splitnn_bottom_gather_cuda,
+    splitnn_bottom_cuda, splitnn_bottom_fp8_cuda,
+    splitnn_bottom_fp8_gather_cuda, splitnn_bottom_gather_cuda,
     splitnn_bottom_int8_wire_cuda, splitnn_bottom_int8_wire_gather_cuda)
 from repro_torch.quant import pow2, quantize_rows
 
@@ -69,11 +74,11 @@ def int8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, pow2(ex)
 
 
-def _forward(x, w, b, relu: bool, impl: str, idx, int8: bool, x_int8,
+def _forward(x, w, b, relu: bool, impl: str, idx, quant, x_int8,
              keep_pre: bool):
     """(out, pre): ``pre`` is the output before the wire rounding (``out``
     itself without one; None where the kernel was told to skip it)."""
-    if not int8:
+    if quant is None:
         if impl == "ref":
             out = ref.splitnn_bottom(x, w, b, relu, idx)
         elif idx is None:
@@ -81,6 +86,12 @@ def _forward(x, w, b, relu: bool, impl: str, idx, int8: bool, x_int8,
         else:
             out = splitnn_bottom_gather_cuda(idx, x, w, b, relu)
         return out, out
+    if quant == "fp8":
+        if impl == "ref":
+            return ref.splitnn_bottom_fp8_wire(x, w, b, relu, idx)
+        if idx is None:
+            return splitnn_bottom_fp8_cuda(x, w, b, relu, keep_pre)
+        return splitnn_bottom_fp8_gather_cuda(idx, x, w, b, relu, keep_pre)
     if impl == "kernel" and idx is None:     # K9 quantizes the rows itself
         return splitnn_bottom_int8_wire_cuda(x, w, b, relu, keep_pre)
     xq, sx = int8_rows(x) if x_int8 is None else x_int8
@@ -92,8 +103,8 @@ def _forward(x, w, b, relu: bool, impl: str, idx, int8: bool, x_int8,
 
 class _SplitNNBottom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, relu, impl, idx, int8, x_int8, keep_pre):
-        out, pre = _forward(x, w, b, relu, impl, idx, int8, x_int8,
+    def forward(ctx, x, w, b, relu, impl, idx, quant, x_int8, keep_pre):
+        out, pre = _forward(x, w, b, relu, impl, idx, quant, x_int8,
                             keep_pre)
         ctx.save_for_backward(x, w, pre, idx)
         ctx.relu = relu
@@ -127,17 +138,17 @@ def splitnn_bottom(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (B,) int32, ``x`` is the full (M, N, d) slab and the minibatch
     gather ``x[:, idx]`` fuses into the pass (K2, or K10), bitwise-equal
     to gathering first.  ``quant`` is None, ``"int8"`` (the int8 GEMM and
-    the wire rounding, K9/K10) or ``"fp8"`` (comm-only: the f32 GEMM);
-    under int8, ``x_int8`` may hold ``int8_rows(x)`` precomputed."""
+    the wire rounding, K9/K10) or ``"fp8"`` (comm-only: the f32 GEMM and
+    the wire rounding, K1/K2's fp8 wire form); under int8, ``x_int8`` may
+    hold ``int8_rows(x)`` precomputed."""
     if quant not in (None, "int8", "fp8"):
         raise ValueError(f"splitnn_bottom: unknown quant={quant!r}")
-    int8 = quant == "int8"
-    if int8 and x_int8 is not None and x_int8[0].shape != x.shape:
+    if quant == "int8" and x_int8 is not None and x_int8[0].shape != x.shape:
         raise ValueError(f"splitnn_bottom: x_int8 rows "
                          f"{tuple(x_int8[0].shape)} are not x's "
                          f"{tuple(x.shape)}")
     impl = resolve_impl(impl, x.device)
     keep_pre = bool(relu) and torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w, b))
-    return _SplitNNBottom.apply(x, w, b, bool(relu), impl, idx, int8, x_int8,
-                                keep_pre)
+    return _SplitNNBottom.apply(x, w, b, bool(relu), impl, idx, quant,
+                                x_int8, keep_pre)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the block-diagonal SplitNN bottom layer
 (``repro.kernels.splitnn_bottom.ref``), unpadded: one batched GEMM, then
-the bias, then the ReLU, in the reference's order; the int8 twin, an
-exact integer accumulator under the reference's f32 epilogue; and the
-int8 twin's wire form, the plain composition the quantized wire runs
-(the weights' column quantizer, the int8 pass, the wire rounding)."""
+the bias, then the ReLU, in the reference's order, and its fp8 wire
+form, that pass followed by the wire rounding; the int8 twin, an exact
+integer accumulator under the reference's f32 epilogue; and the int8
+twin's wire form, the plain composition the int8 wire runs (the
+weights' column quantizer, the int8 pass, the wire rounding)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -23,6 +24,19 @@ def splitnn_bottom(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         x = x.index_select(1, idx)
     out = torch.bmm(x, w) + b[:, None, :]
     return torch.relu(out) if relu else out
+
+
+def splitnn_bottom_fp8_wire(x: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor, relu: bool,
+                            idx: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 bottom pass as the fp8 wire runs it: ``pre =
+    splitnn_bottom(x, w, b, relu, idx)`` and its wire rounding, ``quant.
+    fake_quantize(pre, "fp8")``'s forward (pow2 exponents a block of
+    ``QUANT_BLOCK_ROWS`` rows a client, e4m3 values) -> (wire, pre), each
+    (M, B, o) f32.  fp8 is comm-only: the product stays f32."""
+    pre = splitnn_bottom(x, w, b, relu, idx)
+    return dequantize_row_blocks(*quantize_row_blocks(pre, "fp8")), pre
 
 
 def splitnn_bottom_int8(xq: torch.Tensor, sx: torch.Tensor,

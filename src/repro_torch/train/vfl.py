@@ -22,13 +22,15 @@ as the parity oracle, as in the reference.
 ``EngineOptions.quant`` ("int8"|"fp8", DESIGN.md §12) narrows the
 activation send to a 1-byte wire dtype: on one device the bottom
 activations take the wire rounding of ``quant.fake_quantize`` (an
-identity backward).  Under int8 the bottom GEMM itself runs on the int8
-kernels (K10 in training, K9 in evaluation and serving), in their wire
-form: the weights' column quantizer (every step), K9's row quantizer and
-the wire rounding run inside the one launch.  The slab's int8 rows are
-loop-invariant, so ``train_scan`` quantizes them once per run, as the
-reference's hoisted per-step quantization does, and K10 gathers them
-and their scales.  fp8 runs the f32 kernels, then ``fake_quantize``.
+identity backward), inside the bottom pass's one launch.  Under int8 the
+bottom GEMM itself runs on the int8 kernels (K10 in training, K9 in
+evaluation and serving), in their wire form: the weights' column
+quantizer (every step), K9's row quantizer and the wire rounding run
+inside the launch.  The slab's int8 rows are loop-invariant, so
+``train_scan`` quantizes them once per run, as the reference's hoisted
+per-step quantization does, and K10 gathers them and their scales.  fp8
+is comm-only: the GEMM stays f32, on K1/K2's fp8 wire form (K2 in
+training, K1 in evaluation and serving), whose epilogue rounds.
 
 Left out, being TPU-only: the slab's 128-lane pre-padding (``d_eff``:
 the CUDA kernels take unpadded widths) and the warm-up compile epoch
@@ -51,7 +53,7 @@ from repro_torch.config import (EngineOptions, resolve_bottom_impl,
 from repro_torch.kernels.splitnn_bottom.ops import int8_rows, splitnn_bottom
 from repro_torch.obs.metrics import StatsMixin
 from repro_torch.obs.trace import span
-from repro_torch.quant import (fake_quantize, payload_bytes, resolve_quant,
+from repro_torch.quant import (payload_bytes, resolve_quant,
                                scale_bytes_per_step)
 from repro_torch.train.optimizer import (adam_init, adam_update, tree_leaves,
                                          tree_map)
@@ -167,9 +169,7 @@ def _bottom_acts(packed, cfg, m: int, x_slab, bottom_impl, idx, quant,
         b = torch.zeros((w.shape[0], w.shape[2]), dtype=torch.float32,
                         device=w.device)
     acts = splitnn_bottom(x_slab, w, b, cfg.model == "mlp", bottom_impl, idx,
-                          quant, x_int8)
-    if quant == "fp8":    # the wire rounding; int8's runs in the bottom pass
-        acts = fake_quantize(acts, quant)
+                          quant, x_int8)        # the wire rounding included
     return acts[:m]                              # drop dummy-client padding
 
 
@@ -191,8 +191,8 @@ def forward_slab_packed(packed, cfg, m: int, x_slab: torch.Tensor, *,
     (M, N, d_max) slab whose minibatch gather fuses into the bottom pass
     (K2; K10 under int8).  Matches ``splitnn_forward`` on the per-client
     slices up to GEMM summation order.  ``quant`` applies the wire
-    rounding to the bottom pass's output (int8: inside the pass);
-    ``x_int8`` is ``int8_rows(x_slab)`` where the caller has it."""
+    rounding to the bottom pass's output, inside the pass; ``x_int8`` is
+    ``int8_rows(x_slab)`` where the caller has it."""
     acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, idx, quant,
                         x_int8)
     if cfg.model in ("lr", "linreg"):

@@ -308,10 +308,15 @@ def test_int8_bottom_grads_match_reference(relu, idx_mode):
 
 @pytest.mark.parametrize("idx_mode", IDX_MODES)
 def test_fp8_bottom_is_the_f32_pass_and_bad_quant_raises(idx_mode):
+    """fp8 is comm-only: the op's output is the f32 pass with the wire
+    rounding applied (``fake_quantize``, now inside the op), and its
+    gradients are the f32 pass's (the mask reads the output before the
+    rounding, whose own backward is the identity)."""
     x, w, b, idx, gct = _bottom_inputs(SHAPES[1], idx_mode, seed=3)
     wf, bf, f32 = _port_bottom(x, w, b, idx, True, None, grad=True)
     w8, b8, fp8 = _port_bottom(x, w, b, idx, True, "fp8", grad=True)
-    assert torch.equal(fp8, f32)
+    assert torch.equal(fp8, P.fake_quantize(f32, "fp8"))
+    assert not torch.equal(fp8, f32)
     f32.backward(torch.from_numpy(gct))
     fp8.backward(torch.from_numpy(gct))
     assert torch.equal(w8.grad, wf.grad) and torch.equal(b8.grad, bf.grad)
