@@ -1,30 +1,26 @@
-"""K1/K2's f32 body on the card in its variants: the design choices of
-``csrc/splitnn_bottom.cu`` measured side by side.
+"""K1/K2's tile geometry on the card: the rows a CTA of
+``csrc/splitnn_bottom.cu`` takes, measured side by side.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_bottom_f32.py
 
-It builds ``splitnn_bottom.cu`` twice into ``build/bottom_f32_variants/``,
-with ``SPLITNN_F32_STAGE=0`` (a thread reads its row from device memory
-where its outputs need it) and ``=1`` (the tile's rows staged in shared
-memory with coalesced loads first), and launches each at two tile
-geometries, ``kernel.rows_per_cta(o)`` (what the wrappers take) and the
-first design's ``THREADS // o`` rows a CTA (where they differ, o <= 2):
-the f32 K1/K2 at the main paths' shapes (the HI eval block (3, 512, 11)
+It launches the kernels' C launchers at two tile geometries,
+``kernel.rows_per_cta(o)`` (what the wrappers take) and the first
+design's ``THREADS // o`` rows a CTA (where they differ, o <= 2): the
+f32 K1/K2 at the main paths' shapes (the HI eval block (3, 512, 11)
 → 8 with ReLU and lr's o = 1 without, a 700-row train step with
 duplicates out of (3, 49,000, 11); YP's eval block (3, 512, 30) → 1 and
 a 3,570-row step out of (3, 249,900, 30)), and the fp8 wire K1/K2 at
-the HI eval block, lr's o = 1 and the train step (writing ``pre``).  Every variant's outputs must equal the
-shipped wrappers' bit for bit.  Device µs a launch (``torch.profiler``,
-the mean over 50 launches) is taken twice a variant, in turns (the
-variants in order, then in reverse).  One JSON line a shape; the last
-line is nvidia-smi's name and power limit.  Exits non-zero without a
-card.
+the HI eval block, lr's o = 1 and the train step (writing ``pre``).
+Every variant's outputs must equal the shipped wrappers' bit for bit.
+Device µs a launch (``torch.profiler``, the mean over 50 launches) is
+taken twice a variant, in turns (the variants in order, then in
+reverse).  One JSON line a shape; the last line is nvidia-smi's name
+and power limit.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
@@ -34,39 +30,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-OUT = os.path.join(ROOT, "build", "bottom_f32_variants")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def build_variants():
-    """{stage: ctypes library} for SPLITNN_F32_STAGE 0 and 1, built at
-    once."""
-    from repro_torch.kernels import build
-    os.makedirs(OUT, exist_ok=True)
-    src = str(build.CSRC / "splitnn_bottom.cu")
-    procs = {stage: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, f"-DSPLITNN_F32_STAGE={stage}",
-         "-o", os.path.join(OUT, f"stage{stage}.so"), src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for stage in (0, 1)}
-    libs = {}
-    for stage, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc SPLITNN_F32_STAGE={stage}:\n{out}")
-        libs[stage] = ctypes.CDLL(os.path.join(OUT, f"stage{stage}.so"))
-    return libs
-
-
-def typed(lib, symbol, n_pointers, n_ints):
-    fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                   + [ctypes.c_longlong] * n_ints + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def launch_us(fn, reps: int = 50) -> float:
@@ -94,12 +61,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_bottom_f32: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.kernels import build
     from repro_torch.kernels.splitnn_bottom.kernel import (
         THREADS, rows_per_cta, splitnn_bottom_cuda, splitnn_bottom_fp8_cuda,
         splitnn_bottom_fp8_gather_cuda, splitnn_bottom_gather_cuda)
 
-    dev = torch.device("cuda")
-    libs = build_variants()
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rnd = lambda *shape, scale=1.0: torch.randn(
@@ -143,37 +110,35 @@ def main() -> int:
         outs = [torch.empty_like(t) for t in shipped]
         ptrs = [t.data_ptr() for t in outs]
         variants = {}
-        for stage, lib in libs.items():
-            for rows in sorted({max(1, THREADS // o), rows_per_cta(o)}):
-                if fp8 and rows % 8:
-                    continue
-                if idx is None:
-                    fn = typed(lib, "splitnn_bottom_fp8_launch" if fp8
-                               else "splitnn_bottom_launch",
-                               3 + len(outs), 6)
-                    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), *ptrs,
-                            m, n, d, o, int(relu), rows)
-                else:
-                    fn = typed(lib, "splitnn_bottom_fp8_gather_launch" if fp8
-                               else "splitnn_bottom_gather_launch",
-                               4 + len(outs), 7)
-                    args = (idx.data_ptr(), x.data_ptr(), w.data_ptr(),
-                            b.data_ptr(), *ptrs, m, n, bsz, d, o, int(relu),
-                            rows)
+        for rows in sorted({max(1, THREADS // o), rows_per_cta(o)}):
+            if fp8 and rows % 8:
+                continue
+            if idx is None:
+                fn = build.function("splitnn_bottom",
+                                    "splitnn_bottom_fp8_launch" if fp8
+                                    else "splitnn_bottom_launch",
+                                    3 + len(outs), 6)
+                args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), *ptrs,
+                        m, n, d, o, int(relu), rows)
+            else:
+                fn = build.function("splitnn_bottom",
+                                    "splitnn_bottom_fp8_gather_launch" if fp8
+                                    else "splitnn_bottom_gather_launch",
+                                    4 + len(outs), 7)
+                args = (idx.data_ptr(), x.data_ptr(), w.data_ptr(),
+                        b.data_ptr(), *ptrs, m, n, bsz, d, o, int(relu),
+                        rows)
 
-                def call(fn=fn, args=args):
-                    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError(f"{name}: cudaError {err}")
-                call()
-                torch.cuda.synchronize()
-                for got, want in zip(outs, shipped):
-                    if not torch.equal(got.view(torch.int32),
-                                       want.view(torch.int32)):
-                        raise AssertionError(
-                            f"{name}: stage={stage} rows={rows} differs "
-                            "from the shipped kernel")
-                variants[f"stage={stage} rows={rows}"] = call
+            def call(fn=fn, args=args):
+                build.check(build.launch(fn, dev, *args), name)
+            call()
+            torch.cuda.synchronize()
+            for got, want in zip(outs, shipped):
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"{name}: rows={rows} differs from "
+                                         "the shipped kernel")
+            variants[f"rows={rows}"] = call
         order = list(variants) + list(variants)[::-1]
         times = {k: [] for k in variants}
         for k in order:

@@ -22,13 +22,14 @@ wire):
   forward and the gradient of w and b: event ms a call (median of 50),
   device ms a call and device kernels a call (``torch.profiler``);
 - the f32 K1 and K2 wrappers (``splitnn_bottom_cuda`` at the eval block,
-  ``splitnn_bottom_gather_cuda`` at the train step), the same numbers;
-  then their host path in µs a call (mean of 2,000 calls, no
-  synchronize): the whole K1 wrapper and the pieces a wrapper may pay,
-  ``torch.cuda.device`` entered and left, ``current_stream().
-  cuda_stream``, the raw stream handle, ``current_device()``,
-  ``build.require_cuda`` of three tensors, ``torch.empty`` of the
-  output, typing a ctypes function's 11 arguments;
+  ``splitnn_bottom_gather_cuda`` at the train step), the same numbers,
+  then the host time a wrapper call takes to enqueue (µs, mean of 2,000
+  calls, no synchronize);
+- the bits of the f32 K1 and K2: the SHA-256 of their outputs on the
+  seeded operands above (K1 at the eval block with ReLU and at lr's
+  o = 1 without, K2 at the train step at both widths), and of those
+  operands, so that two trees' lines compare bit for bit; K2 must equal
+  K1 on the gathered rows;
 - the HI treecss × {mlp, lr} jobs under the wire, ``run_pipeline`` at
   full size with Table-2's settings (as ``chip_smoke.py``'s quant phase
   runs them), one untimed run each, then 3: ``eval_wall_s`` (the
@@ -47,7 +48,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
-import ctypes
+import hashlib
 import json
 import os
 import pstats
@@ -137,7 +138,6 @@ def host_us(fn, reps: int = 2000) -> float:
 
 def call_rows(tag, tr, dev, quant):
     from repro_torch.core.splitnn import SplitNNConfig
-    from repro_torch.kernels import build
     from repro_torch.kernels.splitnn_bottom.kernel import (
         splitnn_bottom_cuda, splitnn_bottom_gather_cuda)
     from repro_torch.kernels.splitnn_bottom.ops import int8_rows
@@ -182,30 +182,22 @@ def call_rows(tag, tr, dev, quant):
                    "ms": event_ms(fn), "device_ms": dev_ms,
                    "device_kernels": launches, "top_device_ops_ms": top})
 
-    def enter_device():
-        with torch.cuda.device(dev):
-            pass
-
-    typed = ctypes.CDLL(None).strlen
-
-    def retype():
-        typed.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [
-            ctypes.c_void_p]
-
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    index = torch.cuda.current_device()
     emit(tag, {"phase": "host_path", "us": {
-        "k1_wrapper": host_us(k1), "k2_wrapper": host_us(k2),
-        "torch.cuda.device": host_us(enter_device),
-        "current_stream().cuda_stream": host_us(
-            lambda: torch.cuda.current_stream().cuda_stream),
-        "raw_stream": None if raw is None else host_us(lambda: raw(index)),
-        "current_device": host_us(torch.cuda.current_device),
-        "require_cuda": host_us(lambda: build.require_cuda(
-            "k1", eval_x, w, b, dtype=torch.float32)),
-        "torch.empty": host_us(lambda: torch.empty(
-            (m, 512, 8), dtype=torch.float32, device=dev)),
-        "ctypes_argtypes": host_us(retype)}})
+        "k1_wrapper": host_us(k1), "k2_wrapper": host_us(k2)}})
+
+    sha = lambda *ts: hashlib.sha256(b"".join(
+        t.contiguous().cpu().numpy().tobytes() for t in ts)).hexdigest()
+    w1, b1 = g(m, d, 1, scale=d ** -0.5), g(m, 1, scale=0.1)
+    bits = {"operands": sha(slab, idx, w, b, w1, b1)}
+    for o, (wo, bo, relu) in ((8, (w, b, True)), (1, (w1, b1, False))):
+        out1 = splitnn_bottom_cuda(eval_x, wo, bo, relu)
+        out2 = splitnn_bottom_gather_cuda(idx, slab, wo, bo, relu)
+        again = splitnn_bottom_cuda(slab[:, idx.long()].contiguous(), wo, bo,
+                                    relu)
+        if not torch.equal(out2.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"K2 differs from K1 on its rows (o = {o})")
+        bits[f"k1_o{o}"], bits[f"k2_o{o}"] = sha(out1), sha(out2)
+    emit(tag, {"phase": "f32_bits", "sha256": bits})
 
 
 def job_rows(tag, tr, te, dev, quant):

@@ -294,25 +294,40 @@ def kernel_device_ms(fn, marks):
     return sum(hits) if hits else None
 
 
+def device_events(fn, reps: int, tries: int = 3) -> list:
+    """The profiler's device events (``key_averages``) over ``reps``
+    calls of ``fn``, after one unprofiled call.  The profiler now and
+    then records no device event in a whole session, so a session that
+    holds none is run again, up to ``tries`` sessions; [] if every one
+    was empty."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return []
+
+
 def launch_device_ms(fn, marks, reps: int = 20) -> float:
     """Mean device time of one launch whose name contains one of
     ``marks``, over the launches the profiler recorded in ``reps`` calls
     (unlike ``kernel_device_ms``, a dropped event does not lower it)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and any(m in ev.key for m in marks)):
+    for ev in device_events(fn, reps):
+        if any(m in ev.key for m in marks):
             t = getattr(ev, "device_time_total", None)
             total += getattr(ev, "cuda_time_total", 0) if t is None else t
             count += ev.count
+    if count == 0:
+        raise RuntimeError(f"the profiler recorded no launch of {marks}")
     return total / 1e3 / count
 
 
@@ -320,16 +335,7 @@ def device_launches(fn, reps: int = 5):
     """The device kernels one call of ``fn`` launches: {name: launches
     a call}, from the profiler's event counts over ``reps`` calls (after
     one unprofiled call)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key: ev.count / reps for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA}
+    return {ev.key: ev.count / reps for ev in device_events(fn, reps)}
 
 
 def host_profile(fn, top: int = 12):

@@ -53,7 +53,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build_all", "library",
-           "function", "launch", "check", "refuse_grad", "require_cuda"]
+           "function", "stream", "launch", "check", "refuse_grad",
+           "require_cuda"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_ext"
@@ -161,16 +162,21 @@ def function(name: str, symbol: str, n_pointers: int, n_ints: int,
     return fn
 
 
+def stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream (no
+    ``torch.cuda.Stream`` object is made)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def launch(fn, device: torch.device, *args) -> int:
     """``fn(*args, stream)`` with ``device``'s current stream, made the
     current device for the call where it is not: the launcher's error
-    code.  The raw stream handle costs no ``torch.cuda.Stream`` object,
-    and the device switch is paid only where it is needed."""
-    index = device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    code.  Every kernel wrapper launches through it, so the device switch
+    is paid only where it is needed."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device.index):
+            return fn(*args, stream(device))
+    return fn(*args, stream(device))
 
 
 def check(err: int, name: str) -> None:

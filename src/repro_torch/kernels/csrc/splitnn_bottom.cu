@@ -45,7 +45,9 @@
 // gathers, its tile's indices, in place of the TPU's scalar prefetch.
 // Thread t of a tile computes output (row, col) = (t / o, t % o), so the
 // stores are coalesced.  K1/K2: an FMA chain over k in ascending order,
-// then + b, then the ReLU, in the reference's order.  No tensor cores: at
+// then + b, then the ReLU, in the reference's order, each row read from
+// device memory where its outputs need it (staging the tile's rows in
+// shared memory first was slower on the card, PERF.md).  No tensor cores: at
 // depth 11, TF32 would only lose digits, and f32 means f32 here.  K9/K10:
 // an exact int32 sum over k (any order; d = 11 is no multiple of 4, so no
 // __dp4a), then the reference's f32 epilogue, one rounding per operation.
@@ -74,20 +76,11 @@
 
 #include <type_traits>
 
-// Stage K1/K2's tile rows in shared memory with coalesced loads (1) or
-// read each row from device memory where its outputs need it (0); both
-// give the same bits.  chip_bottom_f32.py builds and times both: staging
-// was slower at every shape it times (PERF.md), so it is off.
-#ifndef SPLITNN_F32_STAGE
-#define SPLITNN_F32_STAGE 0
-#endif
-
 namespace {
 
 constexpr int THREADS = 256;
 constexpr size_t SMEM_CAP = 48 * 1024;   // no opt-in needed below 48 KB
 constexpr int WIRE_ROWS = 8;             // repro_torch.quant.QUANT_BLOCK_ROWS
-constexpr bool F32_STAGE = SPLITNN_F32_STAGE != 0;
 
 // quant.pow2: 2^e from the exponent bits, exact for e in [-126, 127]
 __device__ __forceinline__ float pow2f(int e) {
@@ -255,8 +248,7 @@ struct Smem {
   unsigned* amax;  // rows / WIRE_ROWS: the wire blocks' |max| bits (WIRE)
   float* pres;     // rows * o: the outputs before the rounding (WIRE)
   float* wfs;      // d * o: w[m] in f32 (f32; INT8 WIRE)
-  float* xfs;      // rows * d: the tile's f32 rows (f32 F32_STAGE; INT8
-                   // WIRE, K9)
+  float* xfs;      // rows * d: the tile's f32 rows (INT8 WIRE, K9)
   int8_t* ws;      // d * o: wq[m] (INT8)
   int8_t* xs;      // rows * d: the tile's int8 rows (INT8 WIRE)
 };
@@ -284,8 +276,8 @@ __host__ __device__ size_t carve(unsigned char* base, int d, int o,
                  : nullptr;
   s->pres = WIRE ? (float*)take(base, &off, f4 * rows * o) : nullptr;
   s->wfs = !INT8 || WIRE ? (float*)take(base, &off, f4 * d * o) : nullptr;
-  s->xfs = (INT8 ? WIRE && !GATHER : F32_STAGE)
-               ? (float*)take(base, &off, f4 * rows * d) : nullptr;
+  s->xfs = INT8 && WIRE && !GATHER ? (float*)take(base, &off, f4 * rows * d)
+                                    : nullptr;
   s->ws = INT8 ? (int8_t*)take(base, &off, (size_t)d * o) : nullptr;
   s->xs = INT8 && WIRE ? (int8_t*)take(base, &off, (size_t)rows * d)
                        : nullptr;
@@ -315,14 +307,6 @@ __global__ void __launch_bounds__(THREADS) bottom_kernel(
   for (int t = tid; t < o; t += blockDim.x) s.bs[t] = b[(int64_t)m * o + t];
   if (GATHER)
     for (int t = tid; t < rows; t += blockDim.x) s.is[t] = idx[r0 + t];
-  if (F32_STAGE) {   // the tile's rows, coalesced (K2: rows idx[r0 + r])
-    for (int t = tid; t < rows * d; t += blockDim.x) {
-      const int r = t / d;
-      const int64_t src = GATHER ? (int64_t)idx[r0 + r] : r0 + r;
-      s.xfs[t] = (src >= 0 && src < n_rows) ? xm[src * d + (t - r * d)]
-                                            : 0.f;
-    }
-  }
   if (W::ON)
     for (int t = tid; t < rows_per_block / WIRE_ROWS; t += blockDim.x)
       s.amax[t] = 0u;
@@ -330,9 +314,8 @@ __global__ void __launch_bounds__(THREADS) bottom_kernel(
 
   const int64_t obase = ((int64_t)m * bsz + r0) * o;
   pass_and_round<W, GATHER>(
-      [&](int64_t row, int r, int col) {
-        const float* xrow = F32_STAGE ? s.xfs + r * d : xm + row * d;
-        return bottom_out(xrow, s.wfs, s.bs, d, o, col, relu);
+      [&](int64_t row, int, int col) {
+        return bottom_out(xm + row * d, s.wfs, s.bs, d, o, col, relu);
       },
       s.is, r0, n_rows, rows, o, out + obase, pre ? pre + obase : nullptr,
       s.pres, s.amax);

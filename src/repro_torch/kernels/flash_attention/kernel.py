@@ -47,12 +47,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     fn = build.function("flash_attention", "flash_attention_launch", 4, 10,
                         2)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, kvh, dh, int(causal), int(window),
-                 int(prefix), int(q.dtype == torch.bfloat16),
-                 1.0 / math.sqrt(dh), float(logit_cap),
-                 torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, q.device,
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, sq, sk, h, kvh, dh, int(causal),
+                       int(window), int(prefix),
+                       int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
+                       float(logit_cap))
     build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
     return out

@@ -24,10 +24,9 @@ def kmeans_assign_cuda(points: torch.Tensor, centroids: torch.Tensor
     assign = torch.empty((m, n), dtype=torch.int32, device=points.device)
     sq_dist = torch.empty((m, n), dtype=torch.float32, device=points.device)
     fn = build.function("kmeans_assign", "kmeans_assign_launch", 4, 5)
-    with torch.cuda.device(points.device):
-        err = fn(points.data_ptr(), centroids.data_ptr(), assign.data_ptr(),
-                 sq_dist.data_ptr(), m, n, k, k,
-                 d, torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, points.device,
+                       points.data_ptr(), centroids.data_ptr(),
+                       assign.data_ptr(), sq_dist.data_ptr(), m, n, k, k, d)
     build.check(err, "kmeans_assign")
     build.LAUNCHES["kmeans_assign"] += 1
     return assign, sq_dist

@@ -105,7 +105,7 @@ _TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _tickets(dev: torch.device, size: int) -> torch.Tensor:
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    key = (dev.index, build.stream(dev))
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < size:
         buf = _TICKETS[key] = torch.zeros(size, dtype=torch.int32,
@@ -145,12 +145,12 @@ def kmeans_update_cuda(points: torch.Tensor, centroids: torch.Tensor
     (m, n, d, k, geo, assign, sq_dist, partials, tickets, sums,
      counts) = _outputs("kmeans_update", points, centroids, points.shape[1])
     fn = build.function("kmeans_update", "kmeans_update_launch", 8, 8)
-    with torch.cuda.device(points.device):
-        err = fn(points.data_ptr(), centroids.data_ptr(), assign.data_ptr(),
-                 sq_dist.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
-                 sums.data_ptr(), counts.data_ptr(), m, n, k, k, d, geo.tile,
-                 geo.tiles_per_cta, geo.ctas,
-                 torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, points.device,
+                       points.data_ptr(), centroids.data_ptr(),
+                       assign.data_ptr(), sq_dist.data_ptr(),
+                       partials.data_ptr(), tickets.data_ptr(),
+                       sums.data_ptr(), counts.data_ptr(), m, n, k, k, d,
+                       geo.tile, geo.tiles_per_cta, geo.ctas)
     build.check(err, "kmeans_update")
     build.LAUNCHES["kmeans_update"] += 1
     return assign, sq_dist, sums, counts
@@ -177,12 +177,13 @@ def kmeans_update_gather_cuda(points: torch.Tensor, centroids: torch.Tensor,
      counts) = _outputs("kmeans_update_gather", points, centroids,
                         idx.shape[1])
     fn = build.function("kmeans_update", "kmeans_update_gather_launch", 9, 9)
-    with torch.cuda.device(points.device):
-        err = fn(idx.data_ptr(), points.data_ptr(), centroids.data_ptr(),
-                 assign.data_ptr(), sq_dist.data_ptr(), partials.data_ptr(),
-                 tickets.data_ptr(), sums.data_ptr(), counts.data_ptr(), m, n,
-                 idx.shape[1], k, k, d, geo.tile, geo.tiles_per_cta,
-                 geo.ctas, torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, points.device,
+                       idx.data_ptr(), points.data_ptr(),
+                       centroids.data_ptr(), assign.data_ptr(),
+                       sq_dist.data_ptr(), partials.data_ptr(),
+                       tickets.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+                       m, n, idx.shape[1], k, k, d, geo.tile,
+                       geo.tiles_per_cta, geo.ctas)
     build.check(err, "kmeans_update_gather")
     build.LAUNCHES["kmeans_update_gather"] += 1
     return assign, sq_dist, sums, counts

@@ -19,10 +19,9 @@ def prf_tags_cuda(ids: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     words = words.to(torch.int32).contiguous()     # the u32 bit patterns
     tags = torch.empty_like(ids)
     fn = build.function("psi_prf", "psi_prf_launch", 3, 2)
-    with torch.cuda.device(ids.device):
-        err = fn(ids.data_ptr(), words.data_ptr(), tags.data_ptr(),
-                 ids.shape[0], ids.shape[1],
-                 torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, ids.device,
+                       ids.data_ptr(), words.data_ptr(), tags.data_ptr(),
+                       ids.shape[0], ids.shape[1])
     build.check(err, "psi_prf")
     build.LAUNCHES["psi_prf"] += 1
     return tags

@@ -39,10 +39,9 @@ def sorted_intersect_cuda(a: torch.Tensor, b: torch.Tensor
     rank = torch.empty_like(sel)
     merged = torch.empty((pairs, 2 * p), dtype=torch.int64, device=a.device)
     fn = build.function("sorted_intersect", "sorted_intersect_launch", 5, 2)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), sel.data_ptr(), rank.data_ptr(),
-                 merged.data_ptr(), pairs, p,
-                 torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, a.device,
+                       a.data_ptr(), b.data_ptr(), sel.data_ptr(),
+                       rank.data_ptr(), merged.data_ptr(), pairs, p)
     build.check(err, "sorted_intersect")
     build.LAUNCHES["sorted_intersect_tiled" if p > SINGLE_PASS_MAX_P
                    else "sorted_intersect"] += 1

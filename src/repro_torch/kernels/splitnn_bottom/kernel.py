@@ -37,10 +37,6 @@ from repro_torch.quant import QUANT_BLOCK_ROWS
 SMEM_CAP = 48 * 1024
 #: threads a CTA (``THREADS`` in the source)
 THREADS = 256
-#: whether K1/K2 stage their tile's rows in shared memory
-#: (``SPLITNN_F32_STAGE`` in the source: off, slower on the card at every
-#: shape ``chip_bottom_f32.py`` times)
-F32_STAGE = False
 
 
 def rows_per_cta(o: int) -> int:
@@ -60,12 +56,12 @@ def f32_smem_bytes(d: int, o: int, rows: int, gather: bool,
                    wire: bool) -> int:
     """Shared memory of a K1/K2 CTA of ``rows`` rows, as the source's
     ``carve`` lays it out: the bias, the indices (gather), the wire
-    blocks' maxima and the outputs before the rounding (wire), w[m], and
-    the tile's rows where they are staged (``F32_STAGE``)."""
+    blocks' maxima and the outputs before the rounding (wire), and
+    w[m]."""
     words = o + (rows if gather else 0) + d * o
     if wire:
         words += rows // QUANT_BLOCK_ROWS + rows * o
-    return 4 * (words + (rows * d if F32_STAGE else 0))
+    return 4 * words
 
 
 def int8_smem_bytes(d: int, o: int, rows: int, gather: bool,

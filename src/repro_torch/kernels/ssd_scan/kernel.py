@@ -57,11 +57,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cb = torch.empty((bsz, nc, lp + n + 2 * h, lp), dtype=torch.float32,
                      device=x.device)
     fn = build.function("ssd_scan", "ssd_scan_launch", 10, 6)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), fs.data_ptr(), st.data_ptr(),
-                 flags.data_ptr(), cb.data_ptr(), bsz, s, h, p, n, chunk,
-                 torch.cuda.current_stream().cuda_stream)
+    err = build.launch(fn, x.device,
+                       x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                       B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                       fs.data_ptr(), st.data_ptr(), flags.data_ptr(),
+                       cb.data_ptr(), bsz, s, h, p, n, chunk)
     build.check(err, "ssd_scan")
     build.LAUNCHES["ssd_scan"] += 1
     return y, fs

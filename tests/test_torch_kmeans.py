@@ -11,9 +11,7 @@ shows its best/second-best d² margin: a flip is legitimate only below
 Squared distances take atol=1e-5 plus rtol=1e-5 of ‖p‖² + ‖c‖²: the f32
 formula ‖p‖² − 2p·c + ‖c‖² cancels terms of that size, so two summation
 orders differ by ulps of them, not of the (possibly small) result."""
-import contextlib
 import importlib
-import types
 
 import jax
 import jax.numpy as jnp
@@ -233,10 +231,8 @@ def test_k3_and_k4_launch_one_geometry(monkeypatch, m, rows):
     monkeypatch.setattr(update_kernel, "_tickets",
                         lambda dev, size: torch.zeros(size, dtype=torch.int32))
     monkeypatch.setattr(update_kernel.torch, "empty", empty)
-    monkeypatch.setattr(update_kernel.torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(update_kernel.torch.cuda, "current_stream",
-                        lambda *a: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(update_kernel.build, "launch",
+                        lambda fn, device, *args: fn(*args, 0))
     k, d = 5, 2
     cents = torch.zeros((m, k, d))
     update_kernel.kmeans_update_cuda(torch.zeros((m, rows, d)), cents)
