@@ -6,6 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only llm-kernels      # build K11/K12, their rows
     python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
     python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
+    python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
 
 Phases, each printing JSON lines:
 
@@ -54,6 +55,12 @@ Phases, each printing JSON lines:
               the reference's single-pass bound) at P=2^19, at 2^20 and
               as nine pairs at 2^19 (the delta probe's batch), ~70%
               overlap, bitwise; ``torch.sort`` of the 2P keys beside it.
+              K7/K8 also at the tile and co-rank edges (``check_only``,
+              bitwise): P=8 with 5/8/3, 0/4/0 and 8/8/8 keys a side and
+              common, one side all pads, disjoint sides either way
+              round, identical sides, strictly alternating keys, 3 pairs
+              with different fills, an odd P (the scalar stores) and
+              P=2^21; every merge row one device kernel a call.
               K9 (the int8 bottom pass) and K10 (over gathered rows) in
               the wire form the quantized wire runs (quantizers in the
               operand loads, the wire rounding in the epilogue, one
@@ -294,7 +301,7 @@ def kernel_device_ms(fn, marks):
     return sum(hits) if hits else None
 
 
-def device_events(fn, reps: int, tries: int = 3) -> list:
+def device_events(fn, reps: int, tries: int = 6) -> list:
     """The profiler's device events (``key_averages``) over ``reps``
     calls of ``fn``, after one unprofiled call.  The profiler now and
     then records no device event in a whole session, so a session that
@@ -336,6 +343,105 @@ def device_launches(fn, reps: int = 5):
     a call}, from the profiler's event counts over ``reps`` calls (after
     one unprofiled call)."""
     return {ev.key: ev.count / reps for ev in device_events(fn, reps)}
+
+
+@functools.lru_cache(maxsize=None)
+def capture_stream() -> torch.cuda.Stream:
+    """The side stream ``graph_nodes`` captures on (a capture cannot run
+    on the default stream)."""
+    return torch.cuda.Stream()
+
+
+def graph_nodes(call) -> list:
+    """The device work of one call of ``call``, read from a CUDA graph
+    captured around it (``cudaGraphDebugDotPrint``): one label a node,
+    its type and, for a kernel, its name.  Unlike the profiler's device
+    records, the graph holds every node the call enqueues.  The call
+    runs once on the capture stream first, so what a wrapper makes once
+    a stream (K3/K4's zeroed ticket counters) is not made in the graph."""
+    path = os.path.join(ROOT, "build", "one_launch.dot")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    stream = capture_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph, stream=stream):
+        call()
+    graph.debug_dump(path)
+    del graph
+    if not os.path.exists(path):
+        raise RuntimeError("the CUDA graph of one call was not dumped")
+    with open(path) as f:
+        text = f.read()
+    os.remove(path)
+    # node lines open with the node's name and its attributes; edge
+    # lines with a name and an arrow
+    heads = list(re.finditer(r'^\s*"graph_\d+_node_\d+"\s*\[', text,
+                             re.MULTILINE))
+    return [text[h.end():nxt.start() if nxt else len(text)]
+            for h, nxt in zip(heads, heads[1:] + [None])]
+
+
+def one_launch(name, call, marks, reps: int = 20, tries: int = 5):
+    """The device kernels a call of ``call`` launches ({name: launches a
+    call}), which must be one kernel named by ``marks``.  Two counts:
+
+    * a CUDA graph captured around one call (``graph_nodes``) must hold
+      exactly one node, a kernel whose name holds a mark (no other
+      kernel, copy or memset);
+    * ``reps`` calls profiled in one session must make exactly ``reps``
+      launch calls to the runtime (``cudaLaunchKernel`` and its kin,
+      recorded on the host), and every device kernel the session records
+      must be that one.
+
+    The profiler drops device records (19 of 20 in some sessions, all of
+    them in a few sessions in a row) while it keeps every launch call of
+    the same sessions, so its launches are counted on the host and its
+    device records only checked for names.  A session that counts fewer
+    launches is profiled again, up to ``tries``; more, or a device
+    kernel of another name, fails at once."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    nodes = graph_nodes(call)
+    if (len(nodes) != 1 or "KERNEL" not in nodes[0]
+            or not any(m in nodes[0] for m in marks)):
+        raise AssertionError(f"{name}: a CUDA graph of one call holds "
+                             f"{len(nodes)} nodes, not one {marks[0]}: "
+                             f"{[n[:400] for n in nodes[:3]]}")
+    counts, seen = [], None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [ev.key for ev in events
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        counts.append(sum(
+            ev.count for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CPU
+            and ev.key.startswith("cu") and "Launch" in ev.key))
+        if (counts[-1] > reps or len(kernels) > 1
+                or any(not any(m in k for m in marks) for k in kernels)):
+            raise AssertionError(f"{name}: {reps} calls made {counts[-1]} "
+                                 f"launches of {kernels}, not one "
+                                 f"{marks[0]} each")
+        if counts[-1] == reps:
+            if kernels:
+                return {kernels[0]: 1.0}
+            seen = marks[0]
+    if seen is not None:
+        return {seen: 1.0}
+    raise AssertionError(f"{name}: the profiler counted {counts} launches "
+                         f"of {marks[0]} in sessions of {reps} calls, never "
+                         f"{reps}")
 
 
 def host_profile(fn, top: int = 12):
@@ -473,11 +579,7 @@ def update_timing(name, call):
     """K3's or K4's times: events, the profiler's device time of its
     launches, and the launches one call makes, which must be one launch
     of the fused kernel (the reduce across CTAs runs inside it)."""
-    launched = device_launches(call)
-    if (sum(launched.values()) != 1 or not all(
-            any(m in k for m in KMEANS_UPDATE_MARKS) for k in launched)):
-        raise AssertionError(f"{name}: a call launched {launched}, not one "
-                             f"{KMEANS_UPDATE_MARKS[0]}")
+    launched = one_launch(name, call, KMEANS_UPDATE_MARKS)
     return dict(ms=cuda_ms(call),
                 device_ms=kernel_device_ms(call, KMEANS_UPDATE_MARKS),
                 device_launches=launched)
@@ -539,47 +641,126 @@ def merge_operands(rng, p, n_side, n_common, dev, pairs=1):
     return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
 
 
-def merge_row(name, replaces, a, b, n_common, **extra):
+def layout_operands(rng, p, fills, dev):
+    """(len(fills), P) keys, a pair for each (n_a, n_b, n_common, layout):
+    random tags with ``n_common`` shared, or from one ascending pool
+    every A tag below every B tag (``a_below_b``), the reverse, the same
+    tags on both sides (``identical``) or A and B strictly alternating
+    (the CPU tests' ``_key_rows``)."""
+    from repro_torch.kernels.sorted_intersect.ops import PAD_A64, PAD_B64
+    a = np.full((len(fills), p), PAD_A64, np.int64)
+    b = np.full((len(fills), p), PAD_B64, np.int64)
+    for i, (n_a, n_b, n_common, layout) in enumerate(fills):
+        pool = np.unique(rng.integers(0, 2 ** 62, 3 * (n_a + n_b) + 8,
+                                      dtype=np.int64))
+        if layout == "random":
+            pool = rng.permutation(pool)
+            ta = np.concatenate([pool[:n_common], pool[n_common:n_a]])
+            tb = np.concatenate([pool[:n_common],
+                                 pool[n_a:n_a + n_b - n_common]])
+        elif layout == "a_below_b":
+            ta, tb = pool[:n_a], pool[n_a:n_a + n_b]
+        elif layout == "b_below_a":
+            tb, ta = pool[:n_b], pool[n_b:n_b + n_a]
+        elif layout == "identical":
+            ta = tb = pool[:n_a]
+        else:                                   # alternating
+            ta, tb = pool[0:2 * n_a:2], pool[1:2 * n_b + 1:2]
+        a[i, :len(ta)] = (np.sort(ta) << 1) | 1
+        b[i, :len(tb)] = np.sort(tb) << 1
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+#: the name the merge launches under (``csrc/sorted_intersect.cu``)
+MERGE_MARKS = ["merge_path_kernel"]
+
+
+def merge_row(name, replaces, a, b, n_common, timed=True, **extra):
     """The merge kernel on (pairs, P) operands against its plain version,
-    bitwise, with times, bound and the ``torch.sort`` yardstick."""
+    bitwise, ``n_common`` common keys over all pairs, one device kernel a
+    call; timed (events, the profiler's device time a launch, the plain
+    version) with the bound and the ``torch.sort`` yardstick."""
     from repro_torch.kernels.sorted_intersect import ref as si_ref
     from repro_torch.kernels.sorted_intersect.kernel import \
         sorted_intersect_cuda
-    p = a.shape[1]
+    pairs, p = a.shape
     got, want = sorted_intersect_cuda(a, b), si_ref.sorted_intersect(a, b)
     torch.cuda.synchronize()
     for part, g, w in zip(("sel", "rank", "merged"), got, want):
         if not torch.equal(g, w):
-            raise AssertionError(f"{name} {part}: kernel and plain version "
-                                 f"differ on {int((g != w).sum())} slots")
-    pairs = a.shape[0]
-    if int(got[0].sum()) != n_common * pairs:
-        raise AssertionError(f"{name}: wrong intersection size")
+            raise AssertionError(f"{name} {extra}: {part} of the kernel and "
+                                 f"the plain version differ on "
+                                 f"{int((g != w).sum())} slots")
+    if int(got[0].sum()) != n_common:
+        raise AssertionError(f"{name} {extra}: wrong intersection size")
+    call = lambda: sorted_intersect_cuda(a, b)
+    launched = one_launch(f"{name} {extra}", call, MERGE_MARKS)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/sorted_intersect.cu",
+               replaces=replaces, max_abs_err=0.0, device_launches=launched,
+               shape=[pairs, p], **extra)
+    if not timed:
+        return row
     ab = torch.cat([a, b], 1)
     depth = p.bit_length()           # log2(2P) merge levels
     b_ms, b_by = bound(pairs * (2 * p * 8 + 2 * p * 16),
                        pairs * 2 * p * 4 * depth)
-    return dict(
-        name=name, route="cuda",
-        source="src/repro_torch/kernels/csrc/sorted_intersect.cu",
-        replaces=replaces, max_abs_err=0.0,
-        ms=cuda_ms(lambda: sorted_intersect_cuda(a, b)),
-        device_ms=kernel_device_ms(lambda: sorted_intersect_cuda(a, b),
-                                   ["merge_kernel"]),
+    return row | dict(
+        ms=cuda_ms(call), device_ms=launch_device_ms(call, MERGE_MARKS),
         plain_ms=cuda_ms(lambda: si_ref.sorted_intersect(a, b)),
         bound_ms=b_ms, bound_by=b_by,
         **library_times(lambda: torch.sort(ab, dim=1)),
-        library="torch.sort of the 2P keys", shape=[pairs, p], **extra)
+        library="torch.sort of the 2P keys")
 
 
-def kernel_phase(dev):
+#: (what, P, [(n_a, n_b, n_common, layout) a pair]): the merge kernel's
+#: tile and co-rank edges, bitwise (the CPU tests' MERGE_PATH_CASES)
+MERGE_EDGES = (
+    ("P=8, 5/8/3", 8, [(5, 8, 3, "random")]),
+    ("P=8, 0/4/0", 8, [(0, 4, 0, "random")]),
+    ("P=8, 8/8/8", 8, [(8, 8, 8, "identical")]),
+    ("A all pads", 1 << 17, [(0, 70_000, 0, "random")]),
+    ("B all pads", 1 << 17, [(70_000, 0, 0, "random")]),
+    ("A below B", 1 << 17, [(1 << 17, 1 << 17, 0, "a_below_b")]),
+    ("B below A", 1 << 17, [(100_000, 1 << 17, 0, "b_below_a")]),
+    ("identical", 1 << 17, [(1 << 17, 1 << 17, 1 << 17, "identical")]),
+    ("alternating", 1 << 17, [(1 << 17, 1 << 17, 0, "alternating")]),
+    ("3 pairs", 1 << 17, [(70_000, 70_000, 49_000, "random"),
+                          (1 << 17, 120_000, 100_000, "random"),
+                          (5, 1, 1, "random")]),
+    ("odd P, 2 pairs", 100_003, [(100_003, 90_000, 63_000, "random"),
+                                 (3, 100_003, 2, "random")]),
+    ("P=2^21", 1 << 21, [(1_400_000, 1_400_000, 980_000, "random")]),
+)
+
+
+def merge_edge_rows(dev):
+    """K7/K8 at ``MERGE_EDGES`` (``check_only``): bitwise, one kernel a
+    call; data from its own seed, so the other rows' data stay as they
+    were."""
+    from repro_torch.kernels.sorted_intersect.kernel import SINGLE_PASS_MAX_P
+    rng = np.random.default_rng(SEED + 5)
+    rows = []
+    for what, p, fills in MERGE_EDGES:
+        a, b = layout_operands(rng, p, fills, dev)
+        k8 = p > SINGLE_PASS_MAX_P
+        rows.append(merge_row(
+            "sorted_intersect_tiled" if k8 else "sorted_intersect",
+            f"src/repro/kernels/sorted_intersect/kernel.py:"
+            f"{155 if k8 else 73}", a, b, sum(f[2] for f in fills),
+            timed=False, check_only=what))
+        del a, b
+    return rows
+
+
+def psi_kernel_rows(dev, rng):
+    """K6 (the PRF), K7 and K8 (the merge) at the shapes of their paths,
+    then the merge's edge rows."""
     from repro_torch.kernels.psi_prf import ref as prf_ref
     from repro_torch.kernels.psi_prf.kernel import prf_tags_cuda
     from repro_torch.kernels.sorted_intersect.ops import next_pow2
 
-    rng = np.random.default_rng(SEED)
     rows = []
-
     # K6 psi_prf: both sides of one pair, P = 2^17 ids each
     p = next_pow2(70_000)
     ids = torch.from_numpy(rng.integers(0, 2 ** 62, (2, p),
@@ -624,9 +805,14 @@ def kernel_phase(dev):
         rows.append(merge_row(
             "sorted_intersect_tiled",
             "src/repro/kernels/sorted_intersect/kernel.py:155", a, b,
-            n_common, **extra))
+            n_common * pairs, **extra))
         del a, b
+    return rows + merge_edge_rows(dev)
 
+
+def kernel_phase(dev):
+    rng = np.random.default_rng(SEED)
+    rows = psi_kernel_rows(dev, rng)
     kmeans_rows, slab, yslab = kmeans_kernel_rows(dev, rng)
     rows += kmeans_rows
     rows += bottom_kernel_rows(dev, slab, yslab, rng)
@@ -1126,13 +1312,7 @@ def wire_kernel_rows(dev, slab, rng):
             raise AssertionError(f"{name}: wrote pre without keep_pre")
         differ(name, "the parent's path and the plain composition",
                parent(), want)
-        # the profiler may drop an event (0.8 launches a call over 5
-        # calls on the card), so count over 20 and round
-        launched = device_launches(call, reps=20)
-        if round(sum(launched.values())) != 1 or not all(
-                any(k in n for k in marks) for n in launched):
-            raise AssertionError(f"{name}: a call launched {launched}, not "
-                                 f"one {marks[0]}")
+        launched = one_launch(name, call, marks)
         parent_launched = device_launches(parent, reps=20)
         # bytes: x (f32 rows; K10 the gathered int8 rows and scales, the
         # indices), w and b read, the wire value (and pre) written; the
@@ -1254,13 +1434,7 @@ def fp8_wire_rows(dev, slab, rng):
             Q.QUANT_BLOCK_ROWS, 1)[:, :bsz, None]
         err = check_close(f"{name} wire vs the plain composition", got,
                           want, scale, rtol=1e-5, atol=1e-6 + step)
-        # the profiler may drop an event of a 2-4 µs kernel, so count over
-        # 20 calls and round
-        launched = device_launches(call, reps=20)
-        if round(sum(launched.values())) != 1 or not all(
-                any(k in n for k in marks) for n in launched):
-            raise AssertionError(f"{name}: a call launched {launched}, not "
-                                 f"one {marks[0]}")
+        launched = one_launch(name, call, marks)
         parent_launched = device_launches(parent, reps=20)
         # bytes: x (K2: the rows it gathers and the indices), w and b
         # read, the wire value (and pre) written; the f32 products and
@@ -2381,7 +2555,21 @@ def yp_phase(dev):
             device_ms / wall_ms, "top_device_ops_ms": top,
             "host": host_profile(lambda: drive("kernel", None))}
     emit(prof)
-    return row_k["launches"], rows + [divergence, prof]
+    # a record: each merge round's dispatch (PRF, sort, K8 and the copies
+    # back; the traced kernel run's ``align.dispatch`` spans of kind
+    # "single") beside the K8 launches' device time in the profiled run
+    merge = {"phase": "yp_merge", "single_dispatch_ms": [
+        sp.duration * 1e3 for sp in rk.tracer.finished()
+        if sp.name == "align.dispatch" and sp.attrs.get("kind") == "single"],
+        "k8_launches": launched["sorted_intersect_tiled"],
+        "k8_device_ms_in_run": sum(t for k, t in per_name.items()
+                            if any(m in k for m in MERGE_MARKS)),
+        "dispatch_ops_device_ms": {
+            k: t for k, t in per_name.items() if any(
+                m in k.lower() for m in ("merge_path_kernel", "prf_kernel",
+                                         "sort", "memcpy", "gather"))}}
+    emit(merge)
+    return row_k["launches"], rows + [divergence, prof, merge]
 
 
 def minibatch_phase(dev):
@@ -2479,7 +2667,9 @@ def delta_phase(dev):
     n, m_parties, deltas = DELTA_N, 4, 6
     opts = AlignOptions(protocol="oprf", psi_backend="device",
                         impl="kernel", device=dev)
-    rows = []
+    merge = ("sorted_intersect_tiled" if next_pow2(n) > SINGLE_PASS_MAX_P
+             else "sorted_intersect")
+    rows, per_delta = [], {}
     reset_launches()
 
     def expect(dm, where):
@@ -2502,19 +2692,21 @@ def delta_phase(dev):
                                           dtype=np.int64))
         fresh += d // 2
         expect(dm, f"after the untimed delta (frac {frac})")
-        d_bytes, d_wall = [], []
+        d_bytes, d_wall, d_merges = [], [], []
         for k in range(deltas):
             party = k % m_parties
             cur = dm.party_set(party)
             joins = np.arange(fresh, fresh + d // 2, dtype=np.int64)
             fresh += d // 2
             leaves = g.choice(cur, size=d - d // 2, replace=False)
-            b0 = dm.stats.total_bytes
+            b0, m0 = dm.stats.total_bytes, LAUNCHES[merge]
             t0 = time.perf_counter()
             dm.apply_delta(party, joins, leaves)
             d_wall.append(time.perf_counter() - t0)
             d_bytes.append(dm.stats.total_bytes - b0)
+            d_merges.append(LAUNCHES[merge] - m0)
             expect(dm, f"at frac {frac} step {k}")
+        per_delta[frac] = d_merges
         host = None
         if frac == 0.01:        # where one more delta's host time goes
             cur = dm.party_set(1)
@@ -2542,9 +2734,9 @@ def delta_phase(dev):
         emit(row)
         rows.append(row)
     launched = dict(LAUNCHES)
-    emit({"phase": "delta_launches", "launches": launched})
-    merge = ("sorted_intersect_tiled" if next_pow2(n) > SINGLE_PASS_MAX_P
-             else "sorted_intersect")
+    # a record: the merge launches of each timed delta, by Δ/N
+    emit({"phase": "delta_launches", "launches": launched,
+          f"{merge}_per_delta": {str(f): v for f, v in per_delta.items()}})
     if not launched[merge]:
         raise AssertionError(f"delta: {merge} never launched")
     return rows
@@ -2869,16 +3061,31 @@ def kmeans_update_ptxas(report: str):
     return out, spills
 
 
+def spilled(report: str):
+    """The kernel instances of a ``-Xptxas -v`` report that spill."""
+    out, name = [], None
+    for ln in report.splitlines():
+        hit = re.search(r"entry function '([^']+)'", ln)
+        if hit:
+            name = hit[1]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if name and spill and (spill[1] != "0" or spill[2] != "0"):
+            out.append(name)
+    return out
+
+
 ONLY = {"llm-kernels": ["flash_attention", "ssd_scan"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
-        "bottom-kernels": ["splitnn_bottom"]}
+        "bottom-kernels": ["splitnn_bottom"],
+        "psi-kernels": ["psi_prf", "sorted_intersect"]}
 
 
 def main(argv) -> int:
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ONLY:
-        print("usage: chip_smoke.py [--only "
-              "llm-kernels|kmeans-kernels|bottom-kernels]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only llm-kernels|kmeans-kernels|"
+              "bottom-kernels|psi-kernels]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2911,6 +3118,19 @@ def main(argv) -> int:
           "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
     if spills:
         raise AssertionError(f"kmeans_update: ptxas spills in {spills}")
+    merge_spills = spilled(build.PTXAS_REPORT.get("sorted_intersect", ""))
+    if merge_spills:
+        raise AssertionError(f"sorted_intersect: ptxas spills in "
+                             f"{merge_spills}")
+    if only == "psi-kernels":
+        # K6, K7 and K8 at their paths' shapes and the merge's edges: the
+        # quick check of an edit to psi_prf.cu or sorted_intersect.cu (not
+        # the contract run)
+        for r in psi_kernel_rows(dev, np.random.default_rng(SEED)):
+            emit({"phase": "kernel", **r})
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     if only == "bottom-kernels":
         # K1/K2 in both forms, K9/K10 in both forms, the quantizers on the
         # card and the fp8 encode sweep: the quick check of an edit to

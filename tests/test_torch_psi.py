@@ -47,14 +47,27 @@ def test_prf_tags_match_jax_kernel(n):
     assert got.min() >= 0 and got.max() < 2 ** 62
 
 
-def _key_rows(p: int, n_a: int, n_b: int, n_common: int, seed: int):
-    """Padded ascending receiver (origin 1) / sender (origin 0) keys."""
+def _key_rows(p: int, n_a: int, n_b: int, n_common: int, seed: int,
+              layout: str = "random"):
+    """Padded ascending receiver (origin 1) / sender (origin 0) keys:
+    random tags with ``n_common`` shared, or (from one ascending pool)
+    every A tag below every B tag, the reverse, the same tags on both
+    sides, or A and B strictly alternating."""
     g = np.random.default_rng(seed)
-    tags = g.permutation(np.unique(g.integers(0, 2 ** 62, 3 * p,
-                                              dtype=np.int64)))
-    ta = np.sort(np.concatenate([tags[:n_common], tags[n_common:n_a]]))
-    tb = np.sort(np.concatenate([tags[:n_common],
-                                 tags[n_a:n_a + n_b - n_common]]))
+    tags = np.unique(g.integers(0, 2 ** 62, 3 * p, dtype=np.int64))
+    if layout == "random":
+        tags = g.permutation(tags)
+        ta = np.sort(np.concatenate([tags[:n_common], tags[n_common:n_a]]))
+        tb = np.sort(np.concatenate([tags[:n_common],
+                                     tags[n_a:n_a + n_b - n_common]]))
+    elif layout == "a_below_b":
+        ta, tb = tags[:n_a], tags[n_a:n_a + n_b]
+    elif layout == "b_below_a":
+        tb, ta = tags[:n_b], tags[n_b:n_b + n_a]
+    elif layout == "identical":
+        ta = tb = tags[:n_a]
+    else:                                      # alternating
+        ta, tb = tags[0:2 * n_a:2], tags[1:2 * n_b + 1:2]
     a = np.full(p, si_ref.PAD_A64, np.int64)
     b = np.full(p, si_ref.PAD_B64, np.int64)
     a[:n_a] = (ta << 1) | 1
@@ -62,11 +75,19 @@ def _key_rows(p: int, n_a: int, n_b: int, n_common: int, seed: int):
     return a, b
 
 
-@pytest.mark.parametrize("p,n_a,n_b,n_common", [
-    (8, 5, 8, 3), (8, 0, 4, 0), (1024, 700, 1024, 490),
-    (1024, 1024, 311, 200)])
-def test_sorted_intersect_matches_jax_kernel(p, n_a, n_b, n_common):
-    a, b = _key_rows(p, n_a, n_b, n_common, seed=p + n_a)
+@pytest.mark.parametrize("p,n_a,n_b,n_common,layout", [
+    pytest.param(8, 5, 8, 3, "random", id="8-5-8-3"),
+    pytest.param(8, 0, 4, 0, "random", id="8-0-4-0"),
+    pytest.param(1024, 700, 1024, 490, "random", id="1024-700-1024-490"),
+    pytest.param(1024, 1024, 311, 200, "random", id="1024-1024-311-200"),
+    # the merge kernel's tile and co-rank edges (chip_smoke.py's rows)
+    pytest.param(1024, 1024, 1000, 0, "a_below_b", id="a-below-b"),
+    pytest.param(1024, 900, 1024, 0, "b_below_a", id="b-below-a"),
+    pytest.param(1024, 1000, 1000, 1000, "identical", id="identical"),
+    pytest.param(1024, 1024, 1024, 0, "alternating", id="alternating"),
+    pytest.param(8, 8, 8, 8, "identical", id="8-8-8-8")])
+def test_sorted_intersect_matches_jax_kernel(p, n_a, n_b, n_common, layout):
+    a, b = _key_rows(p, n_a, n_b, n_common, seed=p + n_a, layout=layout)
     sel, rank, merged = si_ref.sorted_intersect(torch.from_numpy(a)[None],
                                                 torch.from_numpy(b)[None])
     j_sel, j_rank, j_kh, j_kl = jax_sorted_intersect(*_lanes(a), *_lanes(b),
