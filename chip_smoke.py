@@ -15,9 +15,9 @@ Phases, each printing JSON lines:
               ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
               at once) into ``build/repro_torch_ext/``, with ptxas's
               registers and spills for each kernel instance (K3/K4's
-              fused kernel: one line an instance, none may spill), counts
-              the tensor-core instructions (``cuobjdump -sass``: HMMA,
-              HGMMA) of each K11 instance, every bf16 one must have
+              fused kernel and K5: one line an instance, none may spill),
+              counts the tensor-core instructions (``cuobjdump -sass``:
+              HMMA, HGMMA) of each K11 instance, every bf16 one must have
               them, and HMMA/HGMMA/FFMA of K12's two kernels, whose
               products are f32 FMAs in the plain version's order (a
               record, not checked).
@@ -49,9 +49,13 @@ Phases, each printing JSON lines:
               call, within K3's tolerances of its plain version; again
               over (3, 49,000, 11) with 1,000 indices a client, and with
               indices outside [0, N) (assign -1, sqd NaN, no count, the
-              other rows' bits kept; ``check_only``).  K3 and K4 at edge
-              shapes (``EDGE_SHAPES``) against the plain version, K5 and
-              each other.  K8 (the merge kernel past
+              other rows' bits kept; ``check_only``).  K5 also at a YP
+              minibatch build's end (one client's 357,000 rows, d=30,
+              K=12; ``timed_at``), each K5 row one device kernel a call
+              (``one_launch``).  K3 and K4 at edge shapes
+              (``EDGE_SHAPES``) against the plain version, K5 and each
+              other, and K5 against its plain version there.  K8 (the
+              merge kernel past
               the reference's single-pass bound) at P=2^19, at 2^20 and
               as nine pairs at 2^19 (the delta probe's batch), ~70%
               overlap, bitwise; ``torch.sort`` of the 2P keys beside it.
@@ -830,7 +834,9 @@ def kmeans_kernel_rows(dev, rng):
     (11/11/10 columns zero-padded to 11) of 49,000 rows, 14 centroids
     from the rows, and the YP job's (``timed_at``): 3 clients × 30
     columns, as many rows as it aligns (249,900), 12 centroids; then K4
-    at a YP minibatch step.  Returns the rows and the HI and YP slabs."""
+    at a YP minibatch step and K5 at a minibatch build's end (one
+    client's 357,000 rows, 12 centroids, ``timed_at``).  Returns the
+    rows and the HI and YP slabs."""
     tr, _ = partitions()
     slab = client_slab(tr, 49_000, dev)
     rows = lloyd_kernel_rows(slab, 14, rng)
@@ -839,31 +845,37 @@ def kmeans_kernel_rows(dev, rng):
     rows += lloyd_kernel_rows(yslab, 12, rng, timed_at="YP")
     ypts = torch.from_numpy(ytr.client_features[0]).to(dev)[None]
     rows.append(gather_update_row(rng, ypts, 12, 1024))
+    # K5 at a minibatch build's end: one client's 357,000 rows, K = 12
+    rows.append(assign_row(ypts, ypts[:, torch.from_numpy(rng.choice(
+        ypts.shape[1], 12, replace=False)).to(dev)].contiguous(),
+        timed_at="YP minibatch end"))
     rows.append(gather_update_row(rng, slab, 14, 1000,
                                   check_only="HI, 3 clients"))
     rows.append(edge_update_checks(dev, rng))
     return rows, slab, yslab
 
 
-#: (M, rows, K, d) where K3/K4's geometry and loops have edges: a single
-#: row, ragged tiles, K = 1, d = 1, widths past the compiled ones and past
-#: the CTA's 128 threads, more (cluster, warp) offsets than a warp holds,
-#: partial rows too wide for more than one in the reduce's stage (64-row
-#: tiles)
+#: (M, rows, K, d) where K3/K4's and K5's geometry and loops have edges: a
+#: single row, ragged tiles, fewer rows than a CTA's threads, K = 1, d = 1,
+#: widths past the compiled ones and past the CTA's 128 threads, more
+#: (cluster, warp) offsets than a warp holds, partial rows too wide for
+#: more than one in the reduce's stage (64-row tiles; K3 32-row and K5
+#: 64-row tiles at d = 500)
 EDGE_SHAPES = [(1, 1, 3, 5), (2, 127, 7, 2), (1, 129, 1, 1),
                (1, 1000, 12, 30), (3, 4097, 40, 64), (2, 3000, 9, 130),
-               (1, 300, 16, 300)]
+               (1, 300, 16, 300), (1, 200, 16, 500)]
 
 
 def edge_update_checks(dev, rng):
     """K3 at ``EDGE_SHAPES`` against its plain version (``check_update``)
-    and K5 (assign and sqd bitwise), K4 over a draw of as many rows with
-    duplicates bitwise K3 on the gathered rows.  Seeded normal points."""
+    and K5 (assign and sqd bitwise), K5 against its plain version
+    (``check_assign``), K4 over a draw of as many rows with duplicates
+    bitwise K3 on the gathered rows.  Seeded normal points."""
     from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
     from repro_torch.kernels.kmeans_update import ref as ku_ref
     from repro_torch.kernels.kmeans_update.kernel import (
         kmeans_update_cuda, kmeans_update_gather_cuda)
-    worst = 0.0
+    worst = worst5 = 0.0
     for m, n, k, d in EDGE_SHAPES:
         pts = torch.from_numpy(rng.normal(0, 1, (m, n, d)).astype(
             np.float32)).to(dev)
@@ -873,9 +885,12 @@ def edge_update_checks(dev, rng):
         err = check_update(f"kmeans_update {m, n, k, d}", pts, cents, got,
                            ku_ref.kmeans_update(pts, cents))[0]
         worst = max(worst, err)
-        if not same_bits(got[:2], kmeans_assign_cuda(pts, cents)):
+        k5 = kmeans_assign_cuda(pts, cents)
+        if not same_bits(got[:2], k5):
             raise AssertionError(f"kmeans_update {m, n, k, d}: assign/sqd "
                                  "differ from kmeans_assign's")
+        worst5 = max(worst5, check_assign(f"kmeans_assign {m, n, k, d}",
+                                          pts, cents, k5)[0])
         idx = torch.from_numpy(rng.integers(0, n, (m, n)).astype(
             np.int32)).to(dev)
         rows = torch.gather(pts, 1, idx.long()[..., None].expand(-1, -1, d))
@@ -884,7 +899,8 @@ def edge_update_checks(dev, rng):
             raise AssertionError(f"kmeans_update_gather {m, n, k, d}: K4 "
                                  "differs from K3 on the gathered rows")
     return dict(name="kmeans_update", check_only="edge shapes",
-                shapes=EDGE_SHAPES, max_abs_err=worst)
+                shapes=EDGE_SHAPES, max_abs_err=worst,
+                kmeans_assign_max_abs_err=worst5)
 
 
 def client_slab(part, n, dev):
@@ -900,7 +916,6 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
     """K3 (one fused Lloyd step) and K5 (the final assignment) on (M, N,
     d) points and k centroids drawn from the rows, each against its plain
     version."""
-    from repro_torch.kernels.kmeans_assign import ref as ka_ref
     from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
     from repro_torch.kernels.kmeans_update import ref as ku_ref
     from repro_torch.kernels.kmeans_update.kernel import kmeans_update_cuda
@@ -908,8 +923,6 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
     m, n, d = pts.shape
     cents = pts[:, torch.from_numpy(rng.choice(n, k, replace=False)).to(
         pts.device)].contiguous()
-    ops_assign = m * n * (2 * d + k * (2 * d + 3) + k)
-    io_bytes = m * n * d * 4 + m * k * d * 4 + m * n * 8
 
     got = kmeans_update_cuda(pts, cents)
     err, n_diff, min_margin = check_update(
@@ -921,6 +934,8 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
                              "kmeans_assign's on the same centroids")
     if not same_bits(kmeans_update_cuda(pts, cents), got):
         raise AssertionError("kmeans_update: two calls differ")
+    io_bytes, ops_assign = assign_work(m, n, k, d)
+    # K3 also writes the K centroids' sums and counts, and sums the rows
     b_ms, b_by = bound(io_bytes + m * k * (d + 1) * 4,
                        ops_assign + m * n * d)
     rows = [dict(
@@ -936,31 +951,68 @@ def lloyd_kernel_rows(pts, k, rng, **extra):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=[m, n, d, k], **extra)]
 
-    ga, gs = kmeans_assign_cuda(pts, cents)
+    rows.append(assign_row(pts, cents, **extra))
+    return rows
+
+
+def assign_work(m, n, k, d):
+    """(bytes, f32 ops) of an assignment of M·N rows of width d to K
+    centroids: the rows and centroids read once, 8 B a row written; ‖p‖²,
+    and a cross term, its combination and a compare a centroid."""
+    return (m * n * d * 4 + m * k * d * 4 + m * n * 8,
+            m * n * (2 * d + k * (2 * d + 3) + k))
+
+
+#: the name K5 launches under (``csrc/kmeans_assign.cu``)
+KMEANS_ASSIGN_MARKS = ["assign_kernel"]
+
+
+def check_assign(name, pts, cents, got):
+    """K5's (assign, sqd) against its plain version: assignments equal
+    off near ties, sqd within 1e-5 + 1e-5·(‖p‖²+‖c‖²) where they agree.
+    Returns (max abs err, differing assignments, their least margin)."""
+    from repro_torch.kernels.kmeans_assign import ref as ka_ref
+    ga, gs = got
     wa, ws = ka_ref.kmeans_assign(pts, cents)
     torch.cuda.synchronize()
     n_diff, n_bad, min_margin = near_tie_rows(pts, cents, ga, wa)
     if n_bad:
-        raise AssertionError(f"kmeans_assign: {n_bad} assignments differ "
-                             "beyond a near tie")
+        raise AssertionError(f"{name}: {n_bad} assignments differ beyond "
+                             "a near tie")
     same = ga == wa
-    err = check_close("kmeans_assign sqd", gs[same], ws[same],
+    err = check_close(f"{name} sqd", gs[same], ws[same],
                       sqd_scale(pts, cents, wa)[same])
-    b_ms, b_by = bound(io_bytes, ops_assign)
-    rows.append(dict(
+    return err, n_diff, min_margin
+
+
+def assign_row(pts, cents, **extra):
+    """K5 (the final assignment) on (M, N, d) points and (M, K, d)
+    centroids against its plain version (``check_assign``), one device
+    kernel a call (``one_launch``), with its bound and the ``cdist`` +
+    ``argmin`` yardstick."""
+    from repro_torch.kernels.kmeans_assign import ref as ka_ref
+    from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
+
+    m, n, d = pts.shape
+    k = cents.shape[1]
+    call = lambda: kmeans_assign_cuda(pts, cents)
+    err, n_diff, min_margin = check_assign("kmeans_assign", pts, cents,
+                                           call())
+    b_ms, b_by = bound(*assign_work(m, n, k, d))
+    return dict(
         name="kmeans_assign", route="cuda",
         source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
         replaces="src/repro/kernels/kmeans_assign/kernel.py:39",
         max_abs_err=err, assign_mismatch=n_diff,
         min_mismatch_margin=min_margin,
-        ms=cuda_ms(lambda: kmeans_assign_cuda(pts, cents)),
-        device_ms=kernel_device_ms(lambda: kmeans_assign_cuda(pts, cents),
-                                   ["assign_kernel"]),
+        device_launches=one_launch(f"kmeans_assign {m, n, d, k}", call,
+                                   KMEANS_ASSIGN_MARKS),
+        ms=cuda_ms(call), device_ms=kernel_device_ms(call,
+                                                     KMEANS_ASSIGN_MARKS),
         plain_ms=cuda_ms(lambda: ka_ref.kmeans_assign(pts, cents)),
         bound_ms=b_ms, bound_by=b_by,
         **library_times(lambda: torch.cdist(pts, cents).argmin(-1)),
-        shape=[m, n, d, k], **extra))
-    return rows
+        shape=[m, n, d, k], **extra)
 
 
 def gather_update_row(rng, pts, k, bsz, **extra):
@@ -3040,15 +3092,16 @@ def _leaves(tree):
     else:
         yield tree
 
-def kmeans_update_ptxas(report: str):
-    """K3/K4's kernel instances in a ``-Xptxas -v`` report: {"K3 D=30":
-    "40 registers, 0+0 spill bytes", ...} (D=0: the instance that reads
-    the width at run time), and the instances that spill."""
+def kmeans_ptxas(report: str, pattern: str, label):
+    """The k-means kernels' instances in a ``-Xptxas -v`` report: {"K3
+    D=30": "40 registers, 0+0 spill bytes", ...} (D=0: the instance that
+    reads the width at run time), and the instances that spill.  An entry
+    function whose name matches ``pattern`` is named ``label(match)``."""
     out, spills, name = {}, [], None
     for ln in report.splitlines():
-        hit = re.search(r"kmeans_update_kernelILb(\d)ELi(\d+)E", ln)
+        hit = re.search(pattern, ln)
         if "entry function" in ln:
-            name = hit and f"K{4 if hit[1] == '1' else 3} D={hit[2]}"
+            name = hit and label(hit)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", ln)
         if name and spill:
@@ -3106,18 +3159,26 @@ def main(argv) -> int:
         # K12's census is a record (its products are f32 FMAs, PERF.md)
         sass = sass_census("flash_attention")
         ssd_sass = sass_census("ssd_scan", marks=("HMMA", "HGMMA", "FFMA"))
-    # K3/K4: one line an instance (34 widths × 2), none may spill
-    update_ptxas, spills = kmeans_update_ptxas(
-        build.PTXAS_REPORT.get("kmeans_update", ""))
+    # K3/K4 (33 widths × 2) and K5 (R = 4 at widths 1..32, R = 1 at the
+    # run-time width): one line an instance, none may spill
+    update_ptxas, spills = kmeans_ptxas(
+        build.PTXAS_REPORT.get("kmeans_update", ""),
+        r"kmeans_update_kernelILb(\d)ELi(\d+)E",
+        lambda h: f"K{4 if h[1] == '1' else 3} D={h[2]}")
+    assign_ptxas, assign_spills = kmeans_ptxas(
+        build.PTXAS_REPORT.get("kmeans_assign", ""),
+        r"assign_kernelILi(\d+)ELi(\d+)E", lambda h: f"K5 D={h[1]} R={h[2]}")
     emit({"phase": "build", "seconds": secs,
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln or "entry function" in ln]
                     for k, v in build.PTXAS_REPORT.items()
-                    if k != "kmeans_update"} | {
-                        "kmeans_update": update_ptxas},
+                    if k not in ("kmeans_update", "kmeans_assign")} | {
+                        "kmeans_update": update_ptxas,
+                        "kmeans_assign": assign_ptxas},
           "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
-    if spills:
-        raise AssertionError(f"kmeans_update: ptxas spills in {spills}")
+    if spills or assign_spills:
+        raise AssertionError(f"kmeans: ptxas spills in "
+                             f"{spills + assign_spills}")
     merge_spills = spilled(build.PTXAS_REPORT.get("sorted_intersect", ""))
     if merge_spills:
         raise AssertionError(f"sorted_intersect: ptxas spills in "
@@ -3149,7 +3210,7 @@ def main(argv) -> int:
         return 0
     if only == "kmeans-kernels":
         # K3 at HI and YP, K4, K5: the quick check of an edit to
-        # kmeans_update.cu (not the contract run)
+        # kmeans_update.cu or kmeans_assign.cu (not the contract run)
         for r in kmeans_kernel_rows(dev, np.random.default_rng(SEED))[0]:
             emit({"phase": "kernel", **r})
         print(smi, flush=True)

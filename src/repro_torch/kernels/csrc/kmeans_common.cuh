@@ -6,7 +6,6 @@
 
 namespace kmeans {
 
-constexpr int BLOCK_ROWS = 128;         // rows (threads) per CTA
 constexpr float MASK_LARGE = 3.4e38f;   // stand-in for +inf, as the reference
 
 // Stage one client's K centroids and their squared norms in shared memory.
@@ -22,20 +21,20 @@ __device__ __forceinline__ void stage_centroids(const float* __restrict__ c,
   }
 }
 
-// Stage the CTA's tile of point rows [r0, r0 + rows) in shared memory
-// (coalesced: consecutive threads read consecutive floats).
-__device__ __forceinline__ void stage_points(const float* __restrict__ pts,
-                                             float* p_s, int64_t r0, int rows,
-                                             int d) {
-  const float* src = pts + r0 * d;
-  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) p_s[e] = src[e];
+// d² of a row against centroid q from ‖p‖², the cross term p·c and ‖c‖²,
+// clamped at 0; centroids q >= k_real masked to MASK_LARGE.  Every distance
+// of both kernels is taken here, so their roundings cannot part.
+__device__ __forceinline__ float dist2(float p2, float cross, float c2, int q,
+                                       int k_real) {
+  const float d2 = p2 - 2.0f * cross + c2;
+  return q < k_real ? fmaxf(d2, 0.f) : MASK_LARGE;
 }
 
-// d² = ‖p‖² − 2 p·c + ‖c‖² for every centroid, clamped at 0, centroids
-// q >= k_real masked to MASK_LARGE, first-minimum argmin.
+// dist2 for every centroid (centroid q at c_s + q·stride), first-minimum
+// argmin; each sum is an fmaf chain over j ascending.
 __device__ __forceinline__ void nearest(const float* p, const float* c_s,
-                                        const float* c2_s, int k, int k_real,
-                                        int d, int32_t* best_q,
+                                        int stride, const float* c2_s, int k,
+                                        int k_real, int d, int32_t* best_q,
                                         float* best_d) {
   float p2 = 0.f;
   for (int j = 0; j < d; ++j) p2 = fmaf(p[j], p[j], p2);
@@ -43,9 +42,8 @@ __device__ __forceinline__ void nearest(const float* p, const float* c_s,
   int32_t bq = 0;
   for (int q = 0; q < k; ++q) {
     float cross = 0.f;
-    for (int j = 0; j < d; ++j) cross = fmaf(p[j], c_s[q * d + j], cross);
-    float d2 = p2 - 2.0f * cross + c2_s[q];
-    d2 = q < k_real ? fmaxf(d2, 0.f) : MASK_LARGE;
+    for (int j = 0; j < d; ++j) cross = fmaf(p[j], c_s[q * stride + j], cross);
+    const float d2 = dist2(p2, cross, c2_s[q], q, k_real);
     if (d2 < best) {
       best = d2;
       bq = q;
@@ -55,9 +53,12 @@ __device__ __forceinline__ void nearest(const float* p, const float* c_s,
   *best_d = best;
 }
 
-inline size_t tile_smem_bytes(int k, int d) {
-  return sizeof(float) * ((size_t)k * d + k + (size_t)BLOCK_ROWS * d) +
-         sizeof(int32_t) * BLOCK_ROWS;
+// The same over centroids stored back to back (a stride of d).
+__device__ __forceinline__ void nearest(const float* p, const float* c_s,
+                                        const float* c2_s, int k, int k_real,
+                                        int d, int32_t* best_q,
+                                        float* best_d) {
+  nearest(p, c_s, d, c2_s, k, k_real, d, best_q, best_d);
 }
 
 }  // namespace kmeans
