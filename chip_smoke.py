@@ -4,6 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                         # every phase (the contract)
     python3 chip_smoke.py --only llm-kernels      # build K11/K12, their rows
+    python3 chip_smoke.py --only llm-paths [PHASE ...]  # the LLM phases
     python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
     python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
     python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
@@ -101,11 +102,18 @@ Phases, each printing JSON lines:
               and Sq<Sk (``check_only``); bf16 at the shapes of the other
               configs that reach K11 (B=2, S=2,048): stablelm-12b and
               qwen2-72b timed beside SDPA (``timed_at``, outside the
-              ``kernels`` line), gemma2-9b (Dh=256, window, softcap) and
-              hymba-1.5b (G=5, window, prefix) checked, and G=128 and
-              Dh=36.  K12 (the SSD scan) at the mamba2-1.3b prefill (B=2,
-              S=2,048, H=64, P=64, N=128, L=128) and at hymba-1.5b's
-              (H=50, N=16; ``timed_at``), each with the device time of
+              ``kernels`` line), gemma2-9b (Dh=256, window, softcap)
+              checked, and G=128 and Dh=36; bf16 at the shapes of the
+              other LLM paths, timed beside SDPA with the same mask, each
+              a row of the ``kernels`` line with its path's launches
+              (``path``): hymba-1.5b (S=2,176, G=5, window 1,024,
+              prefix 128), internvl2-1b (S=2,304, G=7), olmoe-1b-7b
+              (G=1, Dh=128), whisper-large-v3's encoder (1,500 frames,
+              no causal mask) and cross-attention (Sq=1 against them;
+              both also checked in f32).  K12 (the SSD scan) at the
+              mamba2-1.3b prefill (B=2, S=2,048, H=64, P=64, N=128,
+              L=128) and at hymba-1.5b's (S=2,176, 17 chunks, H=50,
+              N=16; ``path``), each with the device time of
               its two launches, the bound of the function on 3xTF32
               tensor cores, PR 16's bound and that of the f32 FMAs the
               kernel does, and the bytes the design moves; at
@@ -213,6 +221,33 @@ Phases, each printing JSON lines:
               plain version; past the prefill a decode step's f32 logits
               beyond the bound pass only within a tenth of the plain
               run's distance to the model with float64 scans.
+14. llm_hybrid — the same for hymba-1.5b (32 layers of attention and
+              Mamba2 side by side, 128 meta tokens pinned in windows of
+              1,024, global layers 0, 15, 31): K11 and K12 launched 32
+              times each a prefill (S=2,176); K12 on every Mamba2
+              mixer's inputs as for mamba2; past the bound, the f32
+              kernel run within twice the plain run's distance to the
+              model with float64 prefill attention and scans.
+15. llm_moe — olmoe-1b-7b (16 layers, 64 experts, top-8): K11
+              launched 16 times a prefill.  Every routing call of the
+              two f32 runs is recorded: the logit bound holds at the
+              positions before the chain's first route flip, each route
+              that flips there must sit at a plain-run margin <= 1e-5
+              (a token's k-th minus (k+1)-th probability, an expert's
+              C-th minus (C+1)-th gate), and so must every flip of each
+              layer fed the plain run's input with K11 as the only
+              difference; flips are counted.
+16. llm_vlm — internvl2-1b (24 layers, G=7) with 256 seeded patch
+              embeddings before each prompt: K11 launched 24 times a
+              prefill (S=2,304).
+17. llm_audio — whisper-large-v3 (32 encoder and 32 decoder layers)
+              on seeded frames (2, 1,500, 1,280) and 2 prompts of 4
+              tokens: K11 launched 32 times an encode and 32 times a
+              decode step (the cross-attention), 1,184 a
+              ``greedy_decode``; the prefill is the encoder and the
+              prompt through the decoder's cache.
+              Between models the params are freed and the cache
+              emptied; each LLM line carries its phase's seconds.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -1715,14 +1750,16 @@ def visible_pairs(sq, sk, causal=True, window=0, prefix=0) -> int:
 
 
 def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
-              timed_at=None, **kw):
+              timed_at=None, path=None, **kw):
     """K11 on seeded unit-normal q/k/v against its plain version (f32
     full attention, rounded once to q's dtype): within 1e-5 abs in f32;
     in bf16 both round one f32 result, so within one bf16 ulp
-    (2^-7·|plain| + 1e-6).  Timed rows (the main path's, and
+    (2^-7·|plain| + 1e-6).  Timed rows (the main path's, ``path`` = (the
+    LLM phase, its launch count) a shape another LLM path runs, and
     ``timed_at`` a config's shape outside the ``kernels`` line) take SDPA
-    with ``enable_gqa`` as the library yardstick (causal, no window,
-    prefix or softcap)."""
+    with ``enable_gqa`` and the same mask as the library yardstick
+    (``is_causal``; a boolean mask under a window or prefix; none
+    without the causal mask)."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -1753,8 +1790,10 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
         return row | {"check_only": check_only}
     if timed_at:
         row["timed_at"] = timed_at
-    visible = visible_pairs(sq, sk, **{key: kw[key] for key in kw
-                                       if key != "logit_cap"})
+    if path:
+        row["path"] = path
+    masks = {key: kw[key] for key in kw if key != "logit_cap"}
+    visible = visible_pairs(sq, sk, **masks)
     # Tensor-core bound of the bf16 row: QKᵀ of bf16 operands is exact in
     # f32, so one bf16 pass at the dense rate; P·V takes f32
     # probabilities, which three bf16 pieces carry whole (8 + 8 + 8
@@ -1763,16 +1802,30 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
     products = 2 * b * h * dh * visible              # flops of each GEMM
     b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * k.numel()),
                        (1 + 3) * products, BF16_FLOPS)
+    assert not kw.get("logit_cap"), "SDPA cannot softcap"
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if masks.get("window") or masks.get("prefix"):
+        row_pos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        col = torch.arange(sk, device=dev)[None, :]
+        mask = col <= row_pos if masks.get("causal", True) else col >= 0
+        if masks.get("window"):
+            mask &= ((row_pos - col) < masks["window"]) | (
+                col < masks.get("prefix", 0))
+        lib_kw, what = dict(attn_mask=mask), "a boolean attn_mask"
+    elif masks.get("causal", True):
+        assert sq == sk, "SDPA's is_causal aligns the top left"
+        lib_kw, what = dict(is_causal=True), "is_causal"
+    else:
+        lib_kw, what = {}, "no mask"
     return row | dict(
         ms=cuda_ms(call),
         device_ms=kernel_device_ms(call, ["flash_attention_kernel"]),
         plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms, bound_by=b_by,
         visible_pairs=visible,
-        **library_times(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                     enable_gqa=True)),
-        library="torch scaled_dot_product_attention(is_causal, enable_gqa)")
+        **library_times(lambda: sdpa(qt, kt, vt, enable_gqa=True,
+                                     **lib_kw)),
+        library=f"torch scaled_dot_product_attention({what}, enable_gqa)")
 
 
 def flash_rows(dev, rng):
@@ -1781,12 +1834,17 @@ def flash_rows(dev, rng):
     there, and in f32 and bf16 under a window and prefix, a softcap with
     Dh = 128, without the causal mask with Dh = 48 and with Sq < Sk
     (``check_only``); bf16 at the other registered configs' shapes that
-    reach K11 (B = 2, S = 2,048): stablelm-12b (G = 4, Dh = 160) and
-    qwen2-72b (G = 8, Dh = 128) timed, gemma2-9b (G = 2, Dh = 256,
-    window 4,096, softcap 50: SDPA cannot softcap) and hymba-1.5b's
-    attention (G = 5, Dh = 64, window 1,024, prefix 128) checked; and
-    bf16 at G = 128 (the heads split over CTAs) and at Dh = 36 (rows not
-    16-byte aligned: the kernel's element-wise loads)."""
+    reach K11 (B = 2): stablelm-12b (G = 4, Dh = 160) and qwen2-72b (G =
+    8, Dh = 128) at S = 2,048 timed, gemma2-9b (G = 2, Dh = 256, window
+    4,096, softcap 50: SDPA cannot softcap) checked; the shapes of the
+    other LLM paths timed (``path``): hymba-1.5b's prefill (S = 128 meta
+    tokens + 2,048, G = 5, window 1,024, prefix 128), internvl2-1b's (S
+    = 256 patches + 2,048, G = 7), olmoe-1b-7b's (S = 2,048, G = 1, Dh =
+    128), whisper-large-v3's encoder (1,500 frames, no causal mask) and
+    its cross-attention (Sq = 1 against the 1,500 frames), the last two
+    checked in f32 too; and bf16 at G = 128 (the heads split over CTAs)
+    and at Dh = 36 (rows not 16-byte aligned: the kernel's element-wise
+    loads)."""
     f32, bf16 = torch.float32, torch.bfloat16
     rows = [flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, bf16, causal=True)]
     for dtype in (f32, bf16):
@@ -1812,8 +1870,21 @@ def flash_rows(dev, rng):
                   timed_at="qwen2-72b"),
         flash_row(dev, rng, 2, 2048, 2048, 16, 8, 256, bf16, causal=True,
                   window=4096, logit_cap=50.0, check_only="gemma2-9b"),
-        flash_row(dev, rng, 2, 2048, 2048, 25, 5, 64, bf16, causal=True,
-                  window=1024, prefix=128, check_only="hymba-1.5b"),
+        flash_row(dev, rng, 2, 2176, 2176, 25, 5, 64, bf16, causal=True,
+                  window=1024, prefix=128,
+                  path=("llm_hybrid", "flash_attention")),
+        flash_row(dev, rng, 2, 2304, 2304, 14, 2, 64, bf16, causal=True,
+                  path=("llm_vlm", "flash_attention")),
+        flash_row(dev, rng, 2, 2048, 2048, 16, 16, 128, bf16, causal=True,
+                  path=("llm_moe", "flash_attention")),
+        flash_row(dev, rng, 2, 1500, 1500, 20, 20, 64, bf16, causal=False,
+                  path=("llm_audio", "launches_encode")),
+        flash_row(dev, rng, 2, 1, 1500, 20, 20, 64, bf16, causal=False,
+                  path=("llm_audio", "launches_steps")),
+        flash_row(dev, rng, 2, 1, 1500, 20, 20, 64, f32, causal=False,
+                  check_only="whisper cross-attention, f32"),
+        flash_row(dev, rng, 2, 1500, 1500, 20, 20, 64, f32, causal=False,
+                  check_only="whisper encoder, f32"),
         flash_row(dev, rng, 1, 64, 64, 128, 1, 64, bf16, causal=True,
                   check_only="G=128"),
         flash_row(dev, rng, 2, 300, 300, 4, 2, 36, bf16, causal=True,
@@ -1870,7 +1941,7 @@ def grad_check(dev, rng):
 
 
 def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
-            timed_at=None):
+            timed_at=None, path=None):
     """K12 on tests/test_kernels.py's input distribution (x, B, C unit
     normal, dt = |N(0.1, 0.05)|, A = -|N(1, 0.3)|) against its plain
     version ``ssd_chunked``: y and the final state within 1e-5·(1 +
@@ -1905,6 +1976,8 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
         return row | {"check_only": check_only}
     if timed_at:
         row["timed_at"] = timed_at
+    if path:
+        row["path"] = path
     # The products the function needs: per (b, h, chunk) the decayed
     # lower triangle times dt·x, the state feed and the state update; C Bᵀ
     # (no head axis) once per (b, chunk).  bound_ms charges them on tf32
@@ -1958,13 +2031,14 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
 def llm_kernel_rows(dev, rng):
     """K11's rows (``flash_rows``), then K12 at the mamba2-1.3b prefill
     (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128), at hymba-1.5b's
-    SSD shape (H = 50, N = 16; timed, ``timed_at``), at S = 1,000 (a
+    (S = 2,176: 17 chunks, H = 50, N = 16; timed, ``path``), at S = 1,000 (a
     padded last chunk), at a 37-token prompt (L = 37) and at the CPU
     tests' ragged P/N shapes (``check_only``), then both wrappers' refusal
     under grad (``grad_check``)."""
     rows = flash_rows(dev, rng) + [
         ssd_row(dev, rng, 2, 2048, 64, 64, 128, 128),
-        ssd_row(dev, rng, 2, 2048, 50, 64, 16, 128, timed_at="hymba-1.5b"),
+        ssd_row(dev, rng, 2, 2176, 50, 64, 16, 128,
+                path=("llm_hybrid", "ssd_scan")),
         ssd_row(dev, rng, 2, 1000, 64, 64, 128, 128, check_only="S=1000"),
         ssd_row(dev, rng, 2, 37, 64, 64, 128, 37, check_only="L=37"),
         ssd_row(dev, rng, 1, 64, 1, 8, 8, 16, check_only="P=8, N=8, L=16"),
@@ -2797,25 +2871,97 @@ def delta_phase(dev):
 # ------------------------------------------------------------ LLM serving
 
 LLM_BATCH, LLM_PROMPT, LLM_NEW = 2, 2048, 32
+AUDIO_PROMPT = 4               # whisper's decoder prompt (the source caps at 448)
 LLM_F32_RTOL = 1e-3            # kernel vs plain, f32 model, × (1 + max|logits|)
+# a route of the f32 moe model may differ between the kernel and plain
+# runs only where the plain run's margin (a token's k-th minus (k+1)-th
+# probability, or an expert's C-th minus (C+1)-th gate) is at most this
+MOE_TIE = 1e-5
+# (phase, config) of every LLM path, in the order they run
+LLM_PHASES = (("llm_dense", "tinyllama-1.1b"), ("llm_ssm", "mamba2-1.3b"),
+              ("llm_hybrid", "hymba-1.5b"), ("llm_moe", "olmoe-1b-7b"),
+              ("llm_vlm", "internvl2-1b"), ("llm_audio", "whisper-large-v3"))
 
 
-def decode_chain(params, cfg, prompts, impl, n_new=None, feed=None):
-    """``make_prefill_step`` (last position only) then ``n_new``
-    ``make_serve_step`` calls, the steps ``greedy_decode`` chains, each
-    fed the last step's argmax or, with ``feed`` (B, n_new), that token
-    instead: (prefill ms, decode ms a token, logits (n_new + 1, B, Vp)
-    f32 — the prefill's last position, then each step's —, tokens
-    (B, n_new), the argmaxes of the first n_new)."""
+def llm_batch(cfg, dev):
+    """The seeded numpy inputs of a path: 2 prompts (2,048 tokens, 4 for
+    the audio decoder), the vlm's stub patch embeddings (2, 256, D) and
+    audio's stub frame embeddings (2, 1,500, D)."""
+    rng = np.random.default_rng(SEED)
+    n = AUDIO_PROMPT if cfg.family == "audio" else LLM_PROMPT
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LLM_BATCH, n)).astype(np.int32)).to(dev)}
+    extra = {"vlm": ("patches", cfg.vision_tokens),
+             "audio": ("frames", cfg.enc_seq)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = torch.from_numpy(rng.normal(size=(
+            LLM_BATCH, extra[1], cfg.d_model)).astype(np.float32)).to(dev)
+    return batch
+
+
+def extra_of(cfg, batch):
+    """``greedy_decode``'s ``extra_embeds``: patches or frames."""
+    return batch.get("patches", batch.get("frames"))
+
+
+def path_launches(cfg, n_prompt, n_new):
+    """The kernel launches one ``greedy_decode`` makes: K11 once per
+    attention layer of the prefill, K12 once per Mamba2 mixer; audio's K11
+    once per encoder layer and per decoder layer of every decode step
+    (the prompt's and the new tokens')."""
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.enc_layers
+                + cfg.n_layers * (n_prompt + n_new)}
+    out = {}
+    if cfg.family != "ssm":
+        out["flash_attention"] = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        out["ssd_scan"] = cfg.n_layers
+    return out
+
+
+def serving_steps(cfg, batch, impl):
+    """(prefill, step): the engine's ``make_prefill_step`` (last position
+    only, the context ``greedy_decode`` sizes) and ``make_serve_step``;
+    for audio the prefill is the encoder, the cross K/V and the prompt
+    teacher-forced through the decoder's cache, as ``greedy_decode``
+    runs them.  prefill(params) -> (logits (B,1,Vp), caches, next
+    index)."""
+    from repro_torch.models import api, encdec
     from repro_torch.serve import make_prefill_step, make_serve_step
 
+    step = make_serve_step(cfg, impl=impl)
+    toks = batch["tokens"]
+    if cfg.family == "audio":
+        @torch.no_grad()
+        def prefill(params):
+            memory = encdec.encode(params, cfg, batch["frames"], impl=impl)
+            caches = api.init_serve_state(params, cfg, LLM_BATCH,
+                                          toks.shape[1] + LLM_NEW,
+                                          memory=memory)
+            for t in range(toks.shape[1]):
+                _, logits, caches = step(params, caches, t, toks[:, t])
+            return logits[:, None], caches, toks.shape[1]
+        return prefill, step
+    extra = batch.get("patches")
+    ctx = (toks.shape[1] + LLM_NEW + cfg.hybrid_meta_tokens
+           + (extra.shape[1] if extra is not None else 0))
+    pre = make_prefill_step(cfg, context_len=ctx, impl=impl, last_only=True)
+    return (lambda params: pre(params, batch)), step
+
+
+def decode_chain(params, cfg, batch, impl, n_new=None, feed=None):
+    """``serving_steps``' prefill then ``n_new`` serve steps, the steps
+    ``greedy_decode`` chains, each fed the last step's argmax or, with
+    ``feed`` (B, n_new), that token instead: (prefill ms, decode ms a
+    token, logits (n_new + 1, B, Vp) f32 — the prefill's last position,
+    then each step's —, tokens (B, n_new), the argmaxes of the first
+    n_new)."""
     n_new = LLM_NEW if n_new is None else n_new
-    prefill = make_prefill_step(cfg, context_len=LLM_PROMPT + LLM_NEW,
-                                impl=impl, last_only=True)
-    step = make_serve_step(cfg)
+    prefill, step = serving_steps(cfg, batch, impl)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches, nxt = prefill(params, {"tokens": prompts})
+    logits, caches, nxt = prefill(params)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     steps = [logits[:, -1].float()]
@@ -2839,8 +2985,8 @@ def top2_margin(logits):
     return top2[..., 0] - top2[..., 1]
 
 
-def ssd_layer_probe(params, cfg32, prompts):
-    """K12 on the inputs every Mamba2 layer of the f32 model gives it in
+def ssd_layer_probe(params, cfg32, batch, tag):
+    """K12 on the inputs every Mamba2 mixer of the f32 model gives it in
     one prefill, against its plain version in f32 and in float64 on the
     same inputs: per layer, max|cum| (the largest decay exponent of a
     chunk), max|y|, the kernel's distance to the plain version, and the
@@ -2857,7 +3003,6 @@ def ssd_layer_probe(params, cfg32, prompts):
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    from repro_torch.serve import make_prefill_step
 
     op, layers = ssd_ops.ssd_scan, []
 
@@ -2881,8 +3026,7 @@ def ssd_layer_probe(params, cfg32, prompts):
 
     ssd_ops.ssd_scan = probe
     try:
-        make_prefill_step(cfg32, context_len=LLM_PROMPT, last_only=True)(
-            params, {"tokens": prompts})
+        serving_steps(cfg32, batch, None)[0](params)
     finally:
         ssd_ops.ssd_scan = op
     faults = []
@@ -2890,59 +3034,171 @@ def ssd_layer_probe(params, cfg32, prompts):
         for what, scale in (("y", r["max_y"]), ("state", r["max_state"])):
             k, p = r[f"{what}_kernel_vs_f64"], r[f"{what}_plain_vs_f64"]
             if r[f"{what}_kernel_vs_plain"] > 1e-5 * (1 + scale):
-                faults.append(f"ssd_scan, mamba2 layer {i}: {what} "
+                faults.append(f"ssd_scan, {tag} layer {i}: {what} "
                               f"{r[what + '_kernel_vs_plain']} from the plain "
                               f"version > 1e-5·(1 + {scale})")
             if k > 2 * p + 1e-6 * (1 + scale):
-                faults.append(f"ssd_scan, mamba2 layer {i}: {what} {k} from "
+                faults.append(f"ssd_scan, {tag} layer {i}: {what} {k} from "
                               f"the float64 scan, more than twice the plain "
                               f"f32 version's {p}")
     return layers, faults
 
 
-def scan64_chain(params, cfg32, prompts, feed):
-    """``decode_chain`` of the f32 model with every prefill scan run in
-    float64 (the plain version on f64 inputs, rounded once to f32), fed
-    ``feed``: the witness the kernel's and the plain version's f32 scans
-    are both measured from (decode runs no scan, so the three runs differ
-    in the prefill's scans alone)."""
+def _attention64(q, k, v, *, causal=True, window=0, prefix=0,
+                 logit_cap=0.0, impl=None):
+    """K11's function (suffix-aligned positions) in float64, rounded once
+    to q's dtype: the witness ``mixer64_chain`` runs."""
+    from repro_torch.models.attention import _mask
+
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, sq, kvh, h // kvh, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) * dh ** -0.5
+    if logit_cap:
+        s = torch.tanh(s / logit_cap) * logit_cap
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    mask = _mask(q_pos, torch.arange(sk, device=q.device), causal=causal,
+                 window=window, prefix=prefix)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.double())
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def mixer64_chain(params, cfg32, batch, feed):
+    """``decode_chain`` of the f32 model with every prefill attention
+    (K11's function) and every scan run in float64 (rounded once to
+    f32), fed ``feed``: the witness the kernel's and the plain versions'
+    f32 runs are both measured from (decode runs neither op, so the runs
+    differ in the prefill's mixers alone)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
-    op = ssd_ops.ssd_scan
+    ops = fa_ops.flash_attention, ssd_ops.ssd_scan
 
     def scan64(x, dt, A, B, C, *, chunk=128, impl=None):
         y, st = ssd_ref.ssd_scan(*(t.double() for t in (x, dt, A, B, C)),
                                  chunk)
         return y.float(), st.float()
 
-    ssd_ops.ssd_scan = scan64
+    fa_ops.flash_attention, ssd_ops.ssd_scan = _attention64, scan64
     try:
-        return decode_chain(params, cfg32, prompts, "ref", feed=feed)
+        return decode_chain(params, cfg32, batch, "ref", feed=feed)
     finally:
-        ssd_ops.ssd_scan = op
+        fa_ops.flash_attention, ssd_ops.ssd_scan = ops
 
 
-def llm_profile(params, cfg, prompts, kernel):
-    """Device time, wall and top device ops of one prefill and of one
-    decode step (kernels), ``torch.profiler`` over 3 calls each, and the
-    device time of ``kernel``'s launches (every CUDA function whose name
-    starts with it: K12's ``ssd_scan_cb_kernel`` and
+class RouteRecorder:
+    """Records the routing of every MoE layer call (``moe._route``) while
+    active: (gates, probs, top_i) of each call, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.op, self.calls = moe_mod, moe_mod._route, []
+
+        def route(xf, router, e, k):
+            out = self.op(xf, router, e, k)
+            self.calls.append((out[0], out[1], out[3]))
+            return out
+        moe_mod._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.op
+
+
+def route_flips(plain, kernel, moe_cfg):
+    """Per routing call, the routes the kernel run takes where the plain
+    run takes others: tokens whose k experts differ, with the plain run's
+    margin (the token's k-th minus (k+1)-th probability), and experts
+    whose top-C tokens differ, with the plain run's margin (the expert's
+    C-th minus (C+1)-th gate; 0 where C is every token).  An expert that
+    a flipped token leaves or joins changes its tokens for that reason:
+    such experts are counted apart (``experts_moved``) and carry no
+    margin.  -> one dict for each call with any flip, in call order."""
+    from repro_torch.models import moe as moe_mod
+
+    out = []
+    for j, ((g_p, p_p, i_p), (g_k, _, i_k)) in enumerate(zip(plain, kernel)):
+        t, k = i_p.shape
+        a, b = i_p.sort(1).values, i_k.sort(1).values
+        tok = (a != b).any(1)
+        c = moe_mod.capacity(t, moe_cfg)
+        exp = (moe_mod.top_k(g_p.T, c)[1].sort(1).values
+               != moe_mod.top_k(g_k.T, c)[1].sort(1).values).any(1)
+        if not (bool(tok.any()) or bool(exp.any())):
+            continue
+        moved = torch.zeros_like(exp)
+        for row_a, row_b in zip(a[tok].tolist(), b[tok].tolist()):
+            moved[list(set(row_a) ^ set(row_b))] = True
+        own = exp & ~moved
+        top = torch.topk(p_p, min(k + 1, p_p.shape[1]), dim=1).values
+        tok_margin = (top[:, k - 1] - top[:, k])[tok]
+        exp_margin = torch.zeros(int(own.sum()), device=g_p.device)
+        if c < t and bool(own.any()):
+            gtop = torch.topk(g_p.T, c + 1, dim=1).values
+            exp_margin = (gtop[:, c - 1] - gtop[:, c])[own]
+        out.append(dict(
+            call=j, tokens=int(tok.sum()),
+            token_margin=float(tok_margin.max()) if bool(tok.any()) else 0.0,
+            experts=int(own.sum()),
+            expert_margin=(float(exp_margin.max()) if bool(own.any())
+                           else 0.0),
+            experts_moved=int((exp & moved).sum())))
+    return out
+
+
+def flip_margin(flip) -> float:
+    return max(flip["token_margin"], flip["expert_margin"])
+
+
+def moe_block_probe(params, cfg32, batch):
+    """Each MoE layer of the f32 model on the plain run's input to it in
+    one prefill (the plain blocks chained), as a block with K11 and as a
+    block with the plain attention: the routes the two blocks take may
+    differ only at near ties (``MOE_TIE``), since K11 alone sets them
+    apart.  Returns (per-layer flips, faults)."""
+    from repro_torch.models import transformer
+
+    flips, faults = [], []
+    with torch.no_grad():
+        x, _ = transformer.embed_inputs(params, cfg32, batch["tokens"])
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        wins = transformer.layer_windows(cfg32)
+        for i in range(cfg32.n_layers):
+            lp = transformer._layer_params(params, i)
+            with RouteRecorder() as rk:
+                transformer.block_forward(lp, x, cfg32, pos, wins[i], None)
+            with RouteRecorder() as rp:
+                x, _ = transformer.block_forward(lp, x, cfg32, pos, wins[i],
+                                                 "ref")
+            for f in route_flips(rp.calls, rk.calls, cfg32.moe):
+                flips.append(dict(f, layer=i))
+                if flip_margin(f) > MOE_TIE:
+                    faults.append(f"moe layer {i} fed the plain input: a "
+                                  f"route flips at plain margin "
+                                  f"{flip_margin(f)} > {MOE_TIE}")
+    return flips, faults
+
+
+def llm_profile(params, cfg, batch, kernels):
+    """Device time, wall and top device ops of one prefill (audio: the
+    encoder and the prompt through the decoder) and of one decode step
+    (kernels), ``torch.profiler`` over 3 calls each, and the device time
+    of ``kernels``' launches (every CUDA function whose name starts with
+    one of them: K12's ``ssd_scan_cb_kernel`` and
     ``ssd_scan_chunk_kernel``) with its share."""
-    from repro_torch.serve import make_prefill_step, make_serve_step
-
-    prefill = make_prefill_step(cfg, context_len=LLM_PROMPT + LLM_NEW,
-                                last_only=True)
-    logits, caches, nxt = prefill(params, {"tokens": prompts})
+    prefill, step = serving_steps(cfg, batch, None)
+    logits, caches, nxt = prefill(params)
     cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    step = make_serve_step(cfg)
     out = {}
-    for name, fn in (("prefill", lambda: prefill(params,
-                                                 {"tokens": prompts})),
+    for name, fn in (("prefill", lambda: prefill(params)),
                      ("decode_step", lambda: step(params, caches, nxt,
                                                   cur))):
         per_name, device_ms, wall_ms = profile_device(fn, reps=3)
-        mine = sum(t for k, t in per_name.items() if kernel + "_" in k)
+        mine = sum(t for k, t in per_name.items()
+                   if any(kn + "_" in k for kn in kernels))
         out[name] = dict(
             device_ms=device_ms, wall_ms=wall_ms,
             busy=device_ms / wall_ms if device_ms else None,
@@ -2952,26 +3208,60 @@ def llm_profile(params, cfg, prompts, kernel):
     return out
 
 
-def llm_phase(dev, arch, kernel):
-    """One config of the LLM serving slice at full width: seeded
-    ``torch.Generator`` params on the card, 2 prompts of 2,048 seeded
-    numpy tokens, ``greedy_decode`` of 32 new tokens with the kernels
-    (``kernel`` launched once per layer, in the prefill), then the
-    engine's prefill and serve steps with the kernels (timed, 3 runs,
-    bitwise equal) and with every plain version.
+def audio_launches(params, cfg, batch):
+    """K11's launches in one encode and in one decode step of the audio
+    path: every encoder layer, every decoder layer's cross-attention."""
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.models import encdec
+
+    with torch.no_grad():
+        reset_launches()
+        memory = encdec.encode(params, cfg, batch["frames"])
+        torch.cuda.synchronize()
+        enc = {k: v for k, v in LAUNCHES.items() if v}
+        caches = encdec.init_decode_state(params, cfg, LLM_BATCH, 8, memory)
+        reset_launches()
+        encdec.decode_step(params, cfg, caches, 0, batch["tokens"][:, 0])
+        torch.cuda.synchronize()
+        step = {k: v for k, v in LAUNCHES.items() if v}
+    if enc != {"flash_attention": cfg.enc_layers} or step != {
+            "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"{cfg.arch_id}: an encode launched {enc}, a "
+                             f"decode step {step}; expected flash_attention"
+                             f" = {cfg.enc_layers} and {cfg.n_layers}")
+    return enc["flash_attention"], step["flash_attention"]
+
+
+def llm_phase(dev, phase, arch):
+    """One config of the LLM serving slice at full width and depth: seeded
+    ``torch.Generator`` params on the card, the seeded numpy inputs of
+    ``llm_batch``, ``greedy_decode`` of 32 new tokens with the kernels
+    (launched as ``path_launches`` says), then the engine's prefill and
+    serve steps with the kernels (timed, 3 runs, bitwise equal) and with
+    every plain version.
 
     The end-to-end gate is the same model in f32 (the config's dtype set
     to float32): the plain versions decode 32 tokens freely, and the
     kernels decode fed those same tokens.  The kernel run's logits at
     the prefill's last position within ``LLM_F32_RTOL``·(1 +
-    max|logits|) of the plain run's, and at every step too; for the ssm
-    model, whose 48 random layers and state recurrence grow an f32 gap
-    step by step, a step past that bound passes only within a tenth of
-    the plain run's distance to the same model with float64 scans
-    (``scan64_chain``), the f32 model's own error.  Argmax tokens follow
-    from the logits wherever the top-2 margin is above twice the bound;
-    they are counted.  ``ssd_layer_probe`` holds K12 on every Mamba2
-    layer's inputs against its plain version and a float64 scan.  In the config's bf16, random layers turn
+    max|logits|) of the plain run's, and at every step too, but where:
+    - ssm, whose 48 random layers and state recurrence grow an f32 gap
+      step by step: a step past that bound passes only within a tenth of
+      the plain run's distance to the same model with float64 scans
+      (``mixer64_chain``), the f32 model's own error;
+    - hybrid: past that bound, the kernel run may lie at most twice the
+      plain run's distance to the same model with float64 prefill
+      attention and scans from the plain run;
+    - moe: a route that flips (a token's experts, an expert's tokens)
+      moves the logits by far more than the bound, so the bound holds at
+      the positions before the first flip of the chain; at that first
+      flip, and in every layer fed the plain run's input with K11 as the
+      only difference (``moe_block_probe``), each flipped route must sit
+      at a plain-run margin <= ``MOE_TIE``; flips are counted.
+    Argmax tokens follow from the logits wherever the top-2 margin is
+    above twice the bound; they are counted.  ``ssd_layer_probe`` holds
+    K12 on every Mamba2 mixer's inputs against its plain version and a
+    float64 scan (ssm, hybrid).  In the config's bf16, random layers turn
     one flipped rounding into differences as large as bf16's own error
     (for mamba2 larger than the logits), so the bf16 runs are held to
     finiteness, determinism and the engine's own chaining, and their
@@ -2985,28 +3275,36 @@ def llm_phase(dev, arch, kernel):
     from repro_torch.models import api
     from repro_torch.serve import greedy_decode
 
+    t_phase = time.perf_counter()
     cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(SEED, cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)).to(dev)
-    greedy_decode(params, cfg, prompts[:, :64], 2)       # first use, untimed
+    batch = llm_batch(cfg, dev)
+    prompts, extra = batch["tokens"], extra_of(cfg, batch)
+    greedy_decode(params, cfg, prompts[:, :64], 2,
+                  extra_embeds=extra)                   # first use, untimed
     reset_launches()
     t0 = time.perf_counter()
-    tokens = greedy_decode(params, cfg, prompts, LLM_NEW)
+    tokens = greedy_decode(params, cfg, prompts, LLM_NEW, extra_embeds=extra)
     torch.cuda.synchronize()
     greedy_s = time.perf_counter() - t0
     launched = {k: v for k, v in LAUNCHES.items() if v}
-    if launched != {kernel: cfg.n_layers}:
-        raise AssertionError(f"{arch}: launches {launched}, expected "
-                             f"{kernel} = {cfg.n_layers} per prefill")
-    runs = [decode_chain(params, cfg, prompts, None) for _ in range(3)]
+    want = path_launches(cfg, prompts.shape[1], LLM_NEW)
+    if launched != want:
+        raise AssertionError(f"{arch}: launches {launched}, expected {want}")
+    extra_row = {}
+    if cfg.family == "audio":
+        enc, per_step = audio_launches(params, cfg, batch)
+        extra_row = dict(launches_encode=enc, launches_per_step=per_step,
+                         launches_steps=per_step * (prompts.shape[1]
+                                                    + LLM_NEW))
+    runs = [decode_chain(params, cfg, batch, None) for _ in range(3)]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = llm_profile(params, cfg, prompts, kernel)
-    plain = decode_chain(params, cfg, prompts, "ref")
+    prof = llm_profile(params, cfg, batch, list(want))
+    plain = decode_chain(params, cfg, batch, "ref")
     _, _, logits, k_toks = runs[0]
     for _, _, lg, tk in runs[1:]:
         if not (torch.equal(lg, logits) and torch.equal(tk, k_toks)):
@@ -3018,15 +3316,27 @@ def llm_phase(dev, arch, kernel):
         raise AssertionError(f"{arch}: non-finite logits or bad tokens")
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = decode_chain(params, cfg32, prompts, "ref")
-    k32 = decode_chain(params, cfg32, prompts, None, feed=p32[3])
+    with RouteRecorder() as rec_p:
+        p32 = decode_chain(params, cfg32, batch, "ref")
+    with RouteRecorder() as rec_k:
+        k32 = decode_chain(params, cfg32, batch, None, feed=p32[3])
     gap = lambda a, b: float((a - b).abs().max())
     err32, err32_prefill = gap(k32[2], p32[2]), gap(k32[2][0], p32[2][0])
     tol32 = LLM_F32_RTOL * (1 + float(p32[2].abs().max()))
-    faults, extra = [], {}
+    step_errs = (k32[2] - p32[2]).abs().amax((1, 2))
+    faults = []
     if not bool(torch.isfinite(k32[2]).all()):
         faults.append("non-finite f32 kernel logits")
-    if err32_prefill > tol32:
+    if cfg.family in ("ssm", "hybrid"):
+        w64 = mixer64_chain(params, cfg32, batch, p32[3])[2]
+        d_k, d_p = gap(k32[2], w64), gap(p32[2], w64)
+        layers, bad = ssd_layer_probe(params, cfg32, batch, arch)
+        faults += bad
+        extra_row |= dict(f32_kernel_vs_mixer64=d_k, f32_plain_vs_mixer64=d_p,
+                          k12_layers=layers, k12_layers_max={
+                              key: max(r[key] for r in layers)
+                              for key in layers[0]})
+    if err32_prefill > tol32 and cfg.family not in ("hybrid", "moe"):
         faults.append(f"f32 prefill logits, kernel vs plain {err32_prefill}"
                       f" > {tol32}")
     if cfg.family == "ssm":
@@ -3035,18 +3345,39 @@ def llm_phase(dev, arch, kernel):
         # same model with float64 scans lies d_p from the f32 plain run.
         # Past tol32, the kernel run may differ from the plain run by at
         # most a tenth of that, the f32 model's own error.
-        w64 = scan64_chain(params, cfg32, prompts, p32[3])[2]
-        d_k, d_p = gap(k32[2], w64), gap(p32[2], w64)
         if err32 > tol32 and err32 > 0.1 * d_p:
             faults.append(f"f32 logits, kernel vs plain {err32} > {tol32} "
                           f"and > a tenth of the plain run's distance {d_p} "
                           "to the float64-scan model")
-        layers, bad = ssd_layer_probe(params, cfg32, prompts)
+    elif cfg.family == "hybrid":
+        if err32 > tol32 and err32 > 2 * d_p:
+            faults.append(f"f32 logits, kernel vs plain {err32} > {tol32} "
+                          f"and > twice the plain run's distance {d_p} to "
+                          "the float64-mixer model")
+    elif cfg.family == "moe":
+        flips = route_flips(rec_p.calls, rec_k.calls, cfg.moe)
+        probe_flips, bad = moe_block_probe(params, cfg32, batch)
         faults += bad
-        extra = dict(f32_kernel_vs_scan64=d_k, f32_plain_vs_scan64=d_p,
-                     k12_layers=layers, k12_layers_max={
-                         key: max(r[key] for r in layers)
-                         for key in layers[0]})
+        # call j routes layer j % L of position j // L (0: the prefill)
+        first = (flips[0]["call"] // cfg.n_layers if flips
+                 else len(step_errs))
+        clean = float(step_errs[:first].max()) if first else 0.0
+        if clean > tol32:
+            faults.append(f"f32 logits before the first route flip, kernel "
+                          f"vs plain {clean} > {tol32}")
+        if flips and flip_margin(flips[0]) > MOE_TIE:
+            faults.append(f"the chain's first route flip ({flips[0]}) at "
+                          f"plain margin {flip_margin(flips[0])} > "
+                          f"{MOE_TIE}")
+        extra_row |= dict(
+            route_calls=len(rec_p.calls), route_flip_calls=len(flips),
+            route_flipped_tokens=sum(f["tokens"] for f in flips),
+            route_flipped_experts=sum(f["experts"] for f in flips),
+            route_first_flip=flips[0] if flips else None,
+            route_flip_max_margin=max(map(flip_margin, flips), default=0.0),
+            f32_positions_before_flip=first, f32_err_before_flip=clean,
+            f32_positions_over_bound=int((step_errs > tol32).sum()),
+            probe_flips=probe_flips)
     elif err32 > tol32:
         faults.append(f"f32 logits, kernel vs plain {err32} > {tol32}")
     # equal argmaxes follow from the logit gate where the margin is above
@@ -3054,16 +3385,15 @@ def llm_phase(dev, arch, kernel):
     sure = (top2_margin(p32[2][:-1]) > 2 * tol32).T          # (B, n_new)
     first = logits[0]
     row = dict(
-        phase="llm_dense" if cfg.family == "dense" else "llm_ssm",
-        arch=arch, batch=LLM_BATCH, prompt=LLM_PROMPT, new_tokens=LLM_NEW,
-        dtype=cfg.dtype, params=sum(t.numel() for t in _leaves(params)),
+        phase=phase, arch=arch, batch=LLM_BATCH, prompt=prompts.shape[1],
+        new_tokens=LLM_NEW, dtype=cfg.dtype,
+        params=sum(t.numel() for t in _leaves(params)),
         init_s=init_s, greedy_s=greedy_s, launches=launched,
         prefill_ms=[r[0] for r in runs], decode_ms_per_token=[
             r[1] for r in runs], plain_prefill_ms=plain[0],
         plain_decode_ms_per_token=plain[1], peak_mem_gb=peak_gb,
         f32_logits_err=err32, f32_prefill_logits_err=err32_prefill,
-        f32_tol=tol32, f32_step_errs=(k32[2] - p32[2]).abs().amax(
-            (1, 2)).tolist(),
+        f32_tol=tol32, f32_step_errs=step_errs.tolist(),
         f32_logits_max_abs=float(p32[2].abs().max()),
         f32_tokens_equal=int((k32[3] == p32[3]).sum()),
         f32_tokens_above_margin=int(sure.sum()),
@@ -3075,11 +3405,12 @@ def llm_phase(dev, arch, kernel):
         bf16_tokens_equal_steps=int((k_toks == plain[3]).all(0).to(
             torch.int64).cumprod(0).sum()),
         bf16_min_margin=float(top2_margin(logits[:-1]).min()),
-        tokens=tokens[0, :8].tolist(), profile=prof) | extra
-    emit({key: v for key, v in row.items() if key != "k12_layers"})
-    del params, runs, plain, p32, k32
+        tokens=tokens[0, :8].tolist(), profile=prof) | extra_row
+    del params, runs, plain, p32, k32, rec_p, rec_k
     gc.collect()
     torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit({key: v for key, v in row.items() if key != "k12_layers"})
     if faults:
         raise AssertionError(f"{arch}: " + "; ".join(faults))
     return row
@@ -3129,16 +3460,20 @@ def spilled(report: str):
 
 
 ONLY = {"llm-kernels": ["flash_attention", "ssd_scan"],
+        "llm-paths": ["flash_attention", "ssd_scan"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
         "bottom-kernels": ["splitnn_bottom"],
         "psi-kernels": ["psi_prf", "sorted_intersect"]}
 
 
 def main(argv) -> int:
-    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ONLY:
-        print("usage: chip_smoke.py [--only llm-kernels|kmeans-kernels|"
-              "bottom-kernels|psi-kernels]", file=sys.stderr)
+    only = argv[1] if len(argv) >= 2 and argv[0] == "--only" else None
+    phases = argv[2:] if only == "llm-paths" else []
+    if (argv and only not in ONLY or len(argv) > 2 and not phases
+            or not set(phases) <= {p for p, _ in LLM_PHASES}):
+        print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
+              "...]|kmeans-kernels|bottom-kernels|psi-kernels]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3154,7 +3489,7 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(ONLY.get(only))
     sass = ssd_sass = None
-    if only in (None, "llm-kernels"):
+    if only in (None, "llm-kernels", "llm-paths"):
         # K11's bf16 instances must run both products on the tensor cores;
         # K12's census is a record (its products are f32 FMAs, PERF.md)
         sass = sass_census("flash_attention")
@@ -3221,6 +3556,15 @@ def main(argv) -> int:
     if no_mma or not any("bf16_mma" in fn for fn in sass):
         raise AssertionError(f"flash_attention: bf16 instances without "
                              f"tensor-core instructions: {no_mma or sass}")
+    if only == "llm-paths":
+        # the LLM serving paths (all, or the phases named): the quick check
+        # of an edit to the models or the engine (not the contract run)
+        for phase, arch in LLM_PHASES:
+            if not phases or phase in phases:
+                llm_phase(dev, phase, arch)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     if only == "llm-kernels":
         # K11 and K12 against their plain versions, and the grad refusal:
         # the quick check of an edit to those kernels (not the contract run)
@@ -3260,27 +3604,35 @@ def main(argv) -> int:
         launches = launches | {k: qrow["launches"][k] for k in names}
         pipe_rows += serve_phase(dev, qrep.train.params, train_cfg(
             "mlp", 0.01, 70_000, 200), quant=quant)
-    # K11 and K12 count on their own main paths, one prefill each
-    dense = llm_phase(dev, "tinyllama-1.1b", "flash_attention")
-    ssm = llm_phase(dev, "mamba2-1.3b", "ssd_scan")
-    launches = launches | dense["launches"] | ssm["launches"]
-    worst = ssm["k12_layers_max"]
-    rows.append(dict(
-        name="ssd_scan", check_only="mamba2-1.3b layer inputs, f32 model, "
-        "vs a float64 scan", max_abs_err=worst["y_kernel_vs_plain"],
-        max_abs_y=worst["max_y"], max_cum=worst["max_cum"],
-        kernel_vs_f64=worst["y_kernel_vs_f64"],
-        plain_vs_f64=worst["y_plain_vs_f64"]))
-    pipe_rows += [dense, ssm]
+    # K11 and K12 count on their own main paths, one greedy_decode each:
+    # the K11/K12 rows on tinyllama and mamba2, a ``path`` row on its own
+    llm = {phase: llm_phase(dev, phase, arch) for phase, arch in LLM_PHASES}
+    launches = (launches | llm["llm_dense"]["launches"]
+                | llm["llm_ssm"]["launches"])
+    for phase, arch in LLM_PHASES[1:3]:
+        worst = llm[phase]["k12_layers_max"]
+        rows.append(dict(
+            name="ssd_scan", check_only=f"{arch} layer inputs, f32 model, "
+            "vs a float64 scan", max_abs_err=worst["y_kernel_vs_plain"],
+            max_abs_y=worst["max_y"], max_cum=worst["max_cum"],
+            kernel_vs_f64=worst["y_kernel_vs_f64"],
+            plain_vs_f64=worst["y_plain_vs_f64"]))
+    pipe_rows += list(llm.values())
     kernels = []
     for r in rows:
         if "check_only" in r or "timed_at" in r:
             continue
+        if "path" in r:
+            phase, key = r["path"]
+            n = llm[phase]["launches"].get(key, llm[phase].get(key))
+        else:
+            n = launches[r["name"]]
         kernels.append({key: r[key] for key in (
-            "name", "route", "source", "replaces")} | {
-            "launches": launches[r["name"]]} | {key: r[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")})
+            "name", "route", "source", "replaces")} | {"launches": n} | {
+            key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+            | ({"path": r["path"][0], "shape": r["shape"]} if "path" in r
+               else {}))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

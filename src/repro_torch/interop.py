@@ -47,8 +47,14 @@ def params_to_numpy(params):
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
 
 
-#: the reference's ``init_lm`` tree (``embed``, stacked ``layers`` with a
-#: leading L axis, ``final_norm``, ``lm_head``; f32 in every config) as the
-#: same tree of f32 tensors, in the same layout (GQA weights (d, H, Dh),
-#: ``lm_head`` (d, Vp)): the conversion ``params_from_jax`` makes
+#: an LLM's params as the reference lays them out, as the same tree of
+#: f32 tensors in the same layout (the conversion ``params_from_jax``
+#: makes; f32 in every config): ``init_lm``'s (``embed``, stacked
+#: ``layers`` with a leading L axis, ``final_norm``, ``lm_head``; GQA
+#: weights (d, H, Dh), ``lm_head`` (d, Vp)), with the moe layers'
+#: ``moe`` (``router`` (d, E), expert slabs (E, d, F) and (E, F, d)), the
+#: hybrid layers' ``mamba`` and norms and ``meta_tokens`` (M, d), the
+#: vlm's ``vision_proj`` (d, d); and ``init_encdec``'s (``embed``,
+#: ``dec_pos_embed``, stacked ``enc_layers``/``dec_layers`` with
+#: LayerNorm ``scale``/``bias``, ``enc_final_norm``, ``dec_final_norm``)
 lm_params_from_jax = params_from_jax

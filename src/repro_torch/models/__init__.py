@@ -1,3 +1,4 @@
 """The LLM substrate, ported: configs' models as params + functions
-(``api`` dispatches on the family; ``transformer`` assembles the dense
-and ssm decoders from ``attention``, ``ssm`` and ``layers``)."""
+(``api`` dispatches on the family; ``transformer`` assembles the
+decoder-only families from ``attention``, ``ssm``, ``moe`` and
+``layers``; ``encdec`` the audio encoder-decoder)."""

@@ -1,12 +1,12 @@
 """Unified model API (the port of ``repro/models/api.py``):
 ``init_params(seed, cfg)``, ``forward(params, cfg, batch)``,
 ``init_serve_state(...)`` / ``serve_decode_step(...)`` dispatch on
-``cfg.family``.  The port serves the dense and ssm families; audio
-(whisper's encoder-decoder) raises ``NotImplementedError``, as the moe,
-hybrid and vlm families do in ``transformer`` (ROADMAP.md queue 7).
+``cfg.family``: the encoder-decoder (audio, whisper) to ``encdec``,
+every decoder-only family to ``transformer``.
 
-Batch dict keys: ``tokens`` (B,S) int32 (the vlm family's ``patches``
-and audio's ``frames`` come with those families).
+Batch dict keys: ``tokens`` (B,S) int32; ``patches`` (B,vision_tokens,D)
+for the vlm family (stub patch embeddings); ``frames`` (B,enc_seq,D) for
+audio (stub frame embeddings).
 """
 from __future__ import annotations
 
@@ -16,17 +16,10 @@ import torch
 
 from repro_torch.config import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
-__all__ = ["init_params", "forward", "init_serve_state",
+__all__ = ["init_params", "extra_embeds_of", "forward", "init_serve_state",
            "serve_decode_step"]
-
-
-def _no_audio(cfg: ArchConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the audio (encoder-decoder) family is not "
-            "ported yet (ROADMAP.md queue 7)")
 
 
 def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
@@ -34,26 +27,47 @@ def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
     """Random params: ``key`` is a seed, drawn from a generator on
     ``device`` (``None``: the CUDA device), or a ``torch.Generator``,
     whose device they go to."""
-    _no_audio(cfg)
     if isinstance(key, torch.Generator):
         resolve_device(key.device)
-        return transformer.init_lm(key, cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(key)
+        gen = key
+    else:
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(key)
+    if cfg.family == "audio":
+        return encdec.init_encdec(gen, cfg)
     return transformer.init_lm(gen, cfg)
+
+
+def extra_embeds_of(cfg: ArchConfig, batch: Dict[str, Any]):
+    """The embeddings a decoder-only family prepends: the vlm's patches."""
+    if cfg.family == "vlm":
+        return batch["patches"]
+    return None
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, Any], *,
             impl: Optional[str] = None):
     """Full-sequence forward -> (logits, aux_loss, n_prefix)."""
-    _no_audio(cfg)
-    return transformer.forward_lm(params, cfg, batch["tokens"], impl=impl)
+    if cfg.family == "audio":
+        logits = encdec.forward_encdec(params, cfg, batch["tokens"],
+                                       batch["frames"], impl=impl)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device), 0
+    return transformer.forward_lm(params, cfg, batch["tokens"],
+                                  extra_embeds_of(cfg, batch), impl=impl)
 
 
 # ------------------------------------------------------------------ serving
 
 def init_serve_state(params, cfg: ArchConfig, batch: int, context_len: int,
-                     *, device=None):
-    _no_audio(cfg)
+                     *, memory: Optional[torch.Tensor] = None, device=None):
+    """Decode caches; the audio family's also hold the cross K/V of the
+    encoder ``memory``, which it needs."""
+    if cfg.family == "audio":
+        if memory is None:
+            raise ValueError(f"{cfg.arch_id}: decoding needs the encoder "
+                             "memory (memory=)")
+        return encdec.init_decode_state(params, cfg, batch, context_len,
+                                        memory)
     if device is None:
         device = params["embed"].device
     return transformer.init_decode_state(cfg, batch, context_len,
@@ -61,6 +75,11 @@ def init_serve_state(params, cfg: ArchConfig, batch: int, context_len: int,
 
 
 def serve_decode_step(params, cfg: ArchConfig, caches, cur_index: int,
-                      token):
-    _no_audio(cfg)
+                      token, *, impl: Optional[str] = None):
+    """One decode step -> (logits (B,Vp), caches).  ``impl`` reaches the
+    audio family's cross-attention (K11 on the card); a decoder-only
+    step runs no kernel."""
+    if cfg.family == "audio":
+        return encdec.decode_step(params, cfg, caches, cur_index, token,
+                                  impl=impl)
     return transformer.decode_step(params, cfg, caches, cur_index, token)

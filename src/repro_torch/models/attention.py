@@ -22,9 +22,10 @@ import torch
 
 from repro_torch.models.layers import dense_init, softcap
 
-__all__ = ["NEG_INF", "init_attention", "qkv_project", "out_project",
-           "full_attention", "chunked_attention", "attend", "init_cache",
-           "cache_slot", "cache_update", "cache_fill", "decode_attention"]
+__all__ = ["NEG_INF", "init_attention", "project", "qkv_project",
+           "out_project", "full_attention", "chunked_attention", "attend",
+           "init_cache", "cache_slot", "cache_update", "cache_fill",
+           "decode_attention"]
 
 NEG_INF = -1e30
 
@@ -44,7 +45,7 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
     return p
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B,S,D) @ w (D,H,Dh) -> (B,S,H,Dh) in x's dtype."""
     d, h, dh = w.shape
     return (x @ w.to(x.dtype).reshape(d, h * dh)).unflatten(-1, (h, dh))
@@ -53,9 +54,9 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def qkv_project(params, x: torch.Tensor, kv_x: Optional[torch.Tensor] = None):
     """x: (B,S,D) -> q (B,S,H,Dh), k/v (B,Skv,KV,Dh)."""
     kv_x = x if kv_x is None else kv_x
-    q = _project(x, params["wq"])
-    k = _project(kv_x, params["wk"])
-    v = _project(kv_x, params["wv"])
+    q = project(x, params["wq"])
+    k = project(kv_x, params["wk"])
+    v = project(kv_x, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)

@@ -16,12 +16,13 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 __all__ = ["dtype_of", "dense_init", "embed_init", "stacked", "init_rmsnorm",
            "rmsnorm", "init_layernorm", "layernorm", "rotary_embed",
-           "silu", "init_glu_mlp", "glu_mlp", "init_gelu_mlp",
-           "gelu_mlp", "softcap"]
+           "sinusoidal_positions", "silu", "init_glu_mlp", "glu_mlp",
+           "init_gelu_mlp", "gelu_mlp", "softcap"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -60,14 +61,27 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype
 
 
 def stacked(init_fn, gen: torch.Generator, n: int, *args, **kwargs):
-    """``n`` stacked copies (leading axis) of a param tree."""
-    trees = [init_fn(gen, *args, **kwargs) for _ in range(n)]
+    """``n`` stacked copies (leading axis) of a param tree, drawn one
+    after another; each copy goes into its slot as it is drawn, so the
+    peak is the stack plus one copy (not two stacks)."""
+    def alloc(tree):
+        if isinstance(tree, dict):
+            return {k: alloc(v) for k, v in tree.items()}
+        return tree.new_empty((n,) + tuple(tree.shape))
 
-    def stack(items):
-        if isinstance(items[0], dict):
-            return {k: stack([t[k] for t in items]) for k in items[0]}
-        return torch.stack(items)
-    return stack(trees)
+    def put(out, tree, i):
+        if isinstance(tree, dict):
+            for k in tree:
+                put(out[k], tree[k], i)
+        else:
+            out[i] = tree
+
+    out = None
+    for i in range(n):
+        tree = init_fn(gen, *args, **kwargs)
+        out = alloc(tree) if out is None else out
+        put(out, tree, i)
+    return out
 
 
 # ---------------------------------------------------------------------- norms
@@ -113,6 +127,16 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int) -> np.ndarray:
+    """The encoder's fixed position table (seq, dim), f32: a copy of the
+    reference's numpy function."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return out.astype(np.float32)
 
 
 # ----------------------------------------------------------------------- MLPs

@@ -1,13 +1,20 @@
-"""Decoder-LM assembly for the dense and ssm families (the port of
-``repro/models/transformer.py``).
+"""Decoder-LM assembly for the dense, moe, ssm, hybrid and vlm families
+(the port of ``repro/models/transformer.py``).
 
 Forward, prefill and decode run Python loops over layers of the stacked
 params (leading ``L`` axis): no ``remat`` or ``unroll`` (nothing here is
 differentiated), and per-layer cache shapes may differ (ring-buffer
-windowed caches vs full-context caches vs SSM state).  The moe, hybrid
-and vlm families raise ``NotImplementedError`` (ROADMAP.md queue 7).  The
-reference's layer-scanned ``prefill_scanned``/``decode_step_scanned``
-exist to keep XLA's programs small and are not ported.
+windowed caches vs full-context caches vs SSM state).  The reference's
+layer-scanned ``prefill_scanned``/``decode_step_scanned`` exist to keep
+XLA's programs small and are not ported; ``force_window`` (long_500k)
+waits for ``launch/`` (ROADMAP.md queue 7d).
+
+Families: hybrid (hymba) runs attention and Mamba2 side by side on one
+normed input, with ``hybrid_meta_tokens`` learned tokens prepended and
+pinned in every windowed cache (attention's ``prefix``); moe swaps the
+GLU MLP for ``models/moe``; vlm prepends the projected patch embeddings
+(``extra_embeds``), which attention sees as ordinary causal positions.
+Positions are absolute and count the prepended tokens.
 
 ``impl`` selects the kernels (K11 and K12): ``None`` launches each
 kernel on a CUDA tensor and takes the reference's full/chunked attention
@@ -22,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        glu_mlp, init_glu_mlp, init_rmsnorm,
@@ -32,30 +40,29 @@ __all__ = ["layer_windows", "init_layer", "init_lm", "block_forward",
            "embed_inputs", "lm_logits", "forward_lm", "init_decode_state",
            "decode_step", "prefill"]
 
-_FAMILIES = ("dense", "ssm")
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in _FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md queue 7); the port serves the dense and ssm "
-            "families")
-
 
 # ------------------------------------------------------------ layer metadata
 
 def layer_windows(cfg: ArchConfig) -> List[int]:
-    """Per-layer sliding window (0 = full attention); gemma2-style
-    local/global alternation keeps even layers local.  (The hybrid
-    family's global layers come with that family, queue 7.)"""
-    if not cfg.local_global_alternate:
-        return [cfg.sliding_window] * cfg.n_layers
-    return [cfg.sliding_window if i % 2 == 0 else 0
-            for i in range(cfg.n_layers)]
+    """Per-layer sliding window (0 = full attention): gemma2-style
+    local/global alternation keeps even layers local; hymba's
+    ``hybrid_global_layers`` attend in full."""
+    if cfg.local_global_alternate:
+        return [cfg.sliding_window if i % 2 == 0 else 0
+                for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        return [0 if i in cfg.hybrid_global_layers else cfg.sliding_window
+                for i in range(cfg.n_layers)]
+    return [cfg.sliding_window] * cfg.n_layers
 
 
 # ------------------------------------------------------------------- init
+
+def _init_attention(gen: torch.Generator, cfg: ArchConfig, dt):
+    return attn_mod.init_attention(
+        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+        dt, use_bias=cfg.qkv_bias)
+
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig):
     dt = dtype_of(cfg.param_dtype)
@@ -64,14 +71,24 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig):
     if cfg.family == "ssm":
         return {"norm": init_rmsnorm(d, device=dev),
                 "mamba": ssm_mod.init_mamba(gen, d, cfg.ssm, dt)}
+    if cfg.family == "hybrid":
+        return {"input_norm": init_rmsnorm(d, device=dev),
+                "attn": _init_attention(gen, cfg, dt),
+                "mamba": ssm_mod.init_mamba(gen, d, cfg.ssm, dt),
+                "attn_out_norm": init_rmsnorm(d, device=dev),
+                "ssm_out_norm": init_rmsnorm(d, device=dev),
+                "mlp_norm": init_rmsnorm(d, device=dev),
+                "mlp": init_glu_mlp(gen, d, cfg.d_ff, dt)}
+    # dense / moe / the vlm's LM backbone
     p: Dict[str, Any] = {
         "attn_norm": init_rmsnorm(d, device=dev),
-        "attn": attn_mod.init_attention(
-            gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
-            use_bias=cfg.qkv_bias),
+        "attn": _init_attention(gen, cfg, dt),
         "mlp_norm": init_rmsnorm(d, device=dev),
-        "mlp": init_glu_mlp(gen, d, cfg.d_ff, dt),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe(gen, d, cfg.d_ff, cfg.moe, dt)
+    else:
+        p["mlp"] = init_glu_mlp(gen, d, cfg.d_ff, dt)
     if cfg.sandwich_norms:
         p["post_attn_norm"] = init_rmsnorm(d, device=dev)
         p["post_mlp_norm"] = init_rmsnorm(d, device=dev)
@@ -81,15 +98,21 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig):
 def init_lm(gen: torch.Generator, cfg: ArchConfig):
     """Random params on ``gen``'s device (draws are not ``jax.random``'s:
     ``models.layers``)."""
-    _check_family(cfg)
     dt = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dt),
+        "embed": embed_init(gen, cfg.vocab_padded, d, dt),
         "layers": stacked(init_layer, gen, cfg.n_layers, cfg),
-        "final_norm": init_rmsnorm(cfg.d_model, device=gen.device),
+        "final_norm": init_rmsnorm(d, device=gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_padded, dt)
+        params["lm_head"] = dense_init(gen, d, cfg.vocab_padded, dt)
+    if cfg.hybrid_meta_tokens:
+        params["meta_tokens"] = (torch.randn(
+            (cfg.hybrid_meta_tokens, d), generator=gen, device=gen.device)
+            * 0.02).to(dt)
+    if cfg.vision_tokens:
+        params["vision_proj"] = dense_init(gen, d, d, dt)
     return params
 
 
@@ -103,23 +126,40 @@ def _layer_params(params, i: int):
     return pick(params["layers"])
 
 
-def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, impl):
+def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, prefix,
+                    impl):
     q, k, v = attn_mod.qkv_project(lp, x_norm)
     q = rotary_embed(q, positions, cfg.rope_theta)
     k = rotary_embed(k, positions, cfg.rope_theta)
     out = attn_mod.attend(
         q, k, v, q_pos=positions, k_pos=positions, causal=True,
-        window=window, logit_cap=cfg.attn_logit_softcap, kernel_impl=impl)
+        window=window, prefix=prefix, logit_cap=cfg.attn_logit_softcap,
+        kernel_impl=impl)
     return attn_mod.out_project(lp, out), k, v
 
 
-def _mlp_path(lp, x, cfg: ArchConfig):
-    """The dense block's second half: x + (post-norm'd) GLU MLP."""
-    m = glu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, cfg.norm_eps),
-                cfg.mlp_act)
+def _ffn_path(lp, x, cfg: ArchConfig):
+    """The dense/moe block's second half: x + (post-norm'd) GLU MLP or
+    MoE.  Returns (x, aux_loss or None)."""
+    h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    aux = None
+    if cfg.moe is not None:
+        m, aux = moe_mod.moe_forward(lp["moe"], h, cfg.moe)
+    else:
+        m = glu_mlp(lp["mlp"], h, cfg.mlp_act)
     if cfg.sandwich_norms:
         m = rmsnorm(lp["post_mlp_norm"], m, cfg.norm_eps)
-    return x + m
+    return x + m, aux
+
+
+def _hybrid_mix(lp, x, a, s, cfg: ArchConfig):
+    """The hybrid block after its two mixers: x + ½(norm(a) + norm(s)),
+    then x + the GLU MLP."""
+    eps = cfg.norm_eps
+    x = x + 0.5 * (rmsnorm(lp["attn_out_norm"], a, eps)
+                   + rmsnorm(lp["ssm_out_norm"], s, eps))
+    return x + glu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, eps),
+                       cfg.mlp_act)
 
 
 def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
@@ -130,24 +170,47 @@ def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
     if cfg.family == "ssm":
         h = rmsnorm(lp["norm"], x, eps)
         return x + ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm, impl), aux
+    if cfg.family == "hybrid":
+        h = rmsnorm(lp["input_norm"], x, eps)
+        a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window,
+                                  cfg.hybrid_meta_tokens, impl)
+        s = ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm, impl)
+        return _hybrid_mix(lp, x, a, s, cfg), aux
     h = rmsnorm(lp["attn_norm"], x, eps)
-    a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window, impl)
+    a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window, 0, impl)
     if cfg.sandwich_norms:
         a = rmsnorm(lp["post_attn_norm"], a, eps)
-    return _mlp_path(lp, x + a, cfg), aux
+    x, moe_aux = _ffn_path(lp, x + a, cfg)
+    return x, aux if moe_aux is None else moe_aux
 
 
 # ----------------------------------------------------------------- forward
 
-def embed_inputs(params, cfg: ArchConfig, tokens):
-    """tokens (B,S) -> (x (B,S,D), n_prefix); the dense and ssm families
-    prepend nothing (the vlm family's patches come with it, queue 7)."""
-    _check_family(cfg)
+def _embed_tokens(params, cfg: ArchConfig, tokens):
     dt = dtype_of(cfg.dtype)
     x = params["embed"][tokens.long()].to(dt)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
-    return x, 0
+    return x
+
+
+def embed_inputs(params, cfg: ArchConfig, tokens, extra_embeds=None):
+    """tokens (B,S) [+ vlm patch embeds (B,P,D)] -> (x (B,S',D),
+    n_prefix): the projected patches, then hymba's meta tokens, go in
+    front of the tokens."""
+    dt = dtype_of(cfg.dtype)
+    x = _embed_tokens(params, cfg, tokens)
+    n_prefix = 0
+    if cfg.vision_tokens and extra_embeds is not None:
+        patches = extra_embeds.to(dt) @ params["vision_proj"].to(dt)
+        x = torch.cat([patches, x], dim=1)
+        n_prefix += patches.shape[1]
+    if cfg.hybrid_meta_tokens:
+        meta = params["meta_tokens"].to(dt)[None].expand(
+            (x.shape[0],) + tuple(params["meta_tokens"].shape))
+        x = torch.cat([meta, x], dim=1)
+        n_prefix += cfg.hybrid_meta_tokens
+    return x, n_prefix
 
 
 def lm_logits(params, cfg: ArchConfig, x):
@@ -157,10 +220,11 @@ def lm_logits(params, cfg: ArchConfig, x):
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
-def forward_lm(params, cfg: ArchConfig, tokens, *,
+def forward_lm(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
                impl: Optional[str] = None):
-    """Full-sequence forward. Returns (logits (B,S,Vp), aux_loss, n_prefix)."""
-    x, n_prefix = embed_inputs(params, cfg, tokens)
+    """Full-sequence forward. Returns (logits (B,S',Vp), aux_loss,
+    n_prefix)."""
+    x, n_prefix = embed_inputs(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     wins = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -175,41 +239,50 @@ def forward_lm(params, cfg: ArchConfig, tokens, *,
 
 def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
                       device=None):
-    """Per-layer cache list sized for decoding with ``context_len`` history."""
-    _check_family(cfg)
+    """Per-layer cache list sized for decoding with ``context_len`` history.
+    A full-attention layer also holds the prepended meta tokens and
+    patches; a windowed one the pinned meta tokens plus its window."""
     dt = dtype_of(cfg.dtype)
+    prefix = cfg.hybrid_meta_tokens
+    cap_full = context_len + cfg.hybrid_meta_tokens + cfg.vision_tokens
     wins = layer_windows(cfg)
     caches: List[Any] = []
     for i in range(cfg.n_layers):
-        if cfg.family == "ssm":
-            caches.append({"ssm": ssm_mod.init_mamba_cache(
-                batch, cfg.d_model, cfg.ssm, dt, device=device)})
-            continue
-        cap = min(wins[i], context_len) if wins[i] else context_len
-        caches.append({"attn": attn_mod.init_cache(
-            batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
-            device=device)})
+        entry: Dict[str, Any] = {}
+        if cfg.family != "ssm":
+            cap = (prefix + min(wins[i], context_len)) if wins[i] else cap_full
+            entry["attn"] = attn_mod.init_cache(
+                batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim, dt,
+                device=device)
+        if cfg.family in ("ssm", "hybrid"):
+            entry["ssm"] = ssm_mod.init_mamba_cache(
+                batch, cfg.d_model, cfg.ssm, dt, device=device)
+        caches.append(entry)
     return caches
 
 
-def _decode_attn(lp, cfg, x_norm, cache, cur_index: int, window: int):
+def _decode_attn(lp, cfg, x_norm, cache, cur_index: int, window: int,
+                 prefix: int = 0):
     q, k, v = attn_mod.qkv_project(lp, x_norm)
     pos = torch.tensor([cur_index], dtype=torch.int32, device=x_norm.device)
     q = rotary_embed(q, pos, cfg.rope_theta)
     k = rotary_embed(k, pos, cfg.rope_theta)
-    cache = attn_mod.cache_update(cache, k, v, cur_index, window=window)
+    cache = attn_mod.cache_update(cache, k, v, cur_index, window=window,
+                                  prefix=prefix)
     out = attn_mod.decode_attention(q, cache, cur_index, window=window,
+                                    prefix=prefix,
                                     logit_cap=cfg.attn_logit_softcap)
     return attn_mod.out_project(lp, out), cache
 
 
 def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token):
     """One decode step. token: (B,) int32; cur_index: the absolute position
-    (a Python int). Returns (logits (B,Vp), caches); attention caches are
-    updated in place."""
+    (a Python int, counting any meta tokens and patches). Returns (logits
+    (B,Vp), caches); attention caches are updated in place."""
     cur_index = int(cur_index)
     eps = cfg.norm_eps
-    x, _ = embed_inputs(params, cfg, token[:, None])              # (B,1,D)
+    prefix = cfg.hybrid_meta_tokens
+    x = _embed_tokens(params, cfg, token[:, None])                # (B,1,D)
     wins = layer_windows(cfg)
     new_caches = []
     for i in range(cfg.n_layers):
@@ -220,32 +293,48 @@ def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token):
             y, entry["ssm"] = ssm_mod.mamba_decode_step(
                 lp["mamba"], h, entry["ssm"], cfg.ssm)
             x = x + y
+        elif cfg.family == "hybrid":
+            h = rmsnorm(lp["input_norm"], x, eps)
+            a, entry["attn"] = _decode_attn(lp["attn"], cfg, h, entry["attn"],
+                                            cur_index, wins[i], prefix)
+            s, entry["ssm"] = ssm_mod.mamba_decode_step(
+                lp["mamba"], h, entry["ssm"], cfg.ssm)
+            x = _hybrid_mix(lp, x, a, s, cfg)
         else:
             h = rmsnorm(lp["attn_norm"], x, eps)
             a, entry["attn"] = _decode_attn(lp["attn"], cfg, h, entry["attn"],
                                             cur_index, wins[i])
             if cfg.sandwich_norms:
                 a = rmsnorm(lp["post_attn_norm"], a, eps)
-            x = _mlp_path(lp, x + a, cfg)
+            x, _ = _ffn_path(lp, x + a, cfg)
         new_caches.append(entry)
     return lm_logits(params, cfg, x)[:, 0], new_caches
 
 
-def prefill(params, cfg: ArchConfig, tokens, *,
+def _attn_prefill(lp, cfg, h, cache, positions, window, prefix, impl):
+    a, k, v = _attention_path(lp, h, cfg, positions, window, prefix, impl)
+    attn_mod.cache_fill(cache, k, v, window=window, prefix=prefix)
+    return a
+
+
+def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
             context_len: Optional[int] = None, impl: Optional[str] = None,
             last_only: bool = False):
-    """Run the full prompt and build decode caches.
+    """Run the full prompt (after any patches and meta tokens) and build
+    decode caches.
 
-    Returns (logits (B,S,Vp) — or (B,1,Vp) when ``last_only``, the serving
-    fast path that avoids materializing seq×vocab logits —, caches,
-    next_index (an int)).
+    Returns (logits (B,S',Vp) — or (B,1,Vp) when ``last_only``, the
+    serving fast path that avoids materializing seq×vocab logits —,
+    caches, next_index (an int, the absolute position of the next
+    token)).
     """
     eps = cfg.norm_eps
-    x, _ = embed_inputs(params, cfg, tokens)
+    x, _ = embed_inputs(params, cfg, tokens, extra_embeds)
     b, s_total, _ = x.shape
     context_len = context_len or s_total
     positions = torch.arange(s_total, dtype=torch.int32, device=x.device)
     wins = layer_windows(cfg)
+    prefix = cfg.hybrid_meta_tokens
     caches = init_decode_state(cfg, b, context_len, device=x.device)
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
@@ -256,13 +345,20 @@ def prefill(params, cfg: ArchConfig, tokens, *,
                 lp["mamba"], h, cfg.ssm, impl)
             x = x + y
             entry["ssm"] = {"state": state, "conv": conv}
-            continue
-        h = rmsnorm(lp["attn_norm"], x, eps)
-        a, k, v = _attention_path(lp["attn"], h, cfg, positions, wins[i],
-                                  impl)
-        attn_mod.cache_fill(entry["attn"], k, v, window=wins[i])
-        if cfg.sandwich_norms:
-            a = rmsnorm(lp["post_attn_norm"], a, eps)
-        x = _mlp_path(lp, x + a, cfg)
+        elif cfg.family == "hybrid":
+            h = rmsnorm(lp["input_norm"], x, eps)
+            a = _attn_prefill(lp["attn"], cfg, h, entry["attn"], positions,
+                              wins[i], prefix, impl)
+            s, state, conv = ssm_mod.mamba_forward_with_state(
+                lp["mamba"], h, cfg.ssm, impl)
+            entry["ssm"] = {"state": state, "conv": conv}
+            x = _hybrid_mix(lp, x, a, s, cfg)
+        else:
+            h = rmsnorm(lp["attn_norm"], x, eps)
+            a = _attn_prefill(lp["attn"], cfg, h, entry["attn"], positions,
+                              wins[i], 0, impl)
+            if cfg.sandwich_norms:
+                a = rmsnorm(lp["post_attn_norm"], a, eps)
+            x, _ = _ffn_path(lp, x + a, cfg)
     logits = lm_logits(params, cfg, x[:, -1:] if last_only else x)
     return logits, caches, s_total

@@ -12,8 +12,10 @@ numbers (``param_count``, the reduced configs) exactly.
 ``forward_lm`` is held against the reference's ``attn_impl="full"``: its
 layer-scanned forward raises under ``"flash"`` (ROADMAP §3 R4);
 ``prefill``, ``decode_step`` and ``greedy_decode`` against its
-``"flash"`` (the Pallas kernel in interpret mode), which its Python layer
-loop runs.
+``"flash"`` (the Pallas kernel in interpret mode, with hymba's meta-token
+prefix pinned in its windows), which its Python layer loop runs.  The
+vlm case feeds both sides the same seeded numpy patches; the moe cases
+(olmoe, dbrx) also compare the load-balance loss.
 
 In bf16 (the configs' own dtype, which the card runs) one output rounded
 the other way in a layer moves every later value a little, so whole
@@ -52,9 +54,14 @@ from repro_torch.serve import greedy_decode, make_prefill_step, \
 RTOL = ATOL = 1e-4
 # (arch, prompt length): tinyllama (GQA, G = 4), mamba2 (S padded to a
 # chunk multiple; S < chunk), gemma2 (windows of 16 with ring caches,
-# softcaps, sandwich norms, tied embeddings)
+# softcaps, sandwich norms, tied embeddings), hymba (4 meta tokens pinned
+# in windows of 16, a global layer 0, attention and Mamba2 side by
+# side), olmoe and dbrx (top-k MoE, 4 experts), internvl2 (8 patches
+# before the prompt, q/k/v biases)
 CASES = [("tinyllama-1.1b-reduced", 40), ("mamba2-1.3b-reduced", 40),
-         ("mamba2-1.3b-reduced", 10), ("gemma2-9b-reduced", 40)]
+         ("mamba2-1.3b-reduced", 10), ("gemma2-9b-reduced", 40),
+         ("hymba-1.5b-reduced", 40), ("olmoe-1b-7b-reduced", 40),
+         ("dbrx-132b-reduced", 40), ("internvl2-1b-reduced", 40)]
 IDS = [f"{a.split('-')[0]}-S{s}" for a, s in CASES]
 
 
@@ -68,6 +75,34 @@ def _setup(arch: str, s: int):
     return cfg, rp, lm_params_from_jax(rp, device="cpu"), toks
 
 
+@functools.lru_cache(maxsize=None)
+def _patches(arch: str):
+    """The vlm's seeded stub patch embeddings (2, vision_tokens, D), or
+    None."""
+    cfg = ref_get_config(arch)
+    if not cfg.vision_tokens:
+        return None
+    return np.random.default_rng(7).normal(
+        size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _ref_extra(arch: str):
+    p = _patches(arch)
+    return None if p is None else jnp.asarray(p)
+
+
+def _port_extra(arch: str):
+    p = _patches(arch)
+    return None if p is None else torch.from_numpy(p)
+
+
+def _batch(arch: str, toks) -> dict:
+    batch = {"tokens": torch.from_numpy(toks)}
+    if _patches(arch) is not None:
+        batch["patches"] = _port_extra(arch)
+    return batch
+
+
 def _close(got, want):
     np.testing.assert_allclose(np.asarray(got, np.float64),
                                np.asarray(want, np.float64), rtol=RTOL,
@@ -77,17 +112,20 @@ def _close(got, want):
 @functools.lru_cache(maxsize=None)
 def _ref_forward(arch: str, s: int):
     cfg, rp, _, toks = _setup(arch, s)
-    return ref_tr.forward_lm(rp, cfg, jnp.asarray(toks), attn_impl="full")[0]
+    return ref_tr.forward_lm(rp, cfg, jnp.asarray(toks), _ref_extra(arch),
+                             attn_impl="full")
 
 
 @pytest.mark.parametrize("arch,s", CASES, ids=IDS)
 def test_forward_lm_matches_reference(arch, s):
-    _, _, pp, toks = _setup(arch, s)
-    want = _ref_forward(arch, s)
-    got, aux, n_prefix = api.forward(pp, get_config(arch),
-                                     {"tokens": torch.from_numpy(toks)})
-    assert got.shape == want.shape and n_prefix == 0 and float(aux) == 0.0
+    cfg, _, pp, toks = _setup(arch, s)
+    want, want_aux, want_prefix = _ref_forward(arch, s)
+    got, aux, n_prefix = api.forward(pp, get_config(arch), _batch(arch, toks))
+    assert got.shape == want.shape and n_prefix == want_prefix
+    assert n_prefix == cfg.hybrid_meta_tokens + cfg.vision_tokens
+    assert (float(aux) == 0.0) == (cfg.moe is None)
     _close(got, want)
+    _close(aux, want_aux)
 
 
 @pytest.mark.parametrize("arch,s", CASES, ids=IDS)
@@ -99,10 +137,13 @@ def test_prefill_and_decode_match_reference(arch, s):
     cfg, rp, pp, toks = _setup(arch, s)
     pcfg = get_config(arch)
     want, want_caches, want_next = ref_tr.prefill(
-        rp, cfg, jnp.asarray(toks), context_len=s + 4, attn_impl="flash")
+        rp, cfg, jnp.asarray(toks), _ref_extra(arch), context_len=s + 4,
+        attn_impl="flash")
     got, caches, nxt = transformer.prefill(
-        pp, pcfg, torch.from_numpy(toks), context_len=s + 4)
-    assert nxt == int(want_next)
+        pp, pcfg, torch.from_numpy(toks), _port_extra(arch),
+        context_len=s + 4)
+    assert nxt == int(want_next) == s + cfg.hybrid_meta_tokens + \
+        cfg.vision_tokens
     _close(got, want)
     for g, w in zip(caches, want_caches):
         assert g.keys() == w.keys()
@@ -111,15 +152,15 @@ def test_prefill_and_decode_match_reference(arch, s):
                 assert tuple(g[kind][name].shape) == w[kind][name].shape
                 _close(g[kind][name], w[kind][name])
     last, _, _ = transformer.prefill(pp, pcfg, torch.from_numpy(toks),
-                                     last_only=True)
+                                     _port_extra(arch), last_only=True)
     assert last.shape[1] == 1
     _close(last, want[:, -1:])
     tok = jnp.argmax(want[:, -1], -1).astype(jnp.int32)
     for t in range(3):
         want_logits, want_caches = ref_tr.decode_step(
-            rp, cfg, want_caches, jnp.asarray(s + t, jnp.int32), tok)
+            rp, cfg, want_caches, jnp.asarray(nxt + t, jnp.int32), tok)
         got_logits, caches = api.serve_decode_step(
-            pp, pcfg, caches, s + t, torch.from_numpy(np.array(tok)))
+            pp, pcfg, caches, nxt + t, torch.from_numpy(np.array(tok)))
         _close(got_logits, want_logits)
         tok = jnp.argmax(want_logits, -1).astype(jnp.int32)
 
@@ -134,10 +175,13 @@ def test_greedy_decode_matches_reference(arch, s):
     give its margins."""
     n_new = 6
     cfg, rp, pp, toks = _setup(arch, s)
-    got = greedy_decode(pp, get_config(arch), torch.from_numpy(toks), n_new)
+    got = greedy_decode(pp, get_config(arch), torch.from_numpy(toks), n_new,
+                        extra_embeds=_port_extra(arch))
     assert got.dtype == torch.int32 and got.shape == (2, n_new)
+    context_len = s + n_new + cfg.vision_tokens + cfg.hybrid_meta_tokens
     logits, caches, nxt = ref_tr.prefill(rp, cfg, jnp.asarray(toks),
-                                         context_len=s + n_new,
+                                         _ref_extra(arch),
+                                         context_len=context_len,
                                          attn_impl="flash")
     logits = logits[:, -1]
     step = ref_engine.make_serve_step(cfg)
@@ -158,8 +202,8 @@ def test_greedy_decode_matches_reference(arch, s):
     np.testing.assert_array_equal(got.numpy()[:, :n_sure], want[:, :n_sure])
     # the engine's steps, chained by hand
     pcfg = get_config(arch)
-    plog, pcaches, pnext = make_prefill_step(pcfg, context_len=s + n_new)(
-        pp, {"tokens": torch.from_numpy(toks)})
+    plog, pcaches, pnext = make_prefill_step(
+        pcfg, context_len=context_len)(pp, _batch(arch, toks))
     cur = torch.argmax(plog[:, -1], -1).to(torch.int32)
     serve = make_serve_step(pcfg)
     chain = []
@@ -169,8 +213,10 @@ def test_greedy_decode_matches_reference(arch, s):
     assert torch.equal(torch.stack(chain, 1), got)
 
 
-BF16_CASES = CASES                       # dense (gelu too), ssm
+BF16_CASES = CASES               # dense (gelu too), ssm, hybrid, moe, vlm
 BF16_IDS = IDS
+# blocks held step by step (``_block_steps``); gemma2 by its sandwich norms
+STEPWISE = ("hymba-1.5b-reduced", "internvl2-1b-reduced")
 
 
 def _bf16(arch: str):
@@ -203,19 +249,25 @@ def _bf16_close(got, want, *, rel, frac=0.02):
         assert (gap > 0).mean() <= frac, (gap > 0).mean()
 
 
-def _sandwich_block_steps(lp, plp, cfg, pcfg, x, y, window):
-    """A sandwich-norm block (gemma2) in bf16, each step fed the
-    reference's input: the attention norm, the q/k/v projections, the
-    attention core with its output projection and post-attention norm,
-    and the MLP half with its post-MLP norm, each held as a whole block
-    is (``_bf16_close``, 2^-6·max, at most 2% of bits).  Whole blocks are
-    not: a projection's f32 sum in another order flips one rounding (1 of
-    10,240 k elements at layer 1), and attention and the post-attention
-    norm spread it over whole rows (5.6% of the block's bits)."""
+def _block_steps(lp, plp, cfg, pcfg, x, y, window):
+    """A block in bf16, each step fed the reference's input: the
+    attention norm, the q/k/v projections, the attention core with its
+    output projection (and gemma2's post-attention norm), hymba's Mamba2
+    mixer, and the rest of the block (the MLP half with gemma2's post-MLP
+    norm, or hymba's mix of the two mixers and its MLP), each held as a
+    whole block is (``_bf16_close``, 2^-6·max, at most 2% of bits).
+    Whole blocks of these configs are not: a projection's f32 sum in
+    another order flips one rounding (gemma2: 1 of 10,240 k elements at
+    layer 1; internvl2: 0.012% of q and 0.016% of v at layer 1), and
+    attention spreads it over whole rows (gemma2's post-attention norm
+    too: 5.6% of the block's bits; internvl2 2.9%, hymba 2.1% at layer
+    0)."""
     from repro.models import attention as ref_attn
     from repro.models import layers as ref_layers
+    from repro.models import ssm as ref_ssm
     from repro_torch.models import attention as port_attn
     from repro_torch.models import layers as port_layers
+    from repro_torch.models import ssm as port_ssm
 
     def close(got, want):
         _bf16_close(got, want, rel=2.0 ** -6 * float(np.abs(_np64(want)).max()))
@@ -223,9 +275,11 @@ def _sandwich_block_steps(lp, plp, cfg, pcfg, x, y, window):
     s, eps, theta = x.shape[1], cfg.norm_eps, cfg.rope_theta
     pos, ppos = jnp.arange(s, dtype=jnp.int32), torch.arange(
         s, dtype=torch.int32)
-    kw = dict(causal=True, window=window, logit_cap=cfg.attn_logit_softcap)
-    h = ref_layers.rmsnorm(lp["attn_norm"], x, eps)
-    close(port_layers.rmsnorm(plp["attn_norm"], _to_port(x), eps), h)
+    kw = dict(causal=True, window=window, prefix=cfg.hybrid_meta_tokens,
+              logit_cap=cfg.attn_logit_softcap)
+    norm = "input_norm" if cfg.family == "hybrid" else "attn_norm"
+    h = ref_layers.rmsnorm(lp[norm], x, eps)
+    close(port_layers.rmsnorm(plp[norm], _to_port(x), eps), h)
     q, k, v = ref_attn.qkv_project(lp["attn"], h)
     for got, want in zip(port_attn.qkv_project(plp["attn"], _to_port(h)),
                          (q, k, v)):
@@ -234,26 +288,45 @@ def _sandwich_block_steps(lp, plp, cfg, pcfg, x, y, window):
         ref_attn.rotary_embed(q, pos, theta),
         ref_attn.rotary_embed(k, pos, theta), v, q_pos=pos, k_pos=pos,
         impl="full", **kw))
-    a = ref_layers.rmsnorm(lp["post_attn_norm"], a, eps)
     pq, pk, pv = map(_to_port, (q, k, v))
     got = port_attn.out_project(plp["attn"], port_attn.attend(
         port_layers.rotary_embed(pq, ppos, theta),
         port_layers.rotary_embed(pk, ppos, theta), pv, q_pos=ppos,
         k_pos=ppos, impl="full", **kw))
-    close(port_layers.rmsnorm(plp["post_attn_norm"], got, eps), a)
-    close(transformer._mlp_path(plp, _to_port(x + a), pcfg), y)
+    if cfg.family == "hybrid":
+        close(got, a)
+        m = ref_ssm.mamba_forward(lp["mamba"], h, cfg.ssm)
+        close(port_ssm.mamba_forward(plp["mamba"], _to_port(h), pcfg.ssm), m)
+        close(transformer._hybrid_mix(plp, _to_port(x), _to_port(a),
+                                      _to_port(m), pcfg), y)
+        return
+    if cfg.sandwich_norms:
+        a = ref_layers.rmsnorm(lp["post_attn_norm"], a, eps)
+        got = port_layers.rmsnorm(plp["post_attn_norm"], got, eps)
+    close(got, a)
+    close(transformer._ffn_path(plp, _to_port(x + a), pcfg)[0], y)
 
 
 @pytest.mark.parametrize("arch,s", BF16_CASES, ids=BF16_IDS)
 def test_bf16_blocks_match_reference(arch, s):
     """In bf16, each block of the prefill path from the reference's input
     (its embeddings, then its own block outputs), and the logits from its
-    final hidden state (tolerances in the module docstring)."""
+    final hidden state (tolerances in the module docstring).  Embeddings
+    and meta tokens equal bit for bit; the vlm's projected patches (a
+    bf16 GEMM) held as a block is."""
     cfg, pcfg = _bf16(arch)
     _, rp, pp, toks = _setup(arch, s)
-    x, _ = ref_tr.embed_inputs(rp, cfg, jnp.asarray(toks))
-    px, _ = transformer.embed_inputs(pp, pcfg, torch.from_numpy(toks))
-    assert torch.equal(px, _to_port(x))
+    x, n_prefix = ref_tr.embed_inputs(rp, cfg, jnp.asarray(toks),
+                                      _ref_extra(arch))
+    px, _ = transformer.embed_inputs(pp, pcfg, torch.from_numpy(toks),
+                                     _port_extra(arch))
+    n_patches = cfg.vision_tokens if _patches(arch) is not None else 0
+    assert torch.equal(px[:, n_patches:], _to_port(x[:, n_patches:]))
+    if n_patches:
+        want = x[:, :n_patches]
+        _bf16_close(px[:, :n_patches], want,
+                    rel=2.0 ** -6 * float(np.abs(_np64(want)).max()))
+    s = x.shape[1]
     pos = jnp.arange(s, dtype=jnp.int32)
     ppos = torch.arange(s, dtype=torch.int32)
     wins = transformer.layer_windows(pcfg)
@@ -261,8 +334,8 @@ def test_bf16_blocks_match_reference(arch, s):
         lp = jax.tree_util.tree_map(lambda a: a[i], rp["layers"])
         y, _ = ref_tr.block_forward(lp, x, cfg, pos, wins[i], "full")
         plp = transformer._layer_params(pp, i)
-        if cfg.sandwich_norms:
-            _sandwich_block_steps(lp, plp, cfg, pcfg, x, y, wins[i])
+        if cfg.sandwich_norms or arch in STEPWISE:
+            _block_steps(lp, plp, cfg, pcfg, x, y, wins[i])
         else:
             got, _ = transformer.block_forward(plp, _to_port(x), pcfg, ppos,
                                                wins[i])
@@ -281,54 +354,77 @@ def _port_caches(caches):
 @pytest.mark.parametrize("arch,s", BF16_CASES, ids=BF16_IDS)
 def test_bf16_decode_matches_reference(arch, s):
     """In bf16, one decode step from the reference's prefill caches, layer
-    by layer: each layer's mixer (attention against the cache, or the
-    Mamba2 step) gets the reference's input and cache, and its output and
-    new cache are held to the reference's (tolerances in the module
+    by layer: each layer's mixers (attention against the cache, with
+    hymba's pinned meta tokens; the Mamba2 step; both side by side in the
+    hybrid) get the reference's input and cache, and their outputs and
+    new caches are held to the reference's (tolerances in the module
     docstring; the f32 SSM state within 2^-6·max|state|).  Then the whole
     step, whose logits may differ by one bf16 step at the largest logit
     (2^-7·max|logits|): one flipped rounding in a layer moves every later
     value."""
     from repro.models import layers as ref_layers
+    from repro.models import moe as ref_moe
     from repro.models import ssm as ref_ssm
     from repro_torch.models import ssm as port_ssm
 
     cfg, pcfg = _bf16(arch)
     _, rp, pp, toks = _setup(arch, s)
     logits, caches, nxt = ref_tr.prefill(rp, cfg, jnp.asarray(toks),
-                                         context_len=s + 1,
+                                         _ref_extra(arch), context_len=s + 1,
                                          attn_impl="flash")
     tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
     idx, eps = int(nxt), cfg.norm_eps
     mine = _port_caches(caches)
     x = jnp.take(rp["embed"], tok, axis=0)[:, None].astype(jnp.bfloat16)
     wins = transformer.layer_windows(pcfg)
+    prefix = cfg.hybrid_meta_tokens
+    cur = jnp.asarray(idx, jnp.int32)
+
+    def attn_pair(lp, plp, h, i, prefix):
+        y, new = ref_tr._decode_attn(lp["attn"], cfg, h, caches[i]["attn"],
+                                     cur, wins[i], prefix)
+        got, pnew = transformer._decode_attn(
+            plp["attn"], pcfg, _to_port(h), mine[i]["attn"], idx, wins[i],
+            prefix)
+        return y, new, got, pnew
+
+    def ssm_pair(lp, plp, h, i):
+        y, new = ref_ssm.mamba_decode_step(lp["mamba"], h, caches[i]["ssm"],
+                                           cfg.ssm)
+        got, pnew = port_ssm.mamba_decode_step(
+            plp["mamba"], _to_port(h), mine[i]["ssm"], pcfg.ssm)
+        return y, new, got, pnew
+
     for i in range(cfg.n_layers):
         lp = jax.tree_util.tree_map(lambda a: a[i], rp["layers"])
         plp = transformer._layer_params(pp, i)
         if cfg.family == "ssm":
-            h = ref_layers.rmsnorm(lp["norm"], x, eps)
-            y, new = ref_ssm.mamba_decode_step(lp["mamba"], h,
-                                               caches[i]["ssm"], cfg.ssm)
-            got, pnew = port_ssm.mamba_decode_step(
-                plp["mamba"], _to_port(h), mine[i]["ssm"], pcfg.ssm)
-            x = x + y
-        else:
-            h = ref_layers.rmsnorm(lp["attn_norm"], x, eps)
-            y, new = ref_tr._decode_attn(lp["attn"], cfg, h,
-                                         caches[i]["attn"],
-                                         jnp.asarray(idx, jnp.int32),
-                                         wins[i], 0)
-            got, pnew = transformer._decode_attn(
-                plp["attn"], pcfg, _to_port(h), mine[i]["attn"], idx,
-                wins[i])
-            x = x + y
+            pairs = [ssm_pair(lp, plp, ref_layers.rmsnorm(lp["norm"], x, eps),
+                              i)]
+            x = x + pairs[0][0]
+        elif cfg.family == "hybrid":
+            h = ref_layers.rmsnorm(lp["input_norm"], x, eps)
+            pairs = [attn_pair(lp, plp, h, i, prefix),
+                     ssm_pair(lp, plp, h, i)]
+            x = x + 0.5 * (
+                ref_layers.rmsnorm(lp["attn_out_norm"], pairs[0][0], eps)
+                + ref_layers.rmsnorm(lp["ssm_out_norm"], pairs[1][0], eps))
             x = x + ref_layers.glu_mlp(
                 lp["mlp"], ref_layers.rmsnorm(lp["mlp_norm"], x, eps),
                 cfg.mlp_act)
-        _bf16_close(got, y, rel=2.0 ** -6 * float(np.abs(_np64(y)).max()))
-        for name, a in new.items():
-            _bf16_close(pnew[name], a,
-                        rel=2.0 ** -6 * float(np.abs(_np64(a)).max()))
+        else:
+            h = ref_layers.rmsnorm(lp["attn_norm"], x, eps)
+            pairs = [attn_pair(lp, plp, h, i, 0)]
+            x = x + pairs[0][0]
+            h2 = ref_layers.rmsnorm(lp["mlp_norm"], x, eps)
+            x = x + (ref_moe.moe_forward(lp["moe"], h2, cfg.moe)[0]
+                     if cfg.moe is not None else
+                     ref_layers.glu_mlp(lp["mlp"], h2, cfg.mlp_act))
+        for y, new, got, pnew in pairs:
+            _bf16_close(got, y, rel=2.0 ** -6 * float(np.abs(_np64(y)).max()))
+            for name, a in new.items():
+                _bf16_close(pnew[name], a,
+                            rel=2.0 ** -6 * float(np.abs(_np64(a)).max()))
     want, _ = ref_tr.decode_step(rp, cfg, caches,
                                  jnp.asarray(idx, jnp.int32), tok)
     got, _ = api.serve_decode_step(pp, pcfg, _port_caches(caches), idx,
@@ -379,12 +475,26 @@ def test_empty_prompt_raises():
                       torch.zeros((2, 0), dtype=torch.int32), 4)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "hymba-1.5b",
-                                  "internvl2-1b", "whisper-large-v3"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", sorted(REF_ARCH_IDS))
+def test_every_config_serves(arch):
+    """Every registered config, reduced, initialises through
+    ``api.init_params`` and greedily decodes through the engine on the
+    CPU (the vlm with patches, audio with encoder frames): int32 tokens
+    in the padded vocabulary, the same tokens again."""
     cfg = get_config(arch + "-reduced")
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        api.init_params(torch.Generator().manual_seed(0), cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)).astype(
+        np.int32))
+    n_extra = cfg.vision_tokens or cfg.enc_seq
+    extra = (torch.from_numpy(rng.normal(size=(2, n_extra, cfg.d_model)
+                                         ).astype(np.float32))
+             if n_extra else None)
+    out = greedy_decode(params, cfg, toks, 3, extra_embeds=extra)
+    assert out.dtype == torch.int32 and out.shape == (2, 3)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_padded
+    assert torch.equal(out, greedy_decode(params, cfg, toks, 3,
+                                          extra_embeds=extra))
 
 
 @pytest.mark.parametrize("arch", sorted(REF_ARCH_IDS))
@@ -407,13 +517,21 @@ def test_get_config_unknown_raises():
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b-reduced",
                                   "mamba2-1.3b-reduced",
-                                  "gemma2-9b-reduced"])
+                                  "gemma2-9b-reduced",
+                                  "hymba-1.5b-reduced",
+                                  "olmoe-1b-7b-reduced",
+                                  "dbrx-132b-reduced",
+                                  "internvl2-1b-reduced",
+                                  "whisper-large-v3-reduced"])
 def test_init_params_layout_matches_reference(arch):
     """The port's random init has the reference's tree: same keys, shapes
-    and dtypes; weights truncated at 2·fan_in^-0.5, norms at zero; a seed
-    draws what a generator seeded with it draws."""
-    ref = jax.eval_shape(lambda k: ref_tr.init_lm(k, ref_get_config(arch)),
-                         jax.random.PRNGKey(0))
+    and dtypes; weights truncated at 2·fan_in^-0.5, RMS norms at zero
+    (LayerNorm scales at one); a seed draws what a generator seeded with
+    it draws."""
+    from repro.models import api as ref_api
+
+    ref = jax.eval_shape(lambda k: ref_api.init_params(k, ref_get_config(
+        arch)), jax.random.PRNGKey(0))
     port = api.init_params(0, get_config(arch), device="cpu")
     again = api.init_params(torch.Generator().manual_seed(0),
                             get_config(arch))
@@ -428,8 +546,15 @@ def test_init_params_layout_matches_reference(arch):
         assert tuple(p.shape) == r.shape, path
         assert str(p.dtype).split(".")[-1] == r.dtype.name, path
     walk(ref, port)
-    layer = port["layers"]
+    layer = port.get("layers", port.get("dec_layers"))
     w = layer["mamba"]["wx"] if "mamba" in layer else layer["attn"]["wq"]
     fan_in = w.shape[1]
     assert float(w.abs().max()) <= 2.0 * fan_in ** -0.5 + 1e-6
-    assert float(port["final_norm"]["scale"].abs().max()) == 0.0
+    if "moe" in layer:
+        slab = layer["moe"]["wo"]                    # (L, E, F, D)
+        assert float(slab.abs().max()) <= 2.0 * slab.shape[2] ** -0.5 + 1e-6
+    if "final_norm" in port:
+        assert float(port["final_norm"]["scale"].abs().max()) == 0.0
+    else:
+        assert torch.equal(port["dec_final_norm"]["scale"],
+                           torch.ones(get_config(arch).d_model))
