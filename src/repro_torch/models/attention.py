@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense_init, softcap
 
 __all__ = ["NEG_INF", "init_attention", "project", "qkv_project",
@@ -30,17 +31,18 @@ __all__ = ["NEG_INF", "init_attention", "project", "qkv_project",
 NEG_INF = -1e30
 
 
-def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
-                   n_kv_heads: int, head_dim: int, dtype,
-                   use_bias: bool = False):
-    p = {"wq": dense_init(gen, d_model, (n_heads, head_dim), dtype),
-         "wk": dense_init(gen, d_model, (n_kv_heads, head_dim), dtype),
-         "wv": dense_init(gen, d_model, (n_kv_heads, head_dim), dtype),
-         "wo": dense_init(gen, n_heads * head_dim, d_model, dtype)}
-    if use_bias:
-        for name, heads in (("bq", n_heads), ("bk", n_kv_heads),
-                            ("bv", n_kv_heads)):
-            p[name] = torch.zeros((heads, head_dim), dtype=dtype,
+def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype):
+    """q/k/v/o projections of one attention layer of ``cfg`` (biases on
+    q/k/v where ``cfg.qkv_bias``)."""
+    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    p = {"wq": dense_init(gen, d, (h, dh), dtype),
+         "wk": dense_init(gen, d, (kv, dh), dtype),
+         "wv": dense_init(gen, d, (kv, dh), dtype),
+         "wo": dense_init(gen, h * dh, d, dtype)}
+    if cfg.qkv_bias:
+        for name, heads in (("bq", h), ("bk", kv), ("bv", kv)):
+            p[name] = torch.zeros((heads, dh), dtype=dtype,
                                   device=gen.device)
     return p
 

@@ -28,8 +28,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dtype_of, embed_init, gelu_mlp,
                                        init_gelu_mlp, init_layernorm,
-                                       layernorm, sinusoidal_positions,
-                                       stacked)
+                                       layer_of, layernorm,
+                                       sinusoidal_positions, stacked)
 
 __all__ = ["init_enc_layer", "init_dec_layer", "init_encdec", "encode",
            "decode_train", "forward_encdec", "init_decode_state",
@@ -38,17 +38,11 @@ __all__ = ["init_enc_layer", "init_dec_layer", "init_encdec", "encode",
 
 # ------------------------------------------------------------------- init
 
-def _init_attention(gen: torch.Generator, cfg: ArchConfig, dt):
-    return attn_mod.init_attention(
-        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-        dt, use_bias=cfg.qkv_bias)
-
-
 def init_enc_layer(gen: torch.Generator, cfg: ArchConfig):
     dt = dtype_of(cfg.param_dtype)
     d, dev = cfg.d_model, gen.device
     return {"attn_norm": init_layernorm(d, device=dev),
-            "attn": _init_attention(gen, cfg, dt),
+            "attn": attn_mod.init_attention(gen, cfg, dt),
             "mlp_norm": init_layernorm(d, device=dev),
             "mlp": init_gelu_mlp(gen, d, cfg.d_ff, dt)}
 
@@ -57,9 +51,9 @@ def init_dec_layer(gen: torch.Generator, cfg: ArchConfig):
     dt = dtype_of(cfg.param_dtype)
     d, dev = cfg.d_model, gen.device
     return {"attn_norm": init_layernorm(d, device=dev),
-            "attn": _init_attention(gen, cfg, dt),
+            "attn": attn_mod.init_attention(gen, cfg, dt),
             "cross_norm": init_layernorm(d, device=dev),
-            "cross_attn": _init_attention(gen, cfg, dt),
+            "cross_attn": attn_mod.init_attention(gen, cfg, dt),
             "mlp_norm": init_layernorm(d, device=dev),
             "mlp": init_gelu_mlp(gen, d, cfg.d_ff, dt)}
 
@@ -82,14 +76,6 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig):
     }
 
 
-def _layer_params(stacked_params, i: int):
-    def pick(tree):
-        if isinstance(tree, dict):
-            return {k: pick(v) for k, v in tree.items()}
-        return tree[i]
-    return pick(stacked_params)
-
-
 # ----------------------------------------------------------------- encoder
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor, *,
@@ -104,7 +90,7 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor, *,
     x = frames.to(dt) + pos_tab[None]
     positions = torch.arange(s, dtype=torch.int32, device=frames.device)
     for i in range(cfg.enc_layers):
-        lp = _layer_params(params["enc_layers"], i)
+        lp = layer_of(params["enc_layers"], i)
         h = layernorm(lp["attn_norm"], x, eps)
         q, k, v = attn_mod.qkv_project(lp["attn"], h)
         a = attn_mod.attend(q, k, v, q_pos=positions, k_pos=positions,
@@ -148,7 +134,7 @@ def decode_train(params, cfg: ArchConfig, tokens, memory, *,
     mem_positions = torch.arange(memory.shape[1], dtype=torch.int32,
                                  device=x.device)
     for i in range(cfg.n_layers):
-        x = _dec_block(_layer_params(params["dec_layers"], i), x, memory,
+        x = _dec_block(layer_of(params["dec_layers"], i), x, memory,
                        cfg, positions, mem_positions, impl)
     return _logits(params, cfg, x[:, -1:] if last_only else x)
 
@@ -172,7 +158,7 @@ def init_decode_state(params, cfg: ArchConfig, batch: int, context_len: int,
     mem = memory.to(dt)
     caches: List[Dict[str, Any]] = []
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["dec_layers"], i)
+        lp = layer_of(params["dec_layers"], i)
         _, kc, vc = attn_mod.qkv_project(lp["cross_attn"], mem[:, :1],
                                          kv_x=mem)
         caches.append({
@@ -197,7 +183,7 @@ def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token, *,
     mem_positions = None
     new_caches = []
     for i in range(cfg.n_layers):
-        lp = _layer_params(params["dec_layers"], i)
+        lp = layer_of(params["dec_layers"], i)
         entry = dict(caches[i])
         h = layernorm(lp["attn_norm"], x, eps)
         q, k, v = attn_mod.qkv_project(lp["attn"], h)

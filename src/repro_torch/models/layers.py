@@ -84,6 +84,13 @@ def stacked(init_fn, gen: torch.Generator, n: int, *args, **kwargs):
     return out
 
 
+def layer_of(stack, i: int):
+    """Layer ``i`` of a ``stacked`` param tree (views, no copy)."""
+    if isinstance(stack, dict):
+        return {k: layer_of(v, i) for k, v in stack.items()}
+    return stack[i]
+
+
 # ---------------------------------------------------------------------- norms
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None):

@@ -33,8 +33,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        glu_mlp, init_glu_mlp, init_rmsnorm,
-                                       rmsnorm, rotary_embed, softcap,
-                                       stacked)
+                                       layer_of, rmsnorm, rotary_embed,
+                                       softcap, stacked)
 
 __all__ = ["layer_windows", "init_layer", "init_lm", "block_forward",
            "embed_inputs", "lm_logits", "forward_lm", "init_decode_state",
@@ -58,12 +58,6 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
 
 # ------------------------------------------------------------------- init
 
-def _init_attention(gen: torch.Generator, cfg: ArchConfig, dt):
-    return attn_mod.init_attention(
-        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-        dt, use_bias=cfg.qkv_bias)
-
-
 def init_layer(gen: torch.Generator, cfg: ArchConfig):
     dt = dtype_of(cfg.param_dtype)
     d = cfg.d_model
@@ -73,7 +67,7 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig):
                 "mamba": ssm_mod.init_mamba(gen, d, cfg.ssm, dt)}
     if cfg.family == "hybrid":
         return {"input_norm": init_rmsnorm(d, device=dev),
-                "attn": _init_attention(gen, cfg, dt),
+                "attn": attn_mod.init_attention(gen, cfg, dt),
                 "mamba": ssm_mod.init_mamba(gen, d, cfg.ssm, dt),
                 "attn_out_norm": init_rmsnorm(d, device=dev),
                 "ssm_out_norm": init_rmsnorm(d, device=dev),
@@ -82,7 +76,7 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig):
     # dense / moe / the vlm's LM backbone
     p: Dict[str, Any] = {
         "attn_norm": init_rmsnorm(d, device=dev),
-        "attn": _init_attention(gen, cfg, dt),
+        "attn": attn_mod.init_attention(gen, cfg, dt),
         "mlp_norm": init_rmsnorm(d, device=dev),
     }
     if cfg.moe is not None:
@@ -117,14 +111,6 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
 
 
 # --------------------------------------------------------------- block fwd
-
-def _layer_params(params, i: int):
-    def pick(tree):
-        if isinstance(tree, dict):
-            return {k: pick(v) for k, v in tree.items()}
-        return tree[i]
-    return pick(params["layers"])
-
 
 def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, prefix,
                     impl):
@@ -229,7 +215,7 @@ def forward_lm(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
     wins = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, aux = block_forward(_layer_params(params, i), x, cfg, positions,
+        x, aux = block_forward(layer_of(params["layers"], i), x, cfg, positions,
                                wins[i], impl)
         aux_total = aux_total + aux
     return lm_logits(params, cfg, x), aux_total, n_prefix
@@ -286,7 +272,7 @@ def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token):
     wins = layer_windows(cfg)
     new_caches = []
     for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+        lp = layer_of(params["layers"], i)
         entry = dict(caches[i])
         if cfg.family == "ssm":
             h = rmsnorm(lp["norm"], x, eps)
@@ -337,7 +323,7 @@ def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
     prefix = cfg.hybrid_meta_tokens
     caches = init_decode_state(cfg, b, context_len, device=x.device)
     for i in range(cfg.n_layers):
-        lp = _layer_params(params, i)
+        lp = layer_of(params["layers"], i)
         entry = caches[i]
         if cfg.family == "ssm":
             h = rmsnorm(lp["norm"], x, eps)

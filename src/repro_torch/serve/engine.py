@@ -21,7 +21,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api, encdec, transformer
 
-__all__ = ["make_prefill_step", "make_serve_step", "greedy_decode"]
+__all__ = ["serve_context_len", "make_prefill_step", "make_serve_step",
+           "greedy_decode"]
+
+
+def serve_context_len(cfg: ArchConfig, n_prompt: int, n_new: int,
+                      extra_embeds: Optional[torch.Tensor] = None) -> int:
+    """The context ``greedy_decode`` sizes the decode caches for, as the
+    reference does: the prompt, the new tokens, the extra embeddings'
+    rows (the vlm's patches) and the hybrid meta tokens."""
+    n_extra = extra_embeds.shape[1] if extra_embeds is not None else 0
+    return n_prompt + n_new + n_extra + cfg.hybrid_meta_tokens
 
 
 def make_prefill_step(cfg: ArchConfig, *, context_len: int,
@@ -73,12 +83,12 @@ def greedy_decode(params, cfg: ArchConfig, prompt_tokens: torch.Tensor,
             out.append(cur)
             cur, _, caches = step(params, caches, t, cur)
         return torch.stack(out, dim=1)
-    n_patches = extra_embeds.shape[1] if extra_embeds is not None else 0
-    logits, caches, next_idx = transformer.prefill(
-        params, cfg, prompt_tokens, extra_embeds,
-        context_len=(prompt_tokens.shape[1] + n_new + n_patches
-                     + cfg.hybrid_meta_tokens),
+    prefill = make_prefill_step(
+        cfg, context_len=serve_context_len(cfg, prompt_tokens.shape[1],
+                                           n_new, extra_embeds),
         impl=impl, last_only=True)
+    logits, caches, next_idx = prefill(
+        params, {"tokens": prompt_tokens, "patches": extra_embeds})
     cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     out = []
     for t in range(n_new):

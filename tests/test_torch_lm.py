@@ -48,6 +48,7 @@ from repro.serve import engine as ref_engine
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.interop import lm_params_from_jax
 from repro_torch.models import api, transformer
+from repro_torch.models.layers import layer_of
 from repro_torch.serve import greedy_decode, make_prefill_step, \
     make_serve_step
 
@@ -333,7 +334,7 @@ def test_bf16_blocks_match_reference(arch, s):
     for i in range(cfg.n_layers):
         lp = jax.tree_util.tree_map(lambda a: a[i], rp["layers"])
         y, _ = ref_tr.block_forward(lp, x, cfg, pos, wins[i], "full")
-        plp = transformer._layer_params(pp, i)
+        plp = layer_of(pp["layers"], i)
         if cfg.sandwich_norms or arch in STEPWISE:
             _block_steps(lp, plp, cfg, pcfg, x, y, wins[i])
         else:
@@ -397,7 +398,7 @@ def test_bf16_decode_matches_reference(arch, s):
 
     for i in range(cfg.n_layers):
         lp = jax.tree_util.tree_map(lambda a: a[i], rp["layers"])
-        plp = transformer._layer_params(pp, i)
+        plp = layer_of(pp["layers"], i)
         if cfg.family == "ssm":
             pairs = [ssm_pair(lp, plp, ref_layers.rmsnorm(lp["norm"], x, eps),
                               i)]
