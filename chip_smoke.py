@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
     python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
     python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
+    python3 chip_smoke.py --only llm-train        # build K11/K12, training
 
 Phases, each printing JSON lines:
 
@@ -119,10 +120,25 @@ Phases, each printing JSON lines:
               kernel does, and the bytes the design moves; at
               S=1,000, L=37 and the CPU tests' ragged (P, N, L) = (8, 8,
               16) and (16, 16, 32) checked; y and state within
-              1e-5·(1+max|plain|).  Then ``grad``:
-              both CUDA wrappers must refuse, under grad mode, each
-              operand that requires grad (they have no backward), and
-              run under ``no_grad``.  Every library yardstick is timed
+              1e-5·(1+max|plain|).  K11's backward
+              (``flash_attention_bwd.cu``: dq, dk, dv; no TPU entry
+              point, the reference differentiates its full attention
+              with XLA) against ``ref.flash_attention_bwd`` on the
+              kernel forward's output, f32 and bf16: at the tinyllama
+              train shape (the ``kernels`` line's row), hymba's,
+              internvl2's, olmoe's, gemma2's (softcap, Dh=256),
+              whisper's encoder and its teacher-forced cross-attention
+              (Sq=448 against 1,500 frames), timed in bf16 with the
+              backward of SDPA (``enable_gqa``) as the library, and
+              ragged edges checked; f32 within 1e-4·max|plain|, bf16
+              within 2^-7·|plain| + 1e-4·max|plain| (the f32 sums in
+              other orders, then one rounding); a second launch bitwise
+              the first (no atomics).  Then ``grad``: K11's op
+              differentiates on the card (its autograd gradients
+              against the plain version's, each operand in turn), K12's
+              CUDA wrapper must refuse, under grad mode, each operand
+              that requires grad (it has no backward), and both run
+              under ``no_grad``.  Every library yardstick is timed
               with CUDA events (``library_ms``) and by the profiler
               (``library_device_ms``), to compare with ``device_ms``.
 4. pipeline — ``run_pipeline(model="knn")`` at the paper's full HI size
@@ -248,6 +264,25 @@ Phases, each printing JSON lines:
               prompt through the decoder's cache.
               Between models the params are freed and the cache
               emptied; each LLM line carries its phase's seconds.
+18. llm_train — LLM training (``train.steps``): tinyllama-1.1b at full
+              width and depth, B=2, S=2,048, Eq.(2) weights 1 + rank/B,
+              remat, Adam.  The f32 model's loss and every param leaf's
+              gradient with the kernels (K11 forward and backward)
+              against the plain versions from the same params and batch:
+              |Δloss| <= 1e-5·|loss|, ‖Δg‖ <= 1e-3·‖g‖ + 1e-6·max‖g‖
+              (the floor for leaves whose gradient is zero in exact
+              arithmetic: a key bias).  In the config's bf16, 6 steps on
+              one batch, twice: the losses bitwise equal, the 6th below
+              the 1st, K11 launched 44 times a step forward (22 + 22
+              remat) and 22 backward, K12 0; step ms, tokens/s, peak
+              memory, the busy share, top ops and K11-backward's share
+              of a profiled step.  Each of the ten reduced configs (f32,
+              B=2, S=64): one kernel-vs-plain gradient under the same
+              gate, K11 launched twice a forward and once a backward per
+              attention layer, K12 never.  A checkpoint of reduced
+              tinyllama's params and Adam state after 3 steps, loaded
+              into fresh tensors on the card: step 4 bitwise the
+              uninterrupted run's.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -1893,51 +1928,239 @@ def flash_rows(dev, rng):
 
 
 def grad_check(dev, rng):
-    """K11 and K12 have no backward: under grad mode each CUDA wrapper
-    must refuse an operand that requires grad (RuntimeError, "no
-    backward"), and under ``torch.no_grad()`` the same call runs and
-    matches its plain version (K11 in f32 within 1e-5, K12 within
-    1e-5·(1+max|y|)).  A refusal that is not seen fails the run."""
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    """K11's op differentiates on the card: for each of q, k, v in turn
+    requiring grad (f32, a window, prefix and softcap), the gradient
+    through ``ops.flash_attention(impl="kernel")`` (K11 forward, then its
+    backward kernel: one launch of each) against autograd of the plain
+    version on the card, within 1e-5·(1 + max|grad|).  K12 has no
+    backward: under grad mode its CUDA wrapper must refuse an operand
+    that requires grad (RuntimeError, "no backward"), and under
+    ``torch.no_grad()`` the same call runs and matches its plain version
+    (within 1e-5·(1+max|y|)); so does K11's op.  A refusal that is not
+    seen fails the run."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
     g = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(dev)
-    cases = (
-        ("flash_attention", flash_attention_cuda, fa_ref.flash_attention,
-         (g(1, 64, 4, 32), g(1, 64, 2, 32), g(1, 64, 2, 32))),
-        ("ssd_scan", lambda *a: ssd_scan_cuda(*a, chunk=32)[0],
-         lambda *a: ssd_ref.ssd_scan(*a, 32)[0],
-         (g(1, 64, 2, 16), g(1, 64, 2).abs() * 0.1, -g(2).abs(),
-          g(1, 64, 16), g(1, 64, 16))))
-    out = {}
-    for name, call, plain, args in cases:
-        for i in range(len(args)):
+    kw = dict(causal=True, window=40, prefix=8, logit_cap=30.0)
+    qkv, do = (g(1, 96, 4, 32), g(1, 96, 2, 32), g(1, 96, 2, 32)), \
+        g(1, 96, 4, 32)
+    errs = []
+    for i in range(3):
+        grads = []
+        for impl in ("kernel", "ref"):
             leaves = [t.clone().requires_grad_(j == i)
-                      for j, t in enumerate(args)]
-            try:
-                call(*leaves)
-            except RuntimeError as e:
-                if "no backward" not in str(e):
-                    raise
-                msg = str(e)
-            else:
-                raise AssertionError(f"{name}: the CUDA wrapper ran under "
-                                     f"grad with operand {i} requiring grad")
-            with torch.no_grad():
-                got, want = call(*leaves), plain(*leaves)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if err > 1e-5 * (1 + float(want.abs().max())):
-                raise AssertionError(f"{name} under no_grad: {err} from "
-                                     "the plain version")
-        out[name] = dict(raised=msg, operands_refused=len(args),
-                         no_grad_max_abs_err=err)
+                      for j, t in enumerate(qkv)]
+            build.reset_launches()
+            out = fa_ops.flash_attention(*leaves, impl=impl, **kw)
+            grads.append(torch.autograd.grad(out, leaves[i], do)[0])
+            if impl == "kernel" and (
+                    build.LAUNCHES["flash_attention"] != 1
+                    or build.LAUNCHES["flash_attention_bwd"] != 1):
+                raise AssertionError(f"flash_attention: grad of operand {i}"
+                                     f" launched {dict(build.LAUNCHES)}")
+        torch.cuda.synchronize()
+        err = float((grads[0] - grads[1]).abs().max())
+        if err > 1e-5 * (1 + float(grads[1].abs().max())):
+            raise AssertionError(f"flash_attention: autograd of operand {i}"
+                                 f" {err} from the plain version's")
+        errs.append(err)
+    with torch.no_grad():
+        err = float((fa_ops.flash_attention(*qkv, impl="kernel", **kw)
+                     - fa_ops.flash_attention(*qkv, impl="ref", **kw)
+                     ).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"flash_attention under no_grad: {err}")
+    out = {"flash_attention": dict(grad_max_abs_err=errs,
+                                   no_grad_max_abs_err=err)}
+    args = (g(1, 64, 2, 16), g(1, 64, 2).abs() * 0.1, -g(2).abs(),
+            g(1, 64, 16), g(1, 64, 16))
+    for i in range(len(args)):
+        leaves = [t.clone().requires_grad_(j == i)
+                  for j, t in enumerate(args)]
+        try:
+            ssd_scan_cuda(*leaves, chunk=32)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            msg = str(e)
+        else:
+            raise AssertionError(f"ssd_scan: the CUDA wrapper ran under "
+                                 f"grad with operand {i} requiring grad")
+        with torch.no_grad():
+            got = ssd_scan_cuda(*leaves, chunk=32)[0]
+            want = ssd_ref.ssd_scan(*leaves, 32)[0]
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err > 1e-5 * (1 + float(want.abs().max())):
+            raise AssertionError(f"ssd_scan under no_grad: {err} from the "
+                                 "plain version")
+    out["ssd_scan"] = dict(raised=msg, operands_refused=len(args),
+                           no_grad_max_abs_err=err)
     emit({"phase": "grad", **out})
     return out
+
+
+def flash_bwd_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
+                  timed_at=None, launches_a_step=None, **kw):
+    """K11's backward on seeded unit-normal q/k/v/do and the K11
+    forward's output o, against its plain version
+    (``ref.flash_attention_bwd``, f32 math, one rounding to the dtype):
+    f32 within 1e-4·max|plain| (sums over up to G·Sq rows in other
+    orders), bf16 within 2^-7·|plain| + 1e-4·max|plain|; a second launch
+    bitwise the first.  Timed rows (bf16; ``timed_at`` names the config,
+    ``launches_a_step`` its train step's launches at this shape, one an
+    attention layer of that kind) carry the
+    event and device time of the two launches, the plain version's time,
+    the bound and the backward of SDPA (``enable_gqa``, the same mask;
+    none under a softcap) as the library: event time of
+    ``torch.autograd.grad`` through a saved forward, and its device
+    time."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    g = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev, dtype)
+    q, k, v = g(b, sq, h, dh), g(b, sk, kv, dh), g(b, sk, kv, dh)
+    do = g(b, sq, h, dh)
+    o = flash_attention_cuda(q, k, v, **kw)
+    call = lambda: flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    plain = lambda: fa_ref.flash_attention_bwd(q, k, v, o, do, **kw)
+    got, again, want = call(), call(), plain()
+    torch.cuda.synchronize()
+    tag = f"flash_attention_bwd ({str(dtype)}, {[b, sq, sk, h, kv, dh]}, {kw})"
+    errs = []
+    for name, x, y, w in zip(("dq", "dk", "dv"), got, again, want):
+        if x.dtype != dtype or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: {name} wrong dtype or non-finite")
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag}: {name} differs between two "
+                                 "launches")
+        top = float(w.float().abs().max())
+        if dtype == torch.float32:
+            errs.append(check_close(f"{tag} {name}", x, w,
+                                    torch.zeros_like(w), rtol=0.0,
+                                    atol=1e-4 * top))
+        else:
+            errs.append(check_close(f"{tag} {name}", x, w, w.float().abs(),
+                                    rtol=BF16_ULP, atol=1e-4 * top))
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               replaces="none: XLA differentiates src/repro/models/"
+               "attention.py:81 (full_attention)",
+               max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+               shape=[b, sq, sk, h, kv, dh],
+               dtype=str(dtype).split(".")[-1], bitwise_rerun=True, **kw)
+    del want, got, again
+    if check_only:
+        return row | {"check_only": check_only}
+    if timed_at:
+        row |= dict(timed_at=timed_at, launches_a_step=launches_a_step)
+    masks = {key: kw[key] for key in kw if key != "logit_cap"}
+    visible = visible_pairs(sq, sk, **masks)
+    # The products the function needs, each 2·B·H·Dh·(visible pairs)
+    # flops: S = QKᵀ again and dP = dO·Vᵀ, of bf16 operands (exact in
+    # f32: one bf16 pass each), and dV = Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K,
+    # whose f32 p and ds three bf16 pieces carry whole (three passes
+    # each), as the forward's bound counts P·V: 11 passes on the
+    # tensor cores.  The exps are not counted.
+    assert dtype == torch.bfloat16, "the bound assumes bf16 operands"
+    products = 2 * b * h * dh * visible
+    b_ms, b_by = bound(q.element_size() * (3 * 2 * q.numel()
+                                           + 2 * 2 * k.numel()),
+                       (1 + 1 + 3 * 3) * products, BF16_FLOPS)
+    lib = {}
+    if not kw.get("logit_cap"):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if masks.get("window") or masks.get("prefix") or (
+                masks.get("causal", True) and sq != sk):
+            row_pos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+            col = torch.arange(sk, device=dev)[None, :]
+            mask = (col <= row_pos if masks.get("causal", True)
+                    else col >= 0)
+            if masks.get("window"):
+                mask &= ((row_pos - col) < masks["window"]) | (
+                    col < masks.get("prefix", 0))
+            lib_kw, what = dict(attn_mask=mask), "a boolean attn_mask"
+        elif masks.get("causal", True):
+            lib_kw, what = dict(is_causal=True), "is_causal"
+        else:
+            lib_kw, what = {}, "no mask"
+        sdpa_out = sdpa(qt, kt, vt, enable_gqa=True, **lib_kw)
+        dot = do.transpose(1, 2)
+        lib_call = lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                               retain_graph=True)
+        lib = dict(**library_times(lib_call),
+                   library=f"backward of torch scaled_dot_product_attention"
+                   f"({what}, enable_gqa)")
+    else:
+        lib = dict(library_ms=None, library="none: SDPA cannot softcap")
+    return row | dict(
+        ms=cuda_ms(call),
+        device_ms=kernel_device_ms(call, ["flash_attention_bwd_"]),
+        plain_ms=cuda_ms(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+        visible_pairs=visible, **lib)
+
+
+def flash_bwd_rows(dev, rng):
+    """K11's backward at the tinyllama-1.1b train step (B = 2, S = 2,048,
+    H = 32, KV = 4, Dh = 64, causal, bf16: the ``kernels`` line's row),
+    checked in f32 there; in bf16 timed and in f32 checked at hymba-1.5b
+    (S = 2,176, G = 5, window 1,024, prefix 128), internvl2-1b (S =
+    2,304, G = 7), olmoe-1b-7b (G = 1, Dh = 128), gemma2-9b (G = 2, Dh =
+    256, window 4,096, softcap 50), whisper-large-v3's encoder (1,500
+    frames, no causal mask) and its teacher-forced cross-attention (Sq =
+    448 against 1,500 frames, no causal mask); and ragged edges in both
+    dtypes: Sq < Sk with a window and prefix, Dh = 36, G = 128, Dh = 160
+    with G = 7 (``check_only``)."""
+    from repro_torch.configs import get_config
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = [flash_bwd_row(dev, rng, 2, 2048, 2048, 32, 4, 64, bf16,
+                          causal=True),
+            flash_bwd_row(dev, rng, 2, 2048, 2048, 32, 4, 64, f32,
+                          causal=True, check_only="tinyllama, f32")]
+    whisper = get_config("whisper-large-v3")
+    for arch, n, shape, kw in (
+            ("hymba-1.5b", None, (2, 2176, 2176, 25, 5, 64),
+             dict(causal=True, window=1024, prefix=128)),
+            ("internvl2-1b", None, (2, 2304, 2304, 14, 2, 64),
+             dict(causal=True)),
+            ("olmoe-1b-7b", None, (2, 2048, 2048, 16, 16, 128),
+             dict(causal=True)),
+            # gemma2's local layers (its global ones see 2,048 keys too)
+            ("gemma2-9b", None, (2, 2048, 2048, 16, 8, 256),
+             dict(causal=True, window=4096, logit_cap=50.0)),
+            ("whisper-large-v3 encoder", whisper.enc_layers,
+             (2, 1500, 1500, 20, 20, 64), dict(causal=False)),
+            ("whisper-large-v3 cross-attention", whisper.n_layers,
+             (2, 448, 1500, 20, 20, 64), dict(causal=False))):
+        n = get_config(arch).n_layers if n is None else n
+        rows.append(flash_bwd_row(dev, rng, *shape, bf16, timed_at=arch,
+                                  launches_a_step=n, **kw))
+        rows.append(flash_bwd_row(dev, rng, *shape, f32,
+                                  check_only=f"{arch}, f32", **kw))
+    for dtype in (f32, bf16):
+        tag = str(dtype).split(".")[-1]
+        rows += [
+            flash_bwd_row(dev, rng, 2, 100, 700, 6, 3, 32, dtype,
+                          causal=True, window=200, prefix=16,
+                          check_only=f"Sq<Sk, {tag}"),
+            flash_bwd_row(dev, rng, 2, 300, 300, 4, 2, 36, dtype,
+                          causal=True, window=100,
+                          check_only=f"Dh=36, {tag}"),
+            flash_bwd_row(dev, rng, 1, 64, 64, 128, 1, 64, dtype,
+                          causal=True, check_only=f"G=128, {tag}"),
+            flash_bwd_row(dev, rng, 1, 257, 257, 7, 1, 160, dtype,
+                          causal=True, logit_cap=20.0,
+                          check_only=f"Dh=160, G=7, softcap, {tag}")]
+    return rows
 
 
 def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
@@ -2029,13 +2252,15 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
 
 
 def llm_kernel_rows(dev, rng):
-    """K11's rows (``flash_rows``), then K12 at the mamba2-1.3b prefill
+    """K11's rows (``flash_rows``), its backward's (``flash_bwd_rows``),
+    then K12 at the mamba2-1.3b prefill
     (B = 2, S = 2,048, H = 64, P = 64, N = 128, L = 128), at hymba-1.5b's
     (S = 2,176: 17 chunks, H = 50, N = 16; timed, ``path``), at S = 1,000 (a
     padded last chunk), at a 37-token prompt (L = 37) and at the CPU
-    tests' ragged P/N shapes (``check_only``), then both wrappers' refusal
-    under grad (``grad_check``)."""
-    rows = flash_rows(dev, rng) + [
+    tests' ragged P/N shapes (``check_only``), then K11's gradients and
+    K12's refusal under grad (``grad_check``)."""
+    rows = flash_rows(dev, rng) + flash_bwd_rows(
+        dev, np.random.default_rng(SEED + 7)) + [
         ssd_row(dev, rng, 2, 2048, 64, 64, 128, 128),
         ssd_row(dev, rng, 2, 2176, 50, 64, 16, 128,
                 path=("llm_hybrid", "ssd_scan")),
@@ -2642,8 +2867,8 @@ def yp_phase(dev):
                              f"{merges} in {rk.mpsi.rounds} rounds")
     # every kernel of the f32 path runs; K4 (minibatch coresets), K1/K2's
     # fp8 wire form and the int8 twins K9/K10 (the quantized wires; their
-    # operands form, on no path) and K11/K12 (LLM serving) have paths of
-    # their own
+    # operands form, on no path), K11/K12 (LLM serving) and K11's backward
+    # (LLM training) have paths of their own
     missing = [k for k, v in launched.items() if not v
                and k not in (*merges, "kmeans_update_gather",
                              "splitnn_bottom_fp8",
@@ -2652,7 +2877,8 @@ def yp_phase(dev):
                              "splitnn_bottom_int8_gather",
                              "splitnn_bottom_int8_operands",
                              "splitnn_bottom_int8_gather_operands",
-                             "flash_attention", "ssd_scan")]
+                             "flash_attention", "flash_attention_bwd",
+                             "ssd_scan")]
     if missing:
         raise AssertionError(f"yp: kernels {missing} were not launched")
     if any(row_r["launches"].values()):
@@ -3418,6 +3644,235 @@ def llm_phase(dev, phase, arch):
     return row
 
 
+# ----------------------------------------------------------- LLM training
+
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "tinyllama-1.1b", 2, 2048, 6
+TRAIN_LR = 1e-5                # Adam; 6 steps on one batch must lower the loss
+TRAIN_LOSS_RTOL = 1e-5         # kernel vs plain, f32 model: |Δloss| / |loss|
+TRAIN_GRAD_RTOL = 1e-3         # ‖Δg‖ / ‖g‖ of every param leaf
+TRAIN_GRAD_FLOOR = 1e-6        # × the largest leaf's ‖g‖ (a key bias's is 0)
+REDUCED_SEQ = 64
+CKPT_STEPS = 3                 # steps before the checkpoint; one after it
+
+
+def train_batch(cfg, dev, b, s, seed=SEED):
+    """``token_batch_iterator``'s first batch (with stub frames or
+    patches where the family takes them) with the Eq.(2) weights 1 +
+    rank/B, on the card."""
+    from repro_torch.data.pipeline import token_batch_iterator
+
+    nb = next(token_batch_iterator(
+        b, s, cfg.vocab, seed=seed, d_model=cfg.d_model,
+        frames=cfg.enc_seq if cfg.family == "audio" else 0,
+        patches=cfg.vision_tokens if cfg.family == "vlm" else 0,
+        weights=True))
+    nb["weights"] = (1.0 + np.arange(b) / b).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+
+
+def loss_and_grads(params, cfg, batch, attn_impl):
+    """``train.steps.lm_loss`` and its gradient leaves (``tree_leaves``
+    order) with K11 (``attn_impl=None``) or its plain version
+    (``"ref"``), and the launches that made them."""
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.steps import lm_loss
+
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    reset_launches()
+    loss, _ = lm_loss(params, cfg, batch, attn_impl=attn_impl)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), grads, launches
+
+
+def grad_gate(tag, params, cfg, batch, faults):
+    """Kernel vs plain on one f32 loss and gradient: (row, kernel
+    launches).  The loss within ``TRAIN_LOSS_RTOL``, each leaf within
+    ``TRAIN_GRAD_RTOL``·‖g‖ + ``TRAIN_GRAD_FLOOR``·max‖g‖; the worst
+    leaf is named."""
+    from repro_torch.checkpoint.store import _paths
+
+    names = [k for k, _ in _paths(params)]
+    lk, gk, launches = loss_and_grads(params, cfg, batch, None)
+    lp, gp, _ = loss_and_grads(params, cfg, batch, "ref")
+    norms = [float(g.double().norm()) for g in gp]
+    top = max(norms)
+    ratios = [float((a.double() - b.double()).norm())
+              / (TRAIN_GRAD_RTOL * n + TRAIN_GRAD_FLOOR * top)
+              for a, b, n in zip(gk, gp, norms)]
+    worst = int(np.argmax(ratios))
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    row = dict(loss_kernel=float(lk), loss_plain=float(lp),
+               loss_rel_err=loss_err, worst_leaf=names[worst],
+               worst_leaf_rel_err=float(
+                   (gk[worst].double() - gp[worst].double()).norm())
+               / max(norms[worst], 1e-300),
+               worst_leaf_of_bound=ratios[worst], leaves=len(gk))
+    if not (np.isfinite(float(lk)) and loss_err <= TRAIN_LOSS_RTOL):
+        faults.append(f"{tag}: loss {float(lk)} vs plain {float(lp)}")
+    if ratios[worst] > 1.0:
+        faults.append(f"{tag}: leaf {names[worst]} gradient "
+                      f"{ratios[worst]}× its bound from the plain one")
+    return row, launches
+
+
+def attention_layers(cfg) -> int:
+    """Attention layers of a training forward (the encoder's, and the
+    decoder's self- and cross-attention for audio)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def llm_train_phase(dev):
+    """LLM training at full width and depth, then the ten reduced configs
+    and the checkpoint resume (docstring item 18).  Returns the row;
+    every number is emitted before a failed gate raises."""
+    import dataclasses
+    import gc
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    faults = []
+    cfg = get_config(TRAIN_ARCH)
+    layers = attention_layers(cfg)
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    batch = train_batch(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+
+    # the f32 model: one kernel-vs-plain gradient
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = api.init_params(SEED, cfg32, device=dev)
+    f32_row, f32_launches = grad_gate(f"{TRAIN_ARCH} f32", params, cfg32,
+                                      batch, faults)
+    if f32_launches != want:
+        faults.append(f"f32 gradient launched {f32_launches}, not {want}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the config's bf16: 6 steps on one batch, twice
+    def run():
+        params, opt = init_train_state(SEED, cfg, device=dev)
+        step = make_train_step(cfg, lr=TRAIN_LR)
+        losses, ms, launches = [], [], []
+        for _ in range(TRAIN_STEPS):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"].item())
+            launches.append({k: v for k, v in LAUNCHES.items() if v})
+        return params, opt, step, losses, ms, launches
+
+    torch.cuda.reset_peak_memory_stats()
+    first = run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    second = run()
+    params, opt, step = second[:3]
+    prof_per, prof_device, prof_wall = profile_device(
+        lambda: step(params, opt, batch), reps=1)
+    bwd_ms = sum(t for k, t in prof_per.items()
+                 if "flash_attention_bwd_" in k)
+    fwd_ms = sum(t for k, t in prof_per.items()
+                 if "flash_attention_" in k and "bwd" not in k)
+    losses, all_ms = [first[3], second[3]], [first[4], second[4]]
+    step_launches = first[5][0]
+    step_ms = float(np.median(first[4][1:] + second[4][1:]))
+    bits = [np.asarray(l, np.float32).view(np.int32).tolist()
+            for l in losses]
+    if bits[0] != bits[1]:
+        faults.append(f"bf16 losses differ between two runs: {losses}")
+    if not losses[0][-1] < losses[0][0]:
+        faults.append(f"bf16 loss did not fall: {losses[0]}")
+    for launches in first[5] + second[5]:
+        if launches != want:
+            faults.append(f"a bf16 step launched {launches}, not {want}")
+            break
+    del params, opt, step, first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every reduced config, f32: one kernel-vs-plain gradient each
+    reduced = {}
+    for arch in ARCH_IDS:
+        rcfg = get_config(arch).reduced()
+        rparams = api.init_params(SEED, rcfg, device=dev)
+        rrow, rl = grad_gate(f"{arch}-reduced", rparams, rcfg,
+                             train_batch(rcfg, dev, 2, REDUCED_SEQ), faults)
+        n = attention_layers(rcfg)
+        rwant = {"flash_attention": 2 * n, "flash_attention_bwd": n} \
+            if n else {}
+        if rl != rwant:
+            faults.append(f"{arch}-reduced launched {rl}, not {rwant}")
+        reduced[arch] = rrow | {"launches": rl}
+        del rparams
+
+    # checkpoint at reduced tinyllama: step 4 from the loaded state
+    ccfg = get_config(TRAIN_ARCH).reduced()
+    cbatch = train_batch(ccfg, dev, 2, REDUCED_SEQ)
+    cstep = make_train_step(ccfg, lr=1e-3)
+    path = os.path.join(ROOT, "build", "llm_train_ckpt.npz")
+    sp, so = init_train_state(SEED, ccfg, device=dev)
+    for i in range(CKPT_STEPS + 1):
+        sp, so, sm = cstep(sp, so, cbatch)
+        if i == CKPT_STEPS - 1:
+            save_checkpoint(path, (sp, so), step=so.step)
+    like = init_train_state(SEED + 1, ccfg, device=dev)
+    (lp, lo), meta = load_checkpoint(path, like)
+    lp, lo, lm = cstep(lp, lo, cbatch)
+    resumed = (lo.step == so.step == CKPT_STEPS + 1
+               and meta["step"] == CKPT_STEPS
+               and torch.equal(lm["loss"], sm["loss"])
+               and all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves((lp, lo.mu, lo.nu)),
+                   tree_leaves((sp, so.mu, so.nu)))))
+    if not resumed:
+        faults.append("the step after the checkpoint differs from the "
+                      "uninterrupted run's")
+    os.remove(path)
+
+    row = dict(
+        phase="llm_train", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, lr=TRAIN_LR, f32=f32_row,
+        f32_launches=f32_launches, bf16_losses=losses[0],
+        bf16_losses_bitwise_equal=bits[0] == bits[1],
+        bf16_launches_a_step=step_launches, step_ms=step_ms,
+        step_ms_all=all_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+        peak_gb=peak_gb,
+        profile=dict(device_ms=prof_device, wall_ms=prof_wall,
+                     busy=prof_device / prof_wall if prof_device else None,
+                     k11_bwd_ms=bwd_ms, k11_fwd_ms=fwd_ms,
+                     k11_bwd_share=bwd_ms / prof_device
+                     if prof_device else None,
+                     top=sorted(prof_per.items(),
+                                key=lambda kv: -kv[1])[:8]),
+        reduced=reduced, checkpoint_resume_bitwise=resumed,
+        launches={"flash_attention_bwd":
+                  step_launches.get("flash_attention_bwd", 0)},
+        phase_s=time.perf_counter() - t_phase)
+    emit(row)
+    if faults:
+        raise AssertionError("llm_train: " + "; ".join(faults))
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3461,8 +3916,10 @@ def spilled(report: str):
     return out
 
 
-ONLY = {"llm-kernels": ["flash_attention", "ssd_scan"],
+ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
+                        "ssd_scan"],
         "llm-paths": ["flash_attention", "ssd_scan"],
+        "llm-train": ["flash_attention", "flash_attention_bwd", "ssd_scan"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
         "bottom-kernels": ["splitnn_bottom"],
         "psi-kernels": ["psi_prf", "sorted_intersect"]}
@@ -3474,7 +3931,7 @@ def main(argv) -> int:
     if (argv and only not in ONLY or len(argv) > 2 and not phases
             or not set(phases) <= {p for p, _ in LLM_PHASES}):
         print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
-              "...]|kmeans-kernels|bottom-kernels|psi-kernels]",
+              "...]|llm-train|kmeans-kernels|bottom-kernels|psi-kernels]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3491,7 +3948,7 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(ONLY.get(only))
     sass = ssd_sass = None
-    if only in (None, "llm-kernels", "llm-paths"):
+    if only in (None, "llm-kernels", "llm-paths", "llm-train"):
         # K11's bf16 instances must run both products on the tensor cores;
         # K12's census is a record (its products are f32 FMAs, PERF.md)
         sass = sass_census("flash_attention")
@@ -3567,9 +4024,18 @@ def main(argv) -> int:
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
+    if only == "llm-train":
+        # LLM training at full width, the reduced configs and the
+        # checkpoint resume: the quick check of an edit to the training
+        # path or K11's backward (not the contract run)
+        llm_train_phase(dev)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     if only == "llm-kernels":
-        # K11 and K12 against their plain versions, and the grad refusal:
-        # the quick check of an edit to those kernels (not the contract run)
+        # K11, its backward and K12 against their plain versions, K11's
+        # gradients and K12's refusal under grad: the quick check of an
+        # edit to those kernels (not the contract run)
         rows = llm_kernel_rows(dev, np.random.default_rng(SEED))
         for r in rows:
             emit({"phase": "kernel", **r})
@@ -3609,8 +4075,10 @@ def main(argv) -> int:
     # K11 and K12 count on their own main paths, one greedy_decode each:
     # the K11/K12 rows on tinyllama and mamba2, a ``path`` row on its own
     llm = {phase: llm_phase(dev, phase, arch) for phase, arch in LLM_PHASES}
+    # K11's backward counts on its own path, a tinyllama train step
+    train = llm_train_phase(dev)
     launches = (launches | llm["llm_dense"]["launches"]
-                | llm["llm_ssm"]["launches"])
+                | llm["llm_ssm"]["launches"] | train["launches"])
     for phase, arch in LLM_PHASES[1:3]:
         worst = llm[phase]["k12_layers_max"]
         rows.append(dict(
@@ -3619,7 +4087,7 @@ def main(argv) -> int:
             max_abs_y=worst["max_y"], max_cum=worst["max_cum"],
             kernel_vs_f64=worst["y_kernel_vs_f64"],
             plain_vs_f64=worst["y_plain_vs_f64"]))
-    pipe_rows += list(llm.values())
+    pipe_rows += list(llm.values()) + [train]
     kernels = []
     for r in rows:
         if "check_only" in r or "timed_at" in r:

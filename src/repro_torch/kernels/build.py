@@ -34,10 +34,12 @@ apart (``splitnn_bottom_int8_operands``,
 (``kmeans_update_gather``).  ``sorted_intersect.cu``'s merge counts as
 K7 (``sorted_intersect``) up to the reference's single-pass bound and as
 K8 (``sorted_intersect_tiled``) past it (``kernels/sorted_intersect``).
-The LLM serving path's two kernels have a source each:
-``flash_attention.cu`` holds K11 (``flash_attention``, every attention
-layer of a prefill) and ``ssd_scan.cu`` K12 (``ssd_scan``, every Mamba2
-layer of a prefill).
+The LLM paths' kernels have a source each: ``flash_attention.cu`` holds
+K11 (``flash_attention``, every attention layer of a prefill or a
+training forward, remat's recompute included), ``flash_attention_bwd.cu``
+K11's backward (``flash_attention_bwd``, every attention layer of a
+training step's backward: two launches, counted once) and ``ssd_scan.cu``
+K12 (``ssd_scan``, every Mamba2 layer of a prefill).
 """
 from __future__ import annotations
 
@@ -64,6 +66,7 @@ SOURCES = {"psi_prf": "psi_prf.cu",
            "kmeans_assign": "kmeans_assign.cu",
            "splitnn_bottom": "splitnn_bottom.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "ssd_scan": "ssd_scan.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
@@ -188,7 +191,7 @@ def check(err: int, name: str) -> None:
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise where autograd would need a backward through a kernel that
-    has none (K11, K12): the output would silently cut the graph."""
+    has none (K12): the output would silently cut the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an "
                            "operand requires grad; training takes the plain "

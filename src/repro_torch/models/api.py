@@ -45,15 +45,20 @@ def extra_embeds_of(cfg: ArchConfig, batch: Dict[str, Any]):
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, Any], *,
-            impl: Optional[str] = None):
-    """Full-sequence forward -> (logits, aux_loss, n_prefix)."""
+            remat: bool = True, impl: Optional[str] = None,
+            scan_impl: Optional[str] = None):
+    """Full-sequence forward -> (logits, aux_loss, n_prefix).  ``remat``
+    recomputes each layer in the backward; ``impl`` selects K11 and K12,
+    ``scan_impl`` K12 alone where given (``models.transformer``)."""
     if cfg.family == "audio":
         logits = encdec.forward_encdec(params, cfg, batch["tokens"],
-                                       batch["frames"], impl=impl)
+                                       batch["frames"], impl=impl,
+                                       remat=remat)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device), 0
     return transformer.forward_lm(params, cfg, batch["tokens"],
-                                  extra_embeds_of(cfg, batch), impl=impl)
+                                  extra_embeds_of(cfg, batch), remat=remat,
+                                  impl=impl, scan_impl=scan_impl)
 
 
 # ------------------------------------------------------------------ serving

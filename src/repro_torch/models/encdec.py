@@ -17,18 +17,25 @@ decoder's cross-attention in ``decode_step`` is ``attend(causal=False)``
 at one query, so K11 on the card too; its self-attention against the
 cache stays the plain ``decode_attention``, as in the reference.
 ``impl="ref"`` takes the plain versions everywhere.
+
+``forward_encdec`` (the training forward) runs each encoder and decoder
+layer under ``torch.utils.checkpoint`` (non-reentrant) while grad mode
+is on and ``remat`` (the default) asks, as the reference checkpoints its
+encoder and decoder scan bodies; K11's backward then runs in every
+encoder layer, self-attention and cross-attention (Sq ≠ Sk).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dtype_of, embed_init, gelu_mlp,
                                        init_gelu_mlp, init_layernorm,
-                                       layer_of, layernorm,
+                                       layer_of, layernorm, layers_of,
                                        sinusoidal_positions, stacked)
 
 __all__ = ["init_enc_layer", "init_dec_layer", "init_encdec", "encode",
@@ -78,26 +85,39 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig):
 
 # ----------------------------------------------------------------- encoder
 
+def _enc_block(lp, x, cfg: ArchConfig, positions, impl):
+    eps = cfg.norm_eps
+    h = layernorm(lp["attn_norm"], x, eps)
+    q, k, v = attn_mod.qkv_project(lp["attn"], h)
+    a = attn_mod.attend(q, k, v, q_pos=positions, k_pos=positions,
+                        causal=False, kernel_impl=impl)
+    x = x + attn_mod.out_project(lp["attn"], a)
+    return x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps))
+
+
+def _run_layers(block, stack, n: int, x, remat: bool, *args):
+    """``x`` through the ``n`` layers of ``stack``, each under the
+    non-reentrant checkpoint while ``remat`` and grad mode are on."""
+    remat = remat and torch.is_grad_enabled()
+    for lp in layers_of(stack, n):
+        x = (checkpoint(block, lp, x, *args, use_reentrant=False) if remat
+             else block(lp, x, *args))
+    return x
+
+
 def encode(params, cfg: ArchConfig, frames: torch.Tensor, *,
-           impl: Optional[str] = None) -> torch.Tensor:
+           impl: Optional[str] = None, remat: bool = False) -> torch.Tensor:
     """frames (B,S_enc,D) stub frontend embeddings -> encoder memory
     (B,S_enc,D) in the compute dtype."""
     dt = dtype_of(cfg.dtype)
-    eps = cfg.norm_eps
     s = frames.shape[1]
     pos_tab = torch.from_numpy(sinusoidal_positions(s, cfg.d_model)).to(
         frames.device, dt)
     x = frames.to(dt) + pos_tab[None]
     positions = torch.arange(s, dtype=torch.int32, device=frames.device)
-    for i in range(cfg.enc_layers):
-        lp = layer_of(params["enc_layers"], i)
-        h = layernorm(lp["attn_norm"], x, eps)
-        q, k, v = attn_mod.qkv_project(lp["attn"], h)
-        a = attn_mod.attend(q, k, v, q_pos=positions, k_pos=positions,
-                            causal=False, kernel_impl=impl)
-        x = x + attn_mod.out_project(lp["attn"], a)
-        x = x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps))
-    return layernorm(params["enc_final_norm"], x, eps)
+    x = _run_layers(_enc_block, params["enc_layers"], cfg.enc_layers, x,
+                    remat, cfg, positions, impl)
+    return layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
 # ----------------------------------------------------------------- decoder
@@ -124,7 +144,8 @@ def _logits(params, cfg: ArchConfig, x):
 
 
 def decode_train(params, cfg: ArchConfig, tokens, memory, *,
-                 last_only: bool = False, impl: Optional[str] = None):
+                 last_only: bool = False, impl: Optional[str] = None,
+                 remat: bool = False):
     """Teacher-forced decoder pass. tokens (B,S) -> logits (B,S,Vp) f32."""
     dt = dtype_of(cfg.dtype)
     s = tokens.shape[1]
@@ -133,19 +154,19 @@ def decode_train(params, cfg: ArchConfig, tokens, memory, *,
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     mem_positions = torch.arange(memory.shape[1], dtype=torch.int32,
                                  device=x.device)
-    for i in range(cfg.n_layers):
-        x = _dec_block(layer_of(params["dec_layers"], i), x, memory,
-                       cfg, positions, mem_positions, impl)
+    x = _run_layers(_dec_block, params["dec_layers"], cfg.n_layers, x,
+                    remat, memory, cfg, positions, mem_positions, impl)
     return _logits(params, cfg, x[:, -1:] if last_only else x)
 
 
 def forward_encdec(params, cfg: ArchConfig, tokens, frames, *,
-                   last_only: bool = False, impl: Optional[str] = None):
+                   last_only: bool = False, impl: Optional[str] = None,
+                   remat: bool = True):
     """Full encoder-decoder forward: (decoder tokens, encoder frames) ->
-    logits."""
-    memory = encode(params, cfg, frames, impl=impl)
+    logits; ``remat`` recomputes each layer in the backward."""
+    memory = encode(params, cfg, frames, impl=impl, remat=remat)
     return decode_train(params, cfg, tokens, memory, last_only=last_only,
-                        impl=impl)
+                        impl=impl, remat=remat)
 
 
 # ------------------------------------------------------------------ decode

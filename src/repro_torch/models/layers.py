@@ -19,10 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["dtype_of", "dense_init", "embed_init", "stacked", "init_rmsnorm",
-           "rmsnorm", "init_layernorm", "layernorm", "rotary_embed",
-           "sinusoidal_positions", "silu", "init_glu_mlp", "glu_mlp",
-           "init_gelu_mlp", "gelu_mlp", "softcap"]
+__all__ = ["dtype_of", "dense_init", "embed_init", "stacked", "layer_of",
+           "layers_of", "init_rmsnorm", "rmsnorm", "init_layernorm",
+           "layernorm", "rotary_embed", "sinusoidal_positions", "silu",
+           "init_glu_mlp", "glu_mlp", "init_gelu_mlp", "gelu_mlp", "softcap"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -85,10 +85,23 @@ def stacked(init_fn, gen: torch.Generator, n: int, *args, **kwargs):
 
 
 def layer_of(stack, i: int):
-    """Layer ``i`` of a ``stacked`` param tree (views, no copy)."""
+    """Layer ``i`` of a ``stacked`` param tree (views, no copy): the
+    serving paths' one-layer read."""
     if isinstance(stack, dict):
         return {k: layer_of(v, i) for k, v in stack.items()}
     return stack[i]
+
+
+def layers_of(stack, n: int):
+    """The ``n`` layers of a ``stacked`` param tree, taken once: one
+    ``torch.unbind`` a stacked leaf (views, no copy).  Under autograd the
+    ``n`` slices of a leaf share one backward, a ``stack`` of their
+    gradients, where ``n`` reads ``stack[i]`` would each zero-fill a
+    gradient the size of the whole stack and add it into ``.grad``."""
+    if isinstance(stack, dict):
+        per_key = {k: layers_of(v, n) for k, v in stack.items()}
+        return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+    return list(torch.unbind(stack, 0))
 
 
 # ---------------------------------------------------------------------- norms

@@ -11,10 +11,13 @@ The scan's SSD block decomposition:
 ``ssd_chunked`` is that decomposition in plain PyTorch, the plain
 version of K12; ``_mamba_core`` runs the scan through K12's op
 (``kernels/ssd_scan``): the kernel on a CUDA tensor, ``ssd_chunked`` on
-the CPU.  The reference's model calls ``ssd_chunked`` itself and reaches
-its Pallas kernel only through the kernel's own op; both compute the same
-function.  The reference's ``REPRO_SSD_CHUNK`` environment override of
-the chunk is not ported: the chunk is ``min(ssm.chunk, S)``.
+the CPU, or as ``impl`` says.  The reference's model calls
+``ssd_chunked`` itself and reaches its Pallas kernel only through the
+kernel's own op; both compute the same function.  K12 has no backward,
+so the training path passes ``impl="ref"`` here (``train/steps``), as
+the reference's train path runs its jnp ``ssd_chunked``.  The
+reference's ``REPRO_SSD_CHUNK`` environment override of the chunk is
+not ported: the chunk is ``min(ssm.chunk, S)``.
 """
 from __future__ import annotations
 

@@ -2,9 +2,15 @@
 (the port of ``repro/models/transformer.py``).
 
 Forward, prefill and decode run Python loops over layers of the stacked
-params (leading ``L`` axis): no ``remat`` or ``unroll`` (nothing here is
-differentiated), and per-layer cache shapes may differ (ring-buffer
-windowed caches vs full-context caches vs SSM state).  The reference's
+params (leading ``L`` axis), and per-layer cache shapes may differ
+(ring-buffer windowed caches vs full-context caches vs SSM state).
+``forward_lm`` is the training forward: with ``remat`` (the default)
+each layer runs under ``torch.utils.checkpoint`` (non-reentrant) while
+grad mode is on, so its activations are recomputed in the backward, as
+the reference's ``jax.checkpoint``-ed layer scan does; it takes every
+layer's params once (``layers_of``).  The reference's ``unroll`` only
+shapes XLA's program (a Python loop in place of the scan) and is not
+ported: the port's loop is already unrolled.  The reference's
 layer-scanned ``prefill_scanned``/``decode_step_scanned`` exist to keep
 XLA's programs small and are not ported; ``force_window`` (long_500k)
 waits for ``launch/`` (ROADMAP.md queue 7d).
@@ -19,13 +25,15 @@ Positions are absolute and count the prepended tokens.
 ``impl`` selects the kernels (K11 and K12): ``None`` launches each
 kernel on a CUDA tensor and takes the reference's full/chunked attention
 and the plain scan on the CPU; ``"ref"`` takes the plain versions
-everywhere.
+everywhere.  ``scan_impl``, where given, overrides ``impl`` for K12
+alone: training passes ``"ref"`` (K12 has no backward).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -33,8 +41,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        glu_mlp, init_glu_mlp, init_rmsnorm,
-                                       layer_of, rmsnorm, rotary_embed,
-                                       softcap, stacked)
+                                       layer_of, layers_of, rmsnorm,
+                                       rotary_embed, softcap, stacked)
 
 __all__ = ["layer_windows", "init_layer", "init_lm", "block_forward",
            "embed_inputs", "lm_logits", "forward_lm", "init_decode_state",
@@ -149,18 +157,21 @@ def _hybrid_mix(lp, x, a, s, cfg: ArchConfig):
 
 
 def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
-                  impl: Optional[str] = None):
+                  impl: Optional[str] = None,
+                  scan_impl: Optional[str] = None):
     """One decoder block. Returns (x, aux_loss)."""
     eps = cfg.norm_eps
+    scan_impl = impl if scan_impl is None else scan_impl
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         h = rmsnorm(lp["norm"], x, eps)
-        return x + ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm, impl), aux
+        return (x + ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm,
+                                          scan_impl), aux)
     if cfg.family == "hybrid":
         h = rmsnorm(lp["input_norm"], x, eps)
         a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window,
                                   cfg.hybrid_meta_tokens, impl)
-        s = ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm, impl)
+        s = ssm_mod.mamba_forward(lp["mamba"], h, cfg.ssm, scan_impl)
         return _hybrid_mix(lp, x, a, s, cfg), aux
     h = rmsnorm(lp["attn_norm"], x, eps)
     a, _, _ = _attention_path(lp["attn"], h, cfg, positions, window, 0, impl)
@@ -207,16 +218,24 @@ def lm_logits(params, cfg: ArchConfig, x):
 
 
 def forward_lm(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
-               impl: Optional[str] = None):
+               remat: bool = True, impl: Optional[str] = None,
+               scan_impl: Optional[str] = None):
     """Full-sequence forward. Returns (logits (B,S',Vp), aux_loss,
-    n_prefix)."""
+    n_prefix).  ``remat`` recomputes each layer in the backward (only
+    while grad mode is on; the values are the same either way)."""
     x, n_prefix = embed_inputs(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     wins = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux = block_forward(layer_of(params["layers"], i), x, cfg, positions,
-                               wins[i], impl)
+    remat = remat and torch.is_grad_enabled()
+    for i, lp in enumerate(layers_of(params["layers"], cfg.n_layers)):
+        if remat:
+            x, aux = checkpoint(block_forward, lp, x, cfg, positions,
+                                wins[i], impl, scan_impl,
+                                use_reentrant=False)
+        else:
+            x, aux = block_forward(lp, x, cfg, positions, wins[i], impl,
+                                   scan_impl)
         aux_total = aux_total + aux
     return lm_logits(params, cfg, x), aux_total, n_prefix
 

@@ -9,8 +9,9 @@ chains the two, or, for the encoder-decoder (audio), encodes the frames
 (K11 in every encoder layer), teacher-forces the prompt through the
 decoder's cache and decodes (K11 in every cross-attention).
 ``impl="ref"`` runs the kernels' plain versions on any device.  Serving
-needs no gradient, so everything runs under ``torch.no_grad()``: K11 and
-K12 have no backward and refuse operands that require grad.
+needs no gradient, so everything runs under ``torch.no_grad()`` (K12 has
+no backward and refuses operands that require grad; K11's backward is
+for training, ``train/steps``).
 """
 from __future__ import annotations
 

@@ -5,7 +5,12 @@ the bias corrections computed from the step count in float32.
 ``torch.optim.Adam`` places ``eps`` and the corrections differently, so
 it is not used.  Unlike the reference, ``adam_update`` updates the
 parameters and moments in place (one multi-tensor launch per operation
-on the card, no new buffers each step) and returns them.  The step
+on the card for each group of leaves, no new buffers kept) and returns
+them.  The leaves go in groups of at most ``GROUP_ELEMENTS`` elements
+(a leaf larger than that alone), so the update's temporaries stay
+within a few times a group: a SplitNN's params are one group, an LLM's
+f32 params (4.4 GB at tinyllama-1.1b) several, whose temporaries would
+otherwise add 3× the params to a training step's peak memory.  The step
 count lives on the host, so the corrections cost no device round trip.
 A tree is a tensor, or a dict or list of trees (the SplitNN zoo's
 ``{"bottoms": [...], "top": {...}}`` and the slab form).
@@ -50,6 +55,22 @@ def adam_init(params) -> AdamState:
                      nu=tree_map(torch.zeros_like, params))
 
 
+#: the most elements a group of leaves ``adam_update`` updates together
+GROUP_ELEMENTS = 1 << 26
+
+
+def _groups(leaves: List[torch.Tensor]) -> List[slice]:
+    """Runs of consecutive leaves of at most ``GROUP_ELEMENTS`` elements
+    (a larger leaf alone)."""
+    out, start, size = [], 0, 0
+    for i, t in enumerate(leaves):
+        if i > start and size + t.numel() > GROUP_ELEMENTS:
+            out.append(slice(start, i))
+            start, size = i, 0
+        size += t.numel()
+    return out + [slice(start, len(leaves))]
+
+
 def adam_update(params, grads, state: AdamState, *, lr: float = 1e-3,
                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
                 ) -> Tuple[Any, AdamState]:
@@ -59,9 +80,15 @@ def adam_update(params, grads, state: AdamState, *, lr: float = 1e-3,
     t = np.float32(step)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
-    ps, ms, vs = (tree_leaves(params), tree_leaves(state.mu),
-                  tree_leaves(state.nu))
-    gs = [g.float() for g in tree_leaves(grads)]
+    ps, ms, vs, gs = (tree_leaves(params), tree_leaves(state.mu),
+                      tree_leaves(state.nu), tree_leaves(grads))
+    for part in _groups(ps):
+        _adam_group(ps[part], [g.float() for g in gs[part]], ms[part],
+                    vs[part], lr, b1, b2, eps, bc1, bc2)
+    return params, AdamState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _adam_group(ps, gs, ms, vs, lr, b1, b2, eps, bc1, bc2) -> None:
     with torch.no_grad():
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
@@ -74,4 +101,3 @@ def adam_update(params, grads, state: AdamState, *, lr: float = 1e-3,
         torch._foreach_div_(upd, den)
         torch._foreach_mul_(upd, lr)
         torch._foreach_sub_(ps, upd)
-    return params, AdamState(step=step, mu=state.mu, nu=state.nu)

@@ -7,9 +7,19 @@ Tolerance: <= 1e-5 abs in f32 (the reference's own kernel-vs-oracle gap is
 compute in f32 and round once, so they agree within one bf16 ulp
 (2^-7·|out|).  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` holds it against this plain version); here its wrapper
-must refuse a CPU tensor, and an operand that requires grad (the kernel
-has no backward), while the plain version's gradients match ``jax.grad``
-of the reference's oracle within 1e-5·(1 + max|grad|).
+must refuse a CPU tensor, also under grad, where the op's autograd
+``Function`` reaches it, while the plain version's gradients match
+``jax.grad`` of the reference's oracle within 1e-5·(1 + max|grad|).
+
+K11's backward (``csrc/flash_attention_bwd.cu``, no TPU counterpart)
+has a plain version, ``ref.flash_attention_bwd``: held against autograd
+of the plain forward and ``jax.grad`` of the reference's
+``full_attention`` over the mask grid (causal, window, prefix, softcap,
+G = 1, 2, 5, 7, Sq ≠ Sk, Dh = 32, 64, 160) within 1e-5·(1 + max|grad|);
+a torch mirror of the kernel's tile schedule (its tiles, the skip test,
+the online row statistics, the two passes) against it, within the same
+bound; and the autograd ``Function``'s plumbing, with the CUDA launches
+replaced by their plain versions on the CPU.
 
 The bf16 kernel's arithmetic (bf16 q·k products summed in f32, then
 ``* scale``; p split into three bf16 pieces, each times bf16 v summed in
@@ -30,7 +40,8 @@ from repro.kernels.flash_attention import ops as ref_ops
 from repro.kernels.flash_attention import ref as ref_ref
 from repro.models import attention as ref_attn
 from repro_torch.kernels.flash_attention import ops, ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda, flash_attention_cuda)
 from repro_torch.models import attention
 
 ATOL = 1e-5
@@ -132,19 +143,23 @@ def test_plain_version_is_full_attention_in_f32():
 
 @pytest.mark.parametrize("which", range(3))
 def test_kernel_refuses_operands_that_require_grad(which):
-    """The CUDA kernel has no backward: under grad mode the
-    ``impl="kernel"`` dispatch refuses q, k or v that requires grad before
-    it looks at the device; under ``no_grad`` the same call passes that
-    check (and is then refused for its CPU tensors)."""
+    """K11 has a backward now: under grad mode the ``impl="kernel"``
+    dispatch takes q, k or v that requires grad into the autograd
+    ``Function`` (``ops.FlashAttention.forward``), whose launch refuses
+    the CPU operand for its device, not for want of a backward; so does
+    the same call under ``no_grad``.  The raw forward launch, which
+    records no graph, still refuses such an operand under grad mode."""
     args = [torch.from_numpy(a).requires_grad_(i == which)
             for i, a in enumerate(_inputs(1, 16, 16, 2, 1, 32))]
-    for call in (lambda: ops.flash_attention(*args, impl="kernel"),
-                 lambda: flash_attention_cuda(*args)):
-        with pytest.raises(RuntimeError,
-                           match=r"no backward.*impl='ref'"):
-            call()
+    with pytest.raises(ValueError, match="CUDA") as err:
+        ops.flash_attention(*args, impl="kernel")
+    assert "backward" not in str(err.value)
+    assert any(entry.name == "forward" and "ops.py" in str(entry.path)
+               for entry in err.traceback)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(*args, impl="kernel")
+    with pytest.raises(RuntimeError, match="records no graph"):
+        flash_attention_cuda(*args)
 
 
 def test_plain_version_gradients_match_reference():
@@ -265,3 +280,223 @@ def test_one_piece_p_fails_on_cancellation():
     miss = ~_bf16_check(one.float().numpy(), want)
     cancelled = np.abs(want) < 0.1 * mag.numpy()
     assert (miss & cancelled).any()
+
+
+# ------------------------------------------------------- K11's backward
+
+# (b, sq, sk, h, kv, dh, mask): causal, window, prefix, softcap, no causal
+# mask, G = 1, 2, 5, 7, Sq < Sk (whisper's cross-attention: Sq ≠ Sk, no
+# causal mask), Dh = 32, 64, 160
+BWD_CASES = [
+    (2, 40, 40, 4, 2, 32, dict(causal=True)),
+    (1, 48, 48, 5, 1, 64, dict(causal=True, window=12, prefix=4)),
+    (1, 33, 33, 7, 1, 32, dict(causal=True)),
+    (2, 24, 24, 2, 2, 64, dict(causal=False)),
+    (1, 36, 36, 4, 2, 160, dict(causal=True, window=9, logit_cap=5.0)),
+    (2, 7, 50, 4, 4, 32, dict(causal=False)),
+    (1, 20, 45, 6, 3, 64, dict(causal=True, window=16, prefix=5)),
+    (1, 30, 30, 2, 1, 32, dict(causal=True, logit_cap=2.0)),
+]
+
+
+def _bwd_inputs(b, sq, sk, h, kv, dh, seed=13):
+    q, k, v = _inputs(b, sq, sk, h, kv, dh, seed=seed)
+    do = np.random.default_rng(seed + 1).normal(
+        size=(b, sq, h, dh)).astype(np.float32)
+    return q, k, v, do
+
+
+def _grad_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.abs(got - want).max() <= ATOL * (1 + np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,kw", BWD_CASES)
+def test_backward_plain_version_matches_autograd_and_jax(b, sq, sk, h, kv,
+                                                         dh, kw):
+    q, k, v, do = _bwd_inputs(b, sq, sk, h, kv, dh)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = ref.flash_attention(*leaves, **kw)
+    out.backward(torch.from_numpy(do))
+    got = ref.flash_attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  out.detach(), torch.from_numpy(do), **kw)
+    assert [t.dtype for t in got] == [torch.float32] * 3
+    q_pos = jnp.arange(sq, dtype=jnp.int32) + (sk - sq)
+    k_pos = jnp.arange(sk, dtype=jnp.int32)
+    _, vjp = jax.vjp(lambda a, b_, c: ref_attn.full_attention(
+        a, b_, c, q_pos=q_pos, k_pos=k_pos, **kw),
+        *map(jnp.asarray, (q, k, v)))
+    jax_grads = vjp(jnp.asarray(do))
+    for g, leaf, jg in zip(got, leaves, jax_grads):
+        _grad_close(g, leaf.grad)
+        _grad_close(g, jg)
+
+
+def test_backward_plain_version_in_bf16_rounds_once():
+    """bf16 operands: f32 math, each gradient rounded once to bf16."""
+    q, k, v, do = _bwd_inputs(1, 32, 32, 4, 2, 32)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)]
+    o = ref.flash_attention(*bf[:3], window=10)
+    got = ref.flash_attention_bwd(*bf[:3], o, bf[3], window=10)
+    want = ref.flash_attention_bwd(*(t.float() for t in bf[:3]), o.float(),
+                                   bf[3].float(), window=10)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def _tiles(dh):
+    """The backward kernel's (DP, BM, BN) for a head dim
+    (``flash_attention_bwd.cu``, ``Tiles``)."""
+    dp = next(d for d in (32, 64, 128, 160, 256) if dh <= d)
+    return dp, 64 if dp <= 160 else 32, 64 if dp <= 128 else 32
+
+
+def _skipped(c0, c1, rlo, rhi, sk, causal, window, prefix):
+    return (c0 >= sk or (causal and c0 > rhi)
+            or (window > 0 and rlo - c1 >= window and c0 >= prefix))
+
+
+def _mirror_bwd(q, k, v, o, do, *, causal=True, window=0, prefix=0,
+                logit_cap=0.0):
+    """A float64 torch mirror of ``flash_attention_bwd.cu``'s schedule:
+    the dq pass over (batch, head, query tile) with the row statistics
+    updated a visited key tile at a time, then dk/dv over (batch, kv head,
+    key tile), heads then query tiles; tiles the skip test drops are not
+    visited.  Returns (dq, dk, dv)."""
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    _, bm, bn = _tiles(dh)
+    scale = dh ** -0.5
+    mask = dict(causal=causal, window=window, prefix=prefix)
+
+    def tile(qt, kt, r0, c0):
+        """Scores, visibility and softcap slope of a (query, key) tile."""
+        s = qt @ kt.T * scale
+        slope = torch.ones_like(s)
+        if logit_cap:
+            t = torch.tanh(s / logit_cap)
+            s, slope = t * logit_cap, 1 - t * t
+        pos = torch.arange(r0, r0 + qt.shape[0])[:, None] + (sk - sq)
+        col = torch.arange(c0, c0 + kt.shape[0])[None, :]
+        vis = torch.ones_like(s, dtype=torch.bool) if not causal else \
+            col <= pos
+        if window:
+            vis &= ((pos - col) < window) | (col < prefix)
+        return s, vis, slope
+
+    stats = torch.zeros((b, h, sq, 3), dtype=torch.float64)
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for hd in range(h):
+            kv = hd // g
+            for r0 in range(0, sq, bm):
+                rlo = sk - sq + r0
+                qt, dot = q[bi, r0:r0 + bm, hd], do[bi, r0:r0 + bm, hd]
+                d_row = (dot * o[bi, r0:r0 + bm, hd]).sum(-1)
+                m = torch.full((qt.shape[0],), -1e30, dtype=torch.float64)
+                l = torch.zeros_like(m)
+                visits = [c0 for c0 in range(0, sk, bn) if not _skipped(
+                    c0, c0 + bn - 1, rlo, rlo + bm - 1, sk, **mask)]
+                for c0 in visits:
+                    s, vis, _ = tile(qt, k[bi, c0:c0 + bn, kv], r0, c0)
+                    s = torch.where(vis, s, -1e30)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    e = torch.where(vis, torch.exp(s - m_new[:, None]), 0.0)
+                    l = l * torch.exp(m - m_new) + e.sum(-1)
+                    m = m_new
+                stats[bi, hd, r0:r0 + bm] = torch.stack([m, l, d_row], -1)
+                for c0 in visits:
+                    kt, vt = k[bi, c0:c0 + bn, kv], v[bi, c0:c0 + bn, kv]
+                    s, vis, slope = tile(qt, kt, r0, c0)
+                    p = torch.where(vis, torch.exp(s - m[:, None]) /
+                                    l[:, None], 0.0)
+                    ds = p * (dot @ vt.T - d_row[:, None]) * slope
+                    dq[bi, r0:r0 + bm, hd] += ds @ kt * scale
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for kv in range(kvh):
+            for c0 in range(0, sk, bn):
+                kt, vt = k[bi, c0:c0 + bn, kv], v[bi, c0:c0 + bn, kv]
+                for hd in range(kv * g, (kv + 1) * g):
+                    for r0 in range(0, sq, bm):
+                        rlo = sk - sq + r0
+                        if _skipped(c0, c0 + bn - 1, rlo, rlo + bm - 1, sk,
+                                    **mask):
+                            continue
+                        qt, dot = q[bi, r0:r0 + bm, hd], do[bi, r0:r0 + bm,
+                                                              hd]
+                        m, l, d_row = stats[bi, hd, r0:r0 + bm].unbind(-1)
+                        s, vis, slope = tile(qt, kt, r0, c0)
+                        p = torch.where(vis, torch.exp(s - m[:, None]) /
+                                        l[:, None], 0.0)
+                        ds = p * (dot @ vt.T - d_row[:, None]) * slope
+                        dv[bi, c0:c0 + bn, kv] += p.T @ dot
+                        dk[bi, c0:c0 + bn, kv] += ds.T @ qt * scale
+    return dq, dk, dv
+
+
+# the CPU-sized cases plus tiles the schedule cuts: several query and key
+# tiles, a window that skips whole tiles, Sq < Sk, a ragged last tile
+MIRROR_CASES = BWD_CASES + [
+    (1, 200, 200, 2, 1, 32, dict(causal=True, window=50, prefix=8)),
+    (1, 70, 300, 2, 2, 64, dict(causal=True, window=90)),
+    (1, 130, 130, 4, 1, 160, dict(causal=False, logit_cap=3.0)),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,kw", MIRROR_CASES)
+def test_backward_kernel_schedule_mirror(b, sq, sk, h, kv, dh, kw):
+    """The kernel's tiles, skip test and two passes compute the plain
+    version's gradients: the tiles the skip test drops hold no visible
+    pair, and the online statistics over the visited tiles are the row's
+    own."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(b, sq, sk, h,
+                                                             kv, dh))
+    o = ref.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+    got = _mirror_bwd(q, k, v, o, do, **kw)
+    for g, w in zip(got, want):
+        _grad_close(g, w)
+
+
+def test_autograd_function_runs_the_backward_launch(monkeypatch):
+    """``ops.FlashAttention``'s plumbing on the CPU: with the two CUDA
+    launches replaced by their plain versions (counted), q, k and v get
+    the plain forward's autograd gradients, the forward launch runs once
+    and the backward launch once, with the forward's output and the
+    mask."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    calls = []
+
+    def fwd(q, k, v, **kw):
+        calls.append(("fwd", kw))
+        return ref.flash_attention(q, k, v, **kw)
+
+    def bwd(q, k, v, o, do, **kw):
+        calls.append(("bwd", kw))
+        return ref.flash_attention_bwd(q, k, v, o, do, **kw)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(fa_ops, "flash_attention_bwd_cuda", bwd)
+    kw = dict(causal=True, window=10, prefix=2, logit_cap=4.0)
+    q, k, v, do = _bwd_inputs(1, 24, 24, 4, 2, 32)
+    mine = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    plain = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fa_ops.flash_attention(*mine, impl="kernel", **kw)
+    out.backward(torch.from_numpy(do))
+    ref.flash_attention(*plain, **kw).backward(torch.from_numpy(do))
+    assert [c[0] for c in calls] == ["fwd", "bwd"]
+    assert calls[0][1] == calls[1][1] == kw
+    for a, p in zip(mine, plain):
+        _grad_close(a.grad, p.grad)
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(1, 16, 16, 2, 1,
+                                                             32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, k, v, q, do)
