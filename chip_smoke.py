@@ -19,8 +19,10 @@ Phases, each printing JSON lines:
               registers and spills for each kernel instance (K3/K4's
               fused kernel and K5: one line an instance, none may spill),
               counts the tensor-core instructions (``cuobjdump -sass``:
-              HMMA, HGMMA) of each K11 instance, every bf16 one must have
-              them, and HMMA/HGMMA/FFMA of K12's two kernels, whose
+              HMMA, HGMMA) of each K11 instance and of each of its
+              backward's (every bf16 one must have them; a bf16 backward
+              instance up to Dh 128 must not spill), and HMMA/HGMMA/FFMA
+              of K12's two kernels, whose
               products are f32 FMAs in the plain version's order (a
               record, not checked).
 3. kernels  — each kernel against its plain PyTorch version on the card,
@@ -124,7 +126,10 @@ Phases, each printing JSON lines:
               (``flash_attention_bwd.cu``: dq, dk, dv; no TPU entry
               point, the reference differentiates its full attention
               with XLA) against ``ref.flash_attention_bwd`` on the
-              kernel forward's output, f32 and bf16: at the tinyllama
+              kernel forward's output, the backward fed the forward's
+              LSE, f32 and bf16 (bf16 rows with ``passes_run``, the
+              tensor-core passes the design runs, beside the bound's
+              11): at the tinyllama
               train shape (the ``kernels`` line's row), hymba's,
               internvl2's, olmoe's, gemma2's (softcap, Dh=256),
               whisper's encoder and its teacher-forced cross-attention
@@ -1789,7 +1794,9 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
     """K11 on seeded unit-normal q/k/v against its plain version (f32
     full attention, rounded once to q's dtype): within 1e-5 abs in f32;
     in bf16 both round one f32 result, so within one bf16 ulp
-    (2^-7·|plain| + 1e-6).  Timed rows (the main path's, ``path`` = (the
+    (2^-7·|plain| + 1e-6).  Every row also asks for the LSE: the output
+    must then be bitwise the same, and the LSE within 1e-4·(1 +
+    max|plain|) of the plain ``return_lse``.  Timed rows (the main path's, ``path`` = (the
     LLM phase, its launch count) a shape another LLM path runs, and
     ``timed_at`` a config's shape outside the ``kernels`` line) take SDPA
     with ``enable_gqa`` and the same mask as the library yardstick
@@ -1805,9 +1812,20 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
     call = lambda: flash_attention_cuda(q, k, v, **kw)
     plain = lambda: fa_ref.flash_attention(q, k, v, **kw)
     got, want = call(), plain()
+    # the LSE the backward reads: asking for it leaves the output's bits
+    with_lse, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want_lse = fa_ref.flash_attention(q, k, v, return_lse=True, **kw)[1]
     torch.cuda.synchronize()
     if got.dtype != q.dtype or not bool(torch.isfinite(got).all()):
         raise AssertionError("flash_attention: wrong dtype or non-finite")
+    if not torch.equal(got, with_lse):
+        raise AssertionError(f"flash_attention {[b, sq, sk, h, kv, dh]} "
+                             f"{kw}: the output changes with return_lse")
+    lse_err = check_close(f"flash_attention lse ({str(dtype)}, "
+                          f"{[b, sq, sk, h, kv, dh]}, {kw})", lse, want_lse,
+                          torch.zeros_like(want_lse), rtol=0.0,
+                          atol=1e-4 * (1 + float(want_lse.abs().max())))
+    del with_lse, lse, want_lse
     if dtype == torch.float32:
         err = check_close("flash_attention", got, want,
                           torch.zeros_like(want), rtol=0.0, atol=1e-5)
@@ -1818,7 +1836,8 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:99",
-               max_abs_err=err, shape=[b, sq, sk, h, kv, dh],
+               max_abs_err=err, lse_max_abs_err=lse_err,
+               out_bitwise_with_lse=True, shape=[b, sq, sk, h, kv, dh],
                dtype=str(dtype).split(".")[-1], **kw)
     del want
     if check_only:
@@ -2007,7 +2026,7 @@ def grad_check(dev, rng):
 def flash_bwd_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
                   timed_at=None, launches_a_step=None, **kw):
     """K11's backward on seeded unit-normal q/k/v/do and the K11
-    forward's output o, against its plain version
+    forward's output o and LSE, against its plain version
     (``ref.flash_attention_bwd``, f32 math, one rounding to the dtype):
     f32 within 1e-4·max|plain| (sums over up to G·Sq rows in other
     orders), bf16 within 2^-7·|plain| + 1e-4·max|plain|; a second launch
@@ -2021,14 +2040,14 @@ def flash_bwd_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
     time."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        bwd_tiles, flash_attention_bwd_cuda, flash_attention_cuda)
 
     g = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(dev, dtype)
     q, k, v = g(b, sq, h, dh), g(b, sk, kv, dh), g(b, sk, kv, dh)
     do = g(b, sq, h, dh)
-    o = flash_attention_cuda(q, k, v, **kw)
-    call = lambda: flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    call = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
     plain = lambda: fa_ref.flash_attention_bwd(q, k, v, o, do, **kw)
     got, again, want = call(), call(), plain()
     torch.cuda.synchronize()
@@ -2055,6 +2074,10 @@ def flash_bwd_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
                max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
                shape=[b, sq, sk, h, kv, dh],
                dtype=str(dtype).split(".")[-1], bitwise_rerun=True, **kw)
+    if dtype == torch.bfloat16:
+        # the bf16 tensor-core passes the design runs (S and dP in both
+        # kernels), beside the bound's 11
+        row["passes_run"] = bwd_tiles(dh).passes
     del want, got, again
     if check_only:
         return row | {"check_only": check_only}
@@ -3947,12 +3970,17 @@ def main(argv) -> int:
           "torch_name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(ONLY.get(only))
-    sass = ssd_sass = None
+    sass = ssd_sass = bwd_sass = None
     if only in (None, "llm-kernels", "llm-paths", "llm-train"):
         # K11's bf16 instances must run both products on the tensor cores;
         # K12's census is a record (its products are f32 FMAs, PERF.md)
         sass = sass_census("flash_attention")
         ssd_sass = sass_census("ssd_scan", marks=("HMMA", "HGMMA", "FFMA"))
+    if only in (None, "llm-kernels", "llm-train"):
+        # the backward's bf16 kernels must run their five products on the
+        # tensor cores, and spill nowhere up to Dh 128
+        bwd_sass = sass_census("flash_attention_bwd",
+                               marks=("HMMA", "HGMMA", "FFMA"))
     # K3/K4 (33 widths × 2) and K5 (R = 4 at widths 1..32, R = 1 at the
     # run-time width): one line an instance, none may spill
     update_ptxas, spills = kmeans_ptxas(
@@ -3969,7 +3997,8 @@ def main(argv) -> int:
                     if k not in ("kmeans_update", "kmeans_assign")} | {
                         "kmeans_update": update_ptxas,
                         "kmeans_assign": assign_ptxas},
-          "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass})
+          "flash_attention_sass": sass, "ssd_scan_sass": ssd_sass,
+          "flash_attention_bwd_sass": bwd_sass})
     if spills or assign_spills:
         raise AssertionError(f"kmeans: ptxas spills in "
                              f"{spills + assign_spills}")
@@ -4015,6 +4044,18 @@ def main(argv) -> int:
     if no_mma or not any("bf16_mma" in fn for fn in sass):
         raise AssertionError(f"flash_attention: bf16 instances without "
                              f"tensor-core instructions: {no_mma or sass}")
+    if bwd_sass is not None:
+        no_mma = [fn for fn, c in bwd_sass.items()
+                  if "bf16_mma" in fn and not c["HMMA"]]
+        if no_mma or sum("bf16_mma" in fn for fn in bwd_sass) != 10:
+            raise AssertionError(f"flash_attention_bwd: bf16 instances "
+                                 f"without HMMA: {no_mma or bwd_sass}")
+        bwd_spills = [fn for fn in spilled(
+            build.PTXAS_REPORT.get("flash_attention_bwd", ""))
+            if re.search(r"bf16_mmaILi(32|64|128)E", fn)]
+        if bwd_spills:
+            raise AssertionError(f"flash_attention_bwd: ptxas spills in "
+                                 f"{bwd_spills}")
     if only == "llm-paths":
         # the LLM serving paths (all, or the phases named): the quick check
         # of an edit to the models or the engine (not the contract run)

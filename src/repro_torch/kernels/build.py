@@ -38,7 +38,9 @@ The LLM paths' kernels have a source each: ``flash_attention.cu`` holds
 K11 (``flash_attention``, every attention layer of a prefill or a
 training forward, remat's recompute included), ``flash_attention_bwd.cu``
 K11's backward (``flash_attention_bwd``, every attention layer of a
-training step's backward: two launches, counted once) and ``ssd_scan.cu``
+training step's backward: the dq and dk/dv kernels, and in bf16 a third
+that sums the dk/dv CTAs' chunks of heads where they split them, counted
+once a call) and ``ssd_scan.cu``
 K12 (``ssd_scan``, every Mamba2 layer of a prefill).
 """
 from __future__ import annotations

@@ -9,7 +9,11 @@
 // scores; masked scores -1e30 (finite, as the reference: a row whose first
 // tile is fully masked gets p = 1 there, wiped by corr = exp(-1e30 - m) = 0
 // at its first visible tile, where -inf would give NaN); divisor max(l, 1e-30).
-// All math in f32, one rounding to the output type at the end.
+// All math in f32, one rounding to the output type at the end.  Where the
+// caller passes an f32 `lse` (B, H, Sq) (training: K11's backward reads it),
+// each instance also writes the row's log-sum-exp in base e, m + log(l) in
+// its own arithmetic (the running max and sum it divided by); a null
+// pointer writes nothing and leaves the output's bits as they are.
 //
 // bf16 instance (flash_attention_kernel_bf16_mma): both products on the
 // tensor cores, mma.sync.m16n8k16 bf16 -> f32 with ldmatrix operands
@@ -118,9 +122,10 @@ __global__ void __launch_bounds__(MAX_ROWS)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int sq, int sk, int h,
-                           int kvh, int dh, int bq, int causal, int window,
-                           int prefix, float scale, float cap) {
+                           float* __restrict__ out, float* __restrict__ lse,
+                           int sq, int sk, int h, int kvh, int dh, int bq,
+                           int causal, int window, int prefix, float scale,
+                           float cap) {
   constexpr int BK = TILE_FLOATS / DP;
   __shared__ __align__(16) float k_s[BK][DP];
   __shared__ __align__(16) float v_s[BK][DP];
@@ -228,12 +233,14 @@ __global__ void __launch_bounds__(MAX_ROWS)
 #pragma unroll
     for (int d = 0; d < DP; ++d)
       if (d < dh) op[d] = acc[d] / denom;
+    if (lse != nullptr)
+      lse[((int64_t)b * h + head) * sq + row] = m + logf(denom);
   }
 }
 
 int launch_f32(const float* q, const float* k, const float* v, float* out,
-               long long b, long long sq, long long sk, long long h,
-               long long kvh, long long dh, long long causal,
+               float* lse, long long b, long long sq, long long sk,
+               long long h, long long kvh, long long dh, long long causal,
                long long window, long long prefix, float scale, float cap,
                cudaStream_t stream) {
   const int g = (int)(h / kvh);
@@ -243,7 +250,7 @@ int launch_f32(const float* q, const float* k, const float* v, float* out,
   const int threads = g * bq;
 #define FA_LAUNCH(DP)                                                        \
   flash_attention_kernel<DP><<<grid, threads, 0, stream>>>(                  \
-      q, k, v, out, (int)sq, (int)sk, (int)h, (int)kvh, (int)dh, bq,         \
+      q, k, v, out, lse, (int)sq, (int)sk, (int)h, (int)kvh, (int)dh, bq,    \
       (int)causal, (int)window, (int)prefix, scale, cap)
   if (dh <= 32)
     FA_LAUNCH(32);
@@ -364,7 +371,8 @@ __global__ void __launch_bounds__(TC_THREADS, TcShape<DP>::MIN_CTAS)
     flash_attention_kernel_bf16_mma(const bf16* __restrict__ q,
                                     const bf16* __restrict__ k,
                                     const bf16* __restrict__ v,
-                                    bf16* __restrict__ out, int sq, int sk,
+                                    bf16* __restrict__ out,
+                                    float* __restrict__ lse, int sq, int sk,
                                     int h, int kvh, int dh, int gc, int bq,
                                     int causal, int window, int prefix,
                                     float scale, float cap, int vec) {
@@ -597,7 +605,11 @@ __global__ void __launch_bounds__(TC_THREADS, TcShape<DP>::MIN_CTAS)
     const int gi = m - r * gc;
     if (r >= nrows || gi >= gcn) continue;
     const float den = half ? den_b : den_a;
-    bf16* op = out + (((int64_t)b * sq + q0 + r) * h + kv * g + h0 + gi) * dh;
+    const int64_t row = ((int64_t)b * sq + q0 + r) * h + kv * g + h0 + gi;
+    if (lse != nullptr && tq == 0)
+      lse[((int64_t)b * h + kv * g + h0 + gi) * sq + q0 + r] =
+          (half ? m_b : m_a) + logf(den);
+    bf16* op = out + row * dh;
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
       const int col = i * 8 + tq * 2;
@@ -610,8 +622,8 @@ __global__ void __launch_bounds__(TC_THREADS, TcShape<DP>::MIN_CTAS)
 
 template <int DP, bool EXACT>
 int launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                   long long b, long long sq, long long sk, long long h,
-                   long long kvh, long long dh, long long causal,
+                   float* lse, long long b, long long sq, long long sk,
+                   long long h, long long kvh, long long dh, long long causal,
                    long long window, long long prefix, float scale, float cap,
                    cudaStream_t stream) {
   const size_t smem = TcShape<DP>::SMEM;
@@ -631,24 +643,24 @@ int launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v, bf16* out,
             (unsigned)b);
   flash_attention_kernel_bf16_mma<DP, EXACT>
       <<<grid, TC_THREADS, smem, stream>>>(
-      q, k, v, out, (int)sq, (int)sk, (int)h, (int)kvh, (int)dh, gc, bq,
-      (int)causal, (int)window, (int)prefix, scale, cap, vec);
+      q, k, v, out, lse, (int)sq, (int)sk, (int)h, (int)kvh, (int)dh, gc,
+      bq, (int)causal, (int)window, (int)prefix, scale, cap, vec);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                long long b, long long sq, long long sk, long long h,
-                long long kvh, long long dh, long long causal,
+                float* lse, long long b, long long sq, long long sk,
+                long long h, long long kvh, long long dh, long long causal,
                 long long window, long long prefix, float scale, float cap,
                 cudaStream_t stream) {
 #define FA_BF16(DP)                                                          \
   return ((dh + 15) & ~15LL) == DP                                           \
-             ? launch_bf16_dp<DP, true>(q, k, v, out, b, sq, sk, h, kvh, dh, \
-                                        causal, window, prefix, scale, cap,  \
-                                        stream)                              \
-             : launch_bf16_dp<DP, false>(q, k, v, out, b, sq, sk, h, kvh,    \
-                                         dh, causal, window, prefix, scale,  \
-                                         cap, stream)
+             ? launch_bf16_dp<DP, true>(q, k, v, out, lse, b, sq, sk, h,     \
+                                        kvh, dh, causal, window, prefix,     \
+                                        scale, cap, stream)                  \
+             : launch_bf16_dp<DP, false>(q, k, v, out, lse, b, sq, sk, h,    \
+                                         kvh, dh, causal, window, prefix,    \
+                                         scale, cap, stream)
   if (dh <= 32) FA_BF16(32);
   if (dh <= 64) FA_BF16(64);
   if (dh <= 128) FA_BF16(128);
@@ -660,10 +672,12 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 }  // namespace
 
 // q (b, sq, h, dh), k/v (b, sk, kvh, dh), out like q; all f32 (bf16 = 0) or
-// all bf16 (bf16 = 1).  The wrapper checks h % kvh == 0, dh <= 256 and, for
-// f32, h / kvh <= 128.
+// all bf16 (bf16 = 1).  lse, where not null, is f32 (b, h, sq): the row's
+// log-sum-exp of its masked scores in base e, m + log(max(l, 1e-30)).  The
+// wrapper checks h % kvh == 0, dh <= 256 and, for f32, h / kvh <= 128.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, long long b,
+                                      const void* v, void* out, void* lse,
+                                      long long b,
                                       long long sq, long long sk, long long h,
                                       long long kvh, long long dh,
                                       long long causal, long long window,
@@ -674,10 +688,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   if (bf16)
     return launch_bf16((const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, b, sq,
-                       sk, h, kvh, dh, causal, window, prefix, (float)scale,
-                       (float)cap, (cudaStream_t)stream);
+                       (const __nv_bfloat16*)v, (__nv_bfloat16*)out,
+                       (float*)lse, b, sq, sk, h, kvh, dh, causal, window,
+                       prefix, (float)scale, (float)cap, (cudaStream_t)stream);
   return launch_f32((const float*)q, (const float*)k, (const float*)v,
-                    (float*)out, b, sq, sk, h, kvh, dh, causal, window,
-                    prefix, (float)scale, (float)cap, (cudaStream_t)stream);
+                    (float*)out, (float*)lse, b, sq, sk, h, kvh, dh, causal,
+                    window, prefix, (float)scale, (float)cap,
+                    (cudaStream_t)stream);
 }

@@ -2,8 +2,10 @@
 plain PyTorch version for CPU tensors (or wherever ``impl="ref"`` asks).
 
 On the kernel route the op is differentiable: ``FlashAttention``, an
-autograd ``Function``, launches K11 forward and saves q, k, v and the
-output; its backward launches K11's backward kernel.  The plain route
+autograd ``Function``, launches K11 forward with its row log-sum-exp
+and saves q, k, v, the output and the LSE; its backward launches K11's
+backward kernel on them (under remat the recomputed forward saves its
+own).  The plain route
 differentiates through PyTorch's own ops.  Neither route falls back to
 the other: a kernel that fails to build or launch raises."""
 from __future__ import annotations
@@ -26,18 +28,19 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, prefix: int,
                 logit_cap: float):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   prefix=prefix, logit_cap=logit_cap)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, prefix=prefix,
+                                        logit_cap=logit_cap, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = dict(causal=causal, window=window, prefix=prefix,
                         logit_cap=logit_cap)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, do.contiguous(),
-                                              **ctx.mask)
+                                              lse, **ctx.mask)
         return dq, dk, dv, None, None, None, None
 
 

@@ -16,17 +16,25 @@ has a plain version, ``ref.flash_attention_bwd``: held against autograd
 of the plain forward and ``jax.grad`` of the reference's
 ``full_attention`` over the mask grid (causal, window, prefix, softcap,
 G = 1, 2, 5, 7, Sq ≠ Sk, Dh = 32, 64, 160) within 1e-5·(1 + max|grad|);
-a torch mirror of the kernel's tile schedule (its tiles, the skip test,
-the online row statistics, the two passes) against it, within the same
-bound; and the autograd ``Function``'s plumbing, with the CUDA launches
-replaced by their plain versions on the CPU.
+a float64 torch mirror of the kernel's tile schedule (its tiles, the
+skip tests of CTAs and warps, p from the forward's LSE, D, heads before
+query tiles in dk/dv) against it, within the same bound; and the
+autograd ``Function``'s plumbing (the forward's LSE saved and handed to
+the backward launch), with the CUDA launches replaced by their plain
+versions on the CPU.  The plain forward's ``return_lse`` is held to
+``jax.nn.logsumexp`` of the reference's masked scores.
 
 The bf16 kernel's arithmetic (bf16 q·k products summed in f32, then
 ``* scale``; p split into three bf16 pieces, each times bf16 v summed in
 f32; the online softmax a key tile at a time) is emulated here in torch
 and held to the reference's interpret-mode kernel within the card's bf16
 check, 2^-7·|ref| + 1e-6; p rounded to bf16 in one piece fails that check
-on outputs that come from cancellation.
+on outputs that come from cancellation.  So is the bf16 backward's (bf16
+products summed in f32 a tile at a time; p = exp(s - lse) with the
+emulated forward's LSE; p and ds in three bf16 pieces, smallest first),
+held to ``jax.grad`` of the reference's ``full_attention`` in f32 on the
+same bf16 values within the card's backward check, 2^-7·|want| +
+1e-4·max|want|; with ds and p in one piece it misses that check.
 """
 import math
 
@@ -41,7 +49,8 @@ from repro.kernels.flash_attention import ref as ref_ref
 from repro.models import attention as ref_attn
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_bwd_cuda, flash_attention_cuda)
+    BWD_CTAS, bwd_heads_a_cta, bwd_tiles, flash_attention_bwd_cuda,
+    flash_attention_cuda)
 from repro_torch.models import attention
 
 ATOL = 1e-5
@@ -91,6 +100,36 @@ def test_plain_bf16_matches_reference_kernel():
     want = np.asarray(want.astype(jnp.float32))
     got = got.float().numpy()
     assert np.all(np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-6)
+
+
+def _reference_lse(q, k, sq, sk, kw):
+    """``jax.nn.logsumexp`` of the reference's masked f32 scores, (B,H,Sq)."""
+    b, _, h, dh = q.shape
+    kvh = k.shape[2]
+    scores = ref_attn._gqa_scores(
+        jnp.asarray(q).reshape(b, sq, kvh, h // kvh, dh), jnp.asarray(k),
+        dh ** -0.5, kw.get("logit_cap", 0.0))
+    mask = ref_attn._mask(jnp.arange(sq, dtype=jnp.int32) + (sk - sq),
+                          jnp.arange(sk, dtype=jnp.int32),
+                          causal=kw.get("causal", True),
+                          window=kw.get("window", 0),
+                          prefix=kw.get("prefix", 0))
+    scores = jnp.where(mask[None, None, None], scores, ref_attn.NEG_INF)
+    return np.asarray(jax.nn.logsumexp(scores, axis=-1)).reshape(b, h, sq)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,kw", CASES)
+def test_plain_lse_matches_reference(b, sq, sk, h, kv, dh, kw):
+    """The plain forward's ``return_lse``: the output bitwise as without
+    it, and the (B,H,Sq) f32 row log-sum-exp within 1e-5·(1 + max|lse|)
+    of ``jax.nn.logsumexp`` over the reference's masked scores."""
+    q, k, v = _inputs(b, sq, sk, h, kv, dh)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    out, lse = ref.flash_attention(*args, return_lse=True, **kw)
+    assert torch.equal(out, ref.flash_attention(*args, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    want = _reference_lse(q, k, sq, sk, kw)
+    assert np.abs(lse.numpy() - want).max() <= ATOL * (1 + np.abs(want).max())
 
 
 @pytest.mark.parametrize("impl", [None, "full", "chunked", "flash"])
@@ -182,7 +221,8 @@ def test_plain_version_gradients_match_reference():
 
 
 def _emulate_bf16_kernel(q, k, v, *, causal=True, window=0, prefix=0,
-                         logit_cap=0.0, pieces=3, block_k=64):
+                         logit_cap=0.0, pieces=3, block_k=64,
+                         return_lse=False):
     """The arithmetic of the bf16 CUDA kernel, in torch on bf16 q/k/v
     (B,Sq,H,Dh)/(B,Sk,KV,Dh) -> (out bf16, Σ_j p_j|v_j| / l f32): scores
     are bf16 products summed in f32, then ``* scale``, softcapped and
@@ -191,7 +231,9 @@ def _emulate_bf16_kernel(q, k, v, *, causal=True, window=0, prefix=0,
     bf16 pieces, each times bf16 v summed in f32 (smallest piece first)
     into the tile's sum, added to the rescaled output; out / max(l,
     1e-30) rounded once to bf16.  The second output is the size of the
-    terms each output sums, to tell cancellation."""
+    terms each output sums, to tell cancellation; with ``return_lse`` a
+    third, the row log-sum-exp m + log(max(l, 1e-30)) (B,H,Sq) that the
+    kernel writes for its backward."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -232,7 +274,10 @@ def _emulate_bf16_kernel(q, k, v, *, causal=True, window=0, prefix=0,
         m = m_new
     den = torch.clamp(l, min=1e-30)[..., None]
     fold = lambda t: t.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
-    return fold(acc / den).to(torch.bfloat16), fold(mag / den)
+    out = fold(acc / den).to(torch.bfloat16), fold(mag / den)
+    if return_lse:
+        return out + ((m + torch.log(den[..., 0])).reshape(b, h, sq),)
+    return out
 
 
 def _bf16_case(b, sq, sk, h, kv, dh, kw, seed=11):
@@ -345,11 +390,186 @@ def test_backward_plain_version_in_bf16_rounds_once():
         assert torch.equal(g, w.to(torch.bfloat16))
 
 
-def _tiles(dh):
-    """The backward kernel's (DP, BM, BN) for a head dim
-    (``flash_attention_bwd.cu``, ``Tiles``)."""
-    dp = next(d for d in (32, 64, 128, 160, 256) if dh <= d)
-    return dp, 64 if dp <= 160 else 32, 64 if dp <= 128 else 32
+def _visible(rows, cols, sq, sk, *, causal=True, window=0, prefix=0):
+    """The kernels' visibility of query rows ``rows`` against keys ``cols``
+    (index vectors), positions suffix-aligned: (len(rows), len(cols))."""
+    pos = rows[:, None] + (sk - sq)
+    col = cols[None, :]
+    ok = col < sk
+    if causal:
+        ok = ok & (col <= pos)
+    if window > 0:
+        ok = ok & (((pos - col) < window) | (col < prefix))
+    return ok
+
+
+def _pieces(x, n):
+    """f32 ``x`` as ``n`` bf16 pieces (as f32), largest first."""
+    parts, rest = [], x
+    for _ in range(n):
+        parts.append(rest.to(torch.bfloat16).float())
+        rest = rest - parts[-1]
+    return parts
+
+
+def _emulate_bf16_bwd(q, k, v, o, do, lse, *, causal=True, window=0,
+                      prefix=0, logit_cap=0.0, pieces=3):
+    """The arithmetic of the bf16 backward kernel, in torch on bf16
+    q/k/v/o/do and the forward's f32 LSE (B,H,Sq): scores and dp are bf16
+    products summed in f32, s then ``* scale``, softcapped and masked to
+    -1e30; p = exp(s - lse), D = rowsum(do·o) in f32, ds = p∘(dp -
+    D)·slope; dq summed a key tile of ``bwd_tiles(dh).bk`` at a time, dk
+    and dv a query tile of ``.bm`` rows at a time, each tile's products
+    with p or ds in ``pieces`` bf16 pieces (smallest first) summed in f32;
+    dq and dk ``* scale`` after the sums; each rounded once to bf16."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    tiles = bwd_tiles(dh)
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.float().reshape(b, sq, kvh, g, dh)
+    dof = do.float().reshape(b, sq, kvh, g, dh)
+    kf, vf = k.float(), v.float()
+    lse = lse.reshape(b, kvh, g, sq)
+    d_row = (do.float() * o.float()).sum(-1).reshape(b, sq, kvh, g).permute(
+        0, 2, 3, 1)
+    mask = dict(causal=causal, window=window, prefix=prefix)
+
+    def p_ds(rows, cols):
+        qt, dot = qf[:, rows], dof[:, rows]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qt, kf[:, cols]) * scale
+        slope = 1.0
+        if logit_cap:
+            t = torch.tanh(s / logit_cap)
+            s, slope = t * logit_cap, 1 - t * t
+        s = s.masked_fill(~_visible(rows, cols, sq, sk, **mask), -1e30)
+        p = torch.exp(s - lse[..., rows, None])
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dot, vf[:, cols])
+        return p, p * (dp - d_row[..., rows, None]) * slope
+
+    def summed(x, eq, other):
+        acc = 0
+        for part in reversed(_pieces(x, pieces)):
+            acc = acc + torch.einsum(eq, part, other)
+        return acc
+
+    rows_all, cols_all = torch.arange(sq), torch.arange(sk)
+    dq = torch.zeros_like(qf)
+    for c0 in range(0, sk, tiles.bk):
+        cols = torch.arange(c0, min(c0 + tiles.bk, sk))
+        _, ds = p_ds(rows_all, cols)
+        dq = dq + summed(ds, "bkgqs,bskd->bqkgd", kf[:, cols])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for r0 in range(0, sq, tiles.bm):
+        rows = torch.arange(r0, min(r0 + tiles.bm, sq))
+        p, ds = p_ds(rows, cols_all)
+        dv = dv + summed(p, "bkgqs,bqkgd->bskd", dof[:, rows])
+        dk = dk + summed(ds, "bkgqs,bqkgd->bskd", qf[:, rows])
+    return ((dq * scale).reshape(b, sq, h, dh).to(torch.bfloat16),
+            (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16))
+
+
+def _bf16_bwd_case(b, sq, sk, h, kv, dh, kw, seed=17):
+    """bf16 q/k/v/do, the reference's f32 output o and the emulated
+    forward's LSE; ``jax.grad`` of the reference's ``full_attention`` in
+    f32 at the same (bf16) values; and the emulated forward's bf16
+    output.  ``jax.grad``'s D is rowsum(do·o) at the f32 o (it never
+    rounds o), so the emulation is held to it with that o; the kernel
+    itself reads the bf16 o the forward stored, and the card's check
+    gives its plain version the same one."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _bwd_inputs(b, sq, sk, h, kv, dh, seed=seed))
+    o16, _, lse = _emulate_bf16_kernel(q, k, v, return_lse=True, **kw)
+    q_pos = jnp.arange(sq, dtype=jnp.int32) + (sk - sq)
+    k_pos = jnp.arange(sk, dtype=jnp.int32)
+    o, vjp = jax.vjp(lambda a, b_, c: ref_attn.full_attention(
+        a, b_, c, q_pos=q_pos, k_pos=k_pos, **kw),
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do.float().numpy()))]
+    o = torch.from_numpy(np.array(o))
+    return (q, k, v, o, do, lse), want, o16
+
+
+def _bwd_check(got, want):
+    """The card's bf16 backward check: |got - want| <= 2^-7·|want| +
+    1e-4·max|want|, per gradient."""
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    return np.abs(got - want) <= (2.0 ** -7 * np.abs(want)
+                                  + 1e-4 * np.abs(want).max())
+
+
+EMULATED_BWD = [(2, 100, 100, 4, 2, dict(causal=True)),
+                (1, 96, 96, 5, 1, dict(causal=True, window=24, prefix=6)),
+                (1, 80, 80, 4, 2, dict(causal=True, logit_cap=5.0)),
+                (2, 40, 130, 6, 3, dict(causal=True, window=48, prefix=8)),
+                (1, 30, 90, 4, 4, dict(causal=False))]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 160])
+@pytest.mark.parametrize("b,sq,sk,h,kv,kw", EMULATED_BWD,
+                         ids=["causal", "window+prefix", "softcap", "Sq<Sk",
+                              "non-causal"])
+def test_backward_kernel_arithmetic_matches_reference(b, sq, sk, h, kv, kw,
+                                                      dh):
+    """The bf16 backward's numerics (the forward's LSE, three pieces of p
+    and ds, its tiles) against ``jax.grad`` of the reference on the same
+    bf16 values, within the card's bf16 backward check; and, as the card
+    compares them, against the plain backward with both given the
+    forward's bf16 output."""
+    (q, k, v, o, do, lse), want, o16 = _bf16_bwd_case(b, sq, sk, h, kv, dh,
+                                                      kw)
+    got = _emulate_bf16_bwd(q, k, v, o, do, lse, **kw)
+    for x, w in zip(got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == w.shape
+        assert _bwd_check(x, w).all()
+    got = _emulate_bf16_bwd(q, k, v, o16, do, lse, **kw)
+    plain = ref.flash_attention_bwd(q, k, v, o16, do, **kw)
+    for x, w in zip(got, plain):
+        assert _bwd_check(x, w.float().numpy()).all()
+
+
+def test_one_piece_p_and_ds_fail_the_backward_check():
+    """Why three pieces: with p and ds rounded to bf16 (8 bits, as SDPA's
+    backward does), the same tiles miss the backward check on some
+    gradient, while three pieces pass every one."""
+    kw = dict(causal=True)
+    args, want, _ = _bf16_bwd_case(2, 100, 100, 4, 2, 64, kw)
+    three = _emulate_bf16_bwd(*args, **kw)
+    one = _emulate_bf16_bwd(*args, pieces=1, **kw)
+    assert all(_bwd_check(x, w).all() for x, w in zip(three, want))
+    assert not all(_bwd_check(x, w).all() for x, w in zip(one, want))
+
+
+@pytest.mark.parametrize("dh", [32, 36, 64, 128, 160, 256])
+def test_backward_tiles(dh):
+    """``bwd_tiles`` (the bf16 backward's ``BwdShape``): Dh padded to a
+    multiple of 16, both kernels' shared memory within the 227 KB a CTA
+    may take, 16 keys a warp, a warp's head dims in whole ldmatrix pairs,
+    13 passes up to Dh 128 and 15 where two warps share 16 keys."""
+    t = bwd_tiles(dh)
+    assert dh <= t.dp and t.dp % 16 == 0
+    ld = t.dp + 8
+    assert (2 * 64 + 4 * t.bk) * ld * 2 + 2 * 64 * 4 <= 232_448
+    assert (2 * t.bn + 4 * t.bm) * ld * 2 + 4 * t.bm * 4 <= 232_448
+    assert t.bn * t.dsplit == 64 and (t.dp // t.dsplit) % 16 == 0
+    assert t.bm % 16 == 0 and t.bk % 16 == 0
+    assert t.passes == (13 if t.dp <= 128 else 15)
+
+
+@pytest.mark.parametrize("b,sk,kvh,g,dh,want", [
+    (2, 2048, 4, 8, 64, 2),      # tinyllama's train step: 4 chunks
+    (2, 2304, 2, 7, 64, 1),      # internvl2: every head a chunk
+    (2, 2048, 16, 1, 128, 1),    # olmoe: G = 1
+    (2, 2048, 8, 2, 256, 2),     # gemma2: 32-key CTAs, 1,024 already
+    (8, 4096, 8, 4, 64, 4)])     # enough CTAs without a split
+def test_backward_head_split(b, sk, kvh, g, dh, want):
+    """``bwd_heads_a_cta``: the heads of a kv head split over dk/dv CTAs
+    only until there are about ``BWD_CTAS`` of them."""
+    hs = bwd_heads_a_cta(b, sk, kvh, g, dh)
+    assert hs == want
+    units = -(-sk // bwd_tiles(dh).bn) * kvh * b
+    chunks = -(-g // hs)
+    assert chunks == 1 or units * (chunks - 1) < BWD_CTAS
 
 
 def _skipped(c0, c1, rlo, rhi, sk, causal, window, prefix):
@@ -357,85 +577,97 @@ def _skipped(c0, c1, rlo, rhi, sk, causal, window, prefix):
             or (window > 0 and rlo - c1 >= window and c0 >= prefix))
 
 
-def _mirror_bwd(q, k, v, o, do, *, causal=True, window=0, prefix=0,
+def _mirror_bwd(q, k, v, o, do, lse, *, causal=True, window=0, prefix=0,
                 logit_cap=0.0):
-    """A float64 torch mirror of ``flash_attention_bwd.cu``'s schedule:
-    the dq pass over (batch, head, query tile) with the row statistics
-    updated a visited key tile at a time, then dk/dv over (batch, kv head,
-    key tile), heads then query tiles; tiles the skip test drops are not
-    visited.  Returns (dq, dk, dv)."""
-    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    """A float64 torch mirror of ``flash_attention_bwd.cu``'s bf16
+    schedule (``bwd_tiles``): dq CTAs over (batch, kv head, chunk of GC =
+    min(G, 64) heads, block of 64 / GC query rows), their 64 (row, head)
+    pairs r·GC + gi in warps of 16, each warp visiting the key tiles of
+    ``bk`` that the CTA's skip test and its own rows' test keep; dk/dv
+    CTAs over (batch, kv head, chunk of ``bwd_heads_a_cta`` heads, ``bn``
+    keys), warps of 16 keys, heads then query tiles of ``bm`` rows, the
+    same two tests, the chunks' sums added in order; p = exp(s - lse) from
+    the forward's LSE, D = rowsum(do·o).  Returns (dq, dk, dv)."""
+    q, k, v, o, do, lse = (t.double() for t in (q, k, v, o, do, lse))
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    _, bm, bn = _tiles(dh)
+    tl = bwd_tiles(dh)
     scale = dh ** -0.5
     mask = dict(causal=causal, window=window, prefix=prefix)
+    off = sk - sq
+    d_row = (do * o).sum(-1)                              # (B,Sq,H)
 
-    def tile(qt, kt, r0, c0):
-        """Scores, visibility and softcap slope of a (query, key) tile."""
+    def p_ds(bi, rows, heads, keys, kv):
+        """p and ds of (row, head) pairs against keys, and the operands."""
+        qt, dot = q[bi, rows, heads], do[bi, rows, heads]
+        kt, vt = k[bi, keys, kv], v[bi, keys, kv]
         s = qt @ kt.T * scale
         slope = torch.ones_like(s)
         if logit_cap:
             t = torch.tanh(s / logit_cap)
             s, slope = t * logit_cap, 1 - t * t
-        pos = torch.arange(r0, r0 + qt.shape[0])[:, None] + (sk - sq)
-        col = torch.arange(c0, c0 + kt.shape[0])[None, :]
-        vis = torch.ones_like(s, dtype=torch.bool) if not causal else \
-            col <= pos
-        if window:
-            vis &= ((pos - col) < window) | (col < prefix)
-        return s, vis, slope
+        s = torch.where(_visible(rows, keys, sq, sk, **mask), s, -1e30)
+        p = torch.exp(s - lse[bi, heads, rows][:, None])
+        ds = p * (dot @ vt.T - d_row[bi, rows, heads][:, None]) * slope
+        return p, ds, qt, dot, kt
 
-    stats = torch.zeros((b, h, sq, 3), dtype=torch.float64)
+    gc = min(g, 64)
+    bq = 64 // gc
     dq = torch.zeros_like(q)
     for bi in range(b):
-        for hd in range(h):
-            kv = hd // g
-            for r0 in range(0, sq, bm):
-                rlo = sk - sq + r0
-                qt, dot = q[bi, r0:r0 + bm, hd], do[bi, r0:r0 + bm, hd]
-                d_row = (dot * o[bi, r0:r0 + bm, hd]).sum(-1)
-                m = torch.full((qt.shape[0],), -1e30, dtype=torch.float64)
-                l = torch.zeros_like(m)
-                visits = [c0 for c0 in range(0, sk, bn) if not _skipped(
-                    c0, c0 + bn - 1, rlo, rlo + bm - 1, sk, **mask)]
-                for c0 in visits:
-                    s, vis, _ = tile(qt, k[bi, c0:c0 + bn, kv], r0, c0)
-                    s = torch.where(vis, s, -1e30)
-                    m_new = torch.maximum(m, s.amax(-1))
-                    e = torch.where(vis, torch.exp(s - m_new[:, None]), 0.0)
-                    l = l * torch.exp(m - m_new) + e.sum(-1)
-                    m = m_new
-                stats[bi, hd, r0:r0 + bm] = torch.stack([m, l, d_row], -1)
-                for c0 in visits:
-                    kt, vt = k[bi, c0:c0 + bn, kv], v[bi, c0:c0 + bn, kv]
-                    s, vis, slope = tile(qt, kt, r0, c0)
-                    p = torch.where(vis, torch.exp(s - m[:, None]) /
-                                    l[:, None], 0.0)
-                    ds = p * (dot @ vt.T - d_row[:, None]) * slope
-                    dq[bi, r0:r0 + bm, hd] += ds @ kt * scale
-    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for bi in range(b):
         for kv in range(kvh):
-            for c0 in range(0, sk, bn):
-                kt, vt = k[bi, c0:c0 + bn, kv], v[bi, c0:c0 + bn, kv]
-                for hd in range(kv * g, (kv + 1) * g):
-                    for r0 in range(0, sq, bm):
-                        rlo = sk - sq + r0
-                        if _skipped(c0, c0 + bn - 1, rlo, rlo + bm - 1, sk,
-                                    **mask):
+            for h0 in range(0, g, gc):
+                gcn = min(gc, g - h0)
+                for q0 in range(0, sq, bq):
+                    nrows = min(bq, sq - q0)
+                    visits = [c0 for c0 in range(0, sk, tl.bk)
+                              if not _skipped(c0, c0 + tl.bk - 1, off + q0,
+                                              off + q0 + nrows - 1, sk,
+                                              **mask)]
+                    for w in range(4):
+                        ms = [m for m in range(16 * w, 16 * w + 16)
+                              if m // gc < nrows and m % gc < gcn]
+                        if not ms:
                             continue
-                        qt, dot = q[bi, r0:r0 + bm, hd], do[bi, r0:r0 + bm,
-                                                              hd]
-                        m, l, d_row = stats[bi, hd, r0:r0 + bm].unbind(-1)
-                        s, vis, slope = tile(qt, kt, r0, c0)
-                        p = torch.where(vis, torch.exp(s - m[:, None]) /
-                                        l[:, None], 0.0)
-                        ds = p * (dot @ vt.T - d_row[:, None]) * slope
-                        dv[bi, c0:c0 + bn, kv] += p.T @ dot
-                        dk[bi, c0:c0 + bn, kv] += ds.T @ qt * scale
-    return dq, dk, dv
+                        rows = torch.tensor([q0 + m // gc for m in ms])
+                        heads = torch.tensor([kv * g + h0 + m % gc
+                                              for m in ms])
+                        wlo = off + q0 + (16 * w) // gc
+                        whi = off + q0 + min((16 * w + 15) // gc, nrows - 1)
+                        for c0 in visits:
+                            if _skipped(c0, c0 + tl.bk - 1, wlo, whi, sk,
+                                        **mask):
+                                continue
+                            keys = torch.arange(c0, min(c0 + tl.bk, sk))
+                            _, ds, _, _, kt = p_ds(bi, rows, heads, keys, kv)
+                            dq[bi, rows, heads] += ds @ kt
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    hs = bwd_heads_a_cta(b, sk, kvh, g, dh)
+    for bi, kv, gh0 in ((bi, kv, gh0) for bi in range(b)
+                        for kv in range(kvh) for gh0 in range(0, g, hs)):
+        chunk_k, chunk_v = torch.zeros_like(k), torch.zeros_like(v)
+        for c0 in range(0, sk, tl.bn):
+            for wc0 in range(c0, min(c0 + tl.bn, sk), 16):
+                keys = torch.arange(wc0, min(wc0 + 16, sk))
+                for hd in range(kv * g + gh0,
+                                kv * g + min(gh0 + hs, g)):
+                    for r0 in range(0, sq, tl.bm):
+                        rlo = off + r0
+                        rhi = off + min(r0 + tl.bm, sq) - 1
+                        if (_skipped(c0, c0 + tl.bn - 1, rlo, rhi, sk,
+                                     **mask)
+                                or _skipped(wc0, wc0 + 15, rlo, rhi, sk,
+                                            **mask)):
+                            continue
+                        rows = torch.arange(r0, min(r0 + tl.bm, sq))
+                        heads = torch.full_like(rows, hd)
+                        p, ds, qt, dot, _ = p_ds(bi, rows, heads, keys,
+                                                 kv)
+                        chunk_v[bi, keys, kv] += p.T @ dot
+                        chunk_k[bi, keys, kv] += ds.T @ qt
+        dk, dv = dk + chunk_k, dv + chunk_v
+    return dq * scale, dk * scale, dv
 
 
 # the CPU-sized cases plus tiles the schedule cuts: several query and key
@@ -449,15 +681,15 @@ MIRROR_CASES = BWD_CASES + [
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,dh,kw", MIRROR_CASES)
 def test_backward_kernel_schedule_mirror(b, sq, sk, h, kv, dh, kw):
-    """The kernel's tiles, skip test and two passes compute the plain
-    version's gradients: the tiles the skip test drops hold no visible
-    pair, and the online statistics over the visited tiles are the row's
-    own."""
+    """The kernel's tiles, skip tests and statistics compute the plain
+    version's gradients: the tiles the CTA's and the warps' tests drop
+    hold no visible pair, and p from the forward's LSE (the plain
+    ``return_lse``) with D = rowsum(do·o) is the row's softmax."""
     q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(b, sq, sk, h,
                                                              kv, dh))
-    o = ref.flash_attention(q, k, v, **kw)
+    o, lse = ref.flash_attention(q, k, v, return_lse=True, **kw)
     want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
-    got = _mirror_bwd(q, k, v, o, do, **kw)
+    got = _mirror_bwd(q, k, v, o, do, lse, **kw)
     for g, w in zip(got, want):
         _grad_close(g, w)
 
@@ -465,19 +697,23 @@ def test_backward_kernel_schedule_mirror(b, sq, sk, h, kv, dh, kw):
 def test_autograd_function_runs_the_backward_launch(monkeypatch):
     """``ops.FlashAttention``'s plumbing on the CPU: with the two CUDA
     launches replaced by their plain versions (counted), q, k and v get
-    the plain forward's autograd gradients, the forward launch runs once
-    and the backward launch once, with the forward's output and the
-    mask."""
+    the plain forward's autograd gradients, the forward launch runs once,
+    asked for the LSE, and the backward launch once, with the forward's
+    output, its LSE (the same tensor) and the mask."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    calls = []
+    calls, lses = [], []
 
-    def fwd(q, k, v, **kw):
+    def fwd(q, k, v, *, return_lse=False, **kw):
         calls.append(("fwd", kw))
-        return ref.flash_attention(q, k, v, **kw)
+        assert return_lse
+        out, lse = ref.flash_attention(q, k, v, return_lse=True, **kw)
+        lses.append(lse)
+        return out, lse
 
-    def bwd(q, k, v, o, do, **kw):
+    def bwd(q, k, v, o, do, lse, **kw):
         calls.append(("bwd", kw))
+        lses.append(lse)
         return ref.flash_attention_bwd(q, k, v, o, do, **kw)
 
     monkeypatch.setattr(fa_ops, "flash_attention_cuda", fwd)
@@ -491,6 +727,9 @@ def test_autograd_function_runs_the_backward_launch(monkeypatch):
     ref.flash_attention(*plain, **kw).backward(torch.from_numpy(do))
     assert [c[0] for c in calls] == ["fwd", "bwd"]
     assert calls[0][1] == calls[1][1] == kw
+    assert len(lses) == 2 and lses[0].shape == (1, 4, 24)
+    assert lses[1].data_ptr() == lses[0].data_ptr()
+    assert torch.equal(lses[1], lses[0])
     for a, p in zip(mine, plain):
         _grad_close(a.grad, p.grad)
 
@@ -498,5 +737,6 @@ def test_autograd_function_runs_the_backward_launch(monkeypatch):
 def test_backward_wrapper_refuses_cpu_tensors():
     q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(1, 16, 16, 2, 1,
                                                              32))
+    lse = torch.zeros((1, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_bwd_cuda(q, k, v, q, do)
+        flash_attention_bwd_cuda(q, k, v, q, do, lse)
