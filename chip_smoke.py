@@ -9,6 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
     python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
     python3 chip_smoke.py --only llm-train        # build K11/K12, training
+    python3 chip_smoke.py --only sharded          # the VFL kernels, mesh=
 
 Phases, each printing JSON lines:
 
@@ -288,6 +289,26 @@ Phases, each printing JSON lines:
               tinyllama's params and Adam state after 3 steps, loaded
               into fresh tensors on the card: step 4 bitwise the
               uninterrupted run's.
+19. sharded — the HI treecss × mlp pipeline with ``mesh=``
+              (``repro_torch.sharding``), the kernels built once here
+              before any rank starts: 2 ranks on ``("data",)`` and 4 on
+              (data 2, model 2), f32 and int8, spawned by
+              ``launch.mesh.run_ranks``, all on the one card over gloo
+              (the collectives staged through host memory), and 2 ranks
+              over NCCL, one a card, where the host has 2 cards; each
+              world prints its backend, size and mesh.  Against the
+              unsharded run on the card: intersections, coreset indices
+              and weights bitwise; the stats' shards equal to the mesh;
+              counters exact (steps, comm_bytes, payload bytes, one host
+              sync an epoch on every rank); f32 losses within rtol 1e-4,
+              atol 1e-6, accuracy within 0.02; int8 losses within twice
+              the wire's own distance (int8 to f32, unsharded) plus 1e-4,
+              its accuracy at most 0.01 below f32's; every rank's outputs
+              bitwise rank 0's; on every rank K6/K7/K3/K5 launched as
+              often as unsharded, K2 (K10) once a step and K1 (K9) once
+              an eval block, and the profiler seeing K2's (K10's) kernel
+              in one epoch; each stage's wall a rank and its collectives
+              (calls, staged, bytes).
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -297,6 +318,7 @@ Full results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -3896,6 +3918,281 @@ def llm_train_phase(dev):
     return row
 
 
+# ------------------------------------------------------------ sharded phase
+
+#: the worlds of the sharded phase: (name, ranks, mesh shape, quant of each
+#: run); on one card every rank runs on it over gloo, the collectives
+#: staged through host memory
+SHARDED_WORLDS = (("data2", 2, (2,), (None,)),
+                  ("2x2", 4, (2, 2), (None, "int8")))
+SHARDED_TIMEOUT = 400          # seconds a world may take, spawn to join
+SHARDED_LOSS_RTOL = 1e-4       # the reference's own (tests/test_sharded.py)
+SHARDED_LOSS_ATOL = 1e-6
+SHARDED_ACC = 0.02
+# int8 on (2, 2): a data rank's 350 rows end mid-block of the wire's 8, so
+# the second rank's blocks group other rows than one device's (ROADMAP R3),
+# and every activation of a regrouped block may round one wire step apart:
+# the sharded int8 losses are held within twice the wire's own effect
+# (the int8 run's largest relative distance to the f32 run's) of the
+# unsharded int8 run's, plus the f32 tolerance
+SHARDED_INT8_WIRE_FACTOR = 2.0
+#: K2's and K10's kernels (csrc/splitnn_bottom.cu), as the profiler names them
+K2_MARK = {None: "bottom_kernel", "int8": "bottom_int8_kernel"}
+
+
+def _every_rank(flag: bool, device) -> bool:
+    """Whether ``flag`` holds on every rank of the running world."""
+    import torch.distributed as dist
+    t = torch.tensor([int(flag)], device=device
+                     if dist.get_backend() == "nccl" else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def sharded_rank(device, shape, quants, tr_raw, te_raw, cfg, seed):
+    """One rank of a sharded world: the HI treecss × mlp pipeline on a
+    ``("data",)`` or ``(data, model)`` mesh over the world, once for each
+    quant in ``quants``, each after an untimed drive (CUDA, cuBLAS, the
+    kernel libraries and each shape's first allocations load there),
+    with the launch and collective counts set to 0 just before it and
+    read just after; then one epoch of its training under the profiler, which must
+    see K2's (K10's under int8) kernel on this rank's device."""
+    from repro_torch import sharding
+    from repro_torch.config import AlignOptions, EngineOptions
+    from repro_torch.core.splitnn import train_splitnn
+    from repro_torch.core.treecss import _align, run_pipeline
+    from repro_torch.data.vertical import VerticalPartition
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.train.optimizer import tree_leaves
+
+    mesh = make_data_mesh(model=shape[1] if len(shape) == 2 else 1)
+    tr, te = (VerticalPartition(list(f), y, list(sl))
+              for f, y, sl in (tr_raw, te_raw))
+    align = AlignOptions(protocol="oprf", psi_backend="device",
+                         impl="kernel", device=device, mesh=mesh)
+    options = lambda quant, trace=None: EngineOptions(
+        device=device, mesh=mesh, bottom_impl="kernel", quant=quant,
+        trace=trace)
+    drive = lambda part, test, quant, trace=None: run_pipeline(
+        part, test, cfg, variant="treecss", clusters_per_client=14,
+        kmeans_impl="kernel", seed=seed, options=options(quant, trace),
+        align=align)
+    for quant in quants:        # untimed: first use of each shape and wire
+        drive(tr, te, quant)
+    out = []
+    for quant in quants:
+        reset_launches()
+        sharding.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = drive(tr, te, quant, trace=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, collectives = dict(LAUNCHES), dict(sharding.COLLECTIVES)
+        aligned = _align(tr, "tree", align=align, seed=seed)[0]
+        core = aligned.take(rep.coreset.indices)
+        one_epoch = dataclasses.replace(cfg, max_epochs=1)
+        for _ in range(4):      # a profiler session may record no kernel
+            per_name, _, _ = profile_device(lambda: train_splitnn(
+                core, one_epoch, sample_weights=rep.coreset.weights,
+                options=options(quant)), reps=1, warm=False)
+            k2 = sorted(k for k in per_name if K2_MARK[quant] in k)
+            if _every_rank(bool(k2), device):
+                break
+        st = rep.train.engine_stats
+        out.append(dict(
+            quant=quant, device=str(device),
+            intersection=rep.mpsi.intersection, n_train=rep.n_train,
+            indices=rep.coreset.indices, weights=rep.coreset.weights,
+            coreset_shards=rep.coreset.shards,
+            losses=np.asarray(rep.train.losses), epochs=rep.train.epochs,
+            steps=rep.train.steps, comm_bytes=rep.train.comm_bytes,
+            params=np.concatenate([t.cpu().numpy().ravel()
+                                   for t in tree_leaves(rep.train.params)]),
+            metric=rep.metric, shards=st.shards,
+            model_shards=st.model_shards, padded_batch=st.padded_batch,
+            steps_per_epoch=st.steps_per_epoch, host_syncs=st.host_syncs,
+            gather_payload_bytes=st.gather_payload_bytes,
+            walls=dict(total_s=wall, align_s=rep.align_wall_seconds,
+                       coreset_s=rep.coreset_wall_seconds,
+                       train_s=rep.train_wall_seconds,
+                       eval_s=rep.tracer.total_seconds("pipeline.serve")),
+            launches=launches, collectives=collectives, k2_profiled=k2))
+    return out
+
+
+def _unsharded_run(tr, te, dev, cfg, quant):
+    """The yardstick: the same job on the card, unsharded, with its
+    launch counts."""
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = drive_split(tr, te, dev, "treecss", cfg, "kernel", trace=True,
+                      quant=quant)
+    torch.cuda.synchronize()
+    return rep, dict(LAUNCHES), dict(
+        total_s=time.perf_counter() - t0, align_s=rep.align_wall_seconds,
+        coreset_s=rep.coreset_wall_seconds, train_s=rep.train_wall_seconds,
+        eval_s=rep.tracer.total_seconds("pipeline.serve"))
+
+
+def loss_rel_err(got, want) -> float:
+    """The largest relative distance of two epoch-loss traces over their
+    common epochs."""
+    k = min(len(got), len(want))
+    got, want = np.asarray(got[:k]), np.asarray(want[:k])
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def check_sharded(tag, shape, runs, base, base_launches, n_eval, f32):
+    """The faults of one sharded run against its unsharded run on the
+    card (``base``): every rank's outputs bitwise rank 0's; alignment
+    and coreset bitwise; the mesh in the stats; counters exact (per
+    epoch under int8, whose convergence window may stop elsewhere);
+    losses and accuracy within the tolerances above; one host sync an
+    epoch; the path's kernels launched on every rank as often as
+    unsharded; K2 (K10) seen by the profiler on every rank."""
+    r0, quant = runs[0], runs[0]["quant"]
+    faults = []
+    for key in ("intersection", "indices", "weights", "losses", "params",
+                "metric", "epochs", "steps", "comm_bytes"):
+        if not all(same_bits([torch.from_numpy(np.atleast_1d(r[key]))],
+                             [torch.from_numpy(np.atleast_1d(r0[key]))])
+                   for r in runs[1:]):
+            faults.append(f"{tag}: ranks' {key} differ")
+    if not np.array_equal(r0["intersection"], base.mpsi.intersection):
+        faults.append(f"{tag}: intersection differs from unsharded")
+    if not (np.array_equal(r0["indices"], base.coreset.indices)
+            and same_bits([torch.from_numpy(r0["weights"])],
+                          [torch.from_numpy(base.coreset.weights)])):
+        faults.append(f"{tag}: coreset differs from unsharded")
+    n_model = shape[1] if len(shape) == 2 else 1
+    if (r0["shards"], r0["model_shards"], r0["coreset_shards"]) != (
+            shape[0], n_model, shape[0]):
+        faults.append(f"{tag}: shards {r0['shards']}/{r0['model_shards']}"
+                      f"/{r0['coreset_shards']} are not the mesh {shape}")
+    bst = base.train.engine_stats
+    if (r0["steps_per_epoch"], r0["gather_payload_bytes"]) != (
+            bst.steps_per_epoch, bst.gather_payload_bytes):
+        faults.append(f"{tag}: steps_per_epoch or payload bytes differ")
+    per_epoch = lambda r: (r.steps / r.epochs, r.comm_bytes / r.epochs)
+    if quant is None and (r0["epochs"], r0["steps"], r0["comm_bytes"]) != (
+            base.train.epochs, base.train.steps, base.train.comm_bytes):
+        faults.append(f"{tag}: epochs, steps or comm_bytes differ")
+    if (r0["steps"] / r0["epochs"], r0["comm_bytes"] / r0["epochs"]) != \
+            per_epoch(base.train):
+        faults.append(f"{tag}: steps or comm_bytes an epoch differ")
+    common = min(r0["epochs"], base.train.epochs)
+    if quant is None:
+        if not np.allclose(r0["losses"][:common],
+                           base.train.losses[:common],
+                           rtol=SHARDED_LOSS_RTOL, atol=SHARDED_LOSS_ATOL):
+            faults.append(f"{tag}: losses beyond rtol {SHARDED_LOSS_RTOL}")
+    else:
+        wire = loss_rel_err(base.train.losses, f32.train.losses)
+        err = loss_rel_err(r0["losses"], base.train.losses)
+        if err > SHARDED_INT8_WIRE_FACTOR * wire + SHARDED_LOSS_RTOL:
+            faults.append(f"{tag}: losses {err} apart, the wire's own "
+                          f"effect is {wire}")
+        if f32.metric - r0["metric"] > MAX_INT8_ACC_DROP:
+            faults.append(f"{tag}: accuracy {r0['metric']} drops below "
+                          f"f32's {f32.metric}")
+    if abs(r0["metric"] - base.metric) > SHARDED_ACC:
+        faults.append(f"{tag}: accuracy {r0['metric']} vs {base.metric}")
+    k2 = "splitnn_bottom_gather" if quant is None else \
+        "splitnn_bottom_int8_gather"
+    k1 = "splitnn_bottom" if quant is None else "splitnn_bottom_int8"
+    for rank, r in enumerate(runs):
+        if r["host_syncs"] != r["epochs"]:
+            faults.append(f"{tag}: rank {rank} synced {r['host_syncs']} "
+                          f"times in {r['epochs']} epochs")
+        want = {k2: r["steps"], k1: n_eval} | {
+            k: base_launches[k] for k in ("psi_prf", "sorted_intersect",
+                                          "kmeans_update", "kmeans_assign")}
+        bad = {k: r["launches"][k] for k, n in want.items()
+               if r["launches"][k] != n}
+        if bad or any(base_launches[k] == 0 for k in want):
+            faults.append(f"{tag}: rank {rank} launches {bad}, want "
+                          f"{want}")
+        if not r["k2_profiled"]:
+            faults.append(f"{tag}: the profiler saw no {K2_MARK[quant]} on "
+                          f"rank {rank}")
+    return faults
+
+
+def sharded_phase(dev, smi):
+    """The HI treecss × mlp pipeline sharded over ranks (``mesh=``): 2
+    ranks on ``("data",)``, 4 on (data 2, model 2) in f32 and under the
+    int8 wire, and, where the host has 2 cards, 2 ranks over NCCL, one a
+    card; each against the unsharded run on the card (``check_sharded``).
+    The kernels were built once, here, before any rank starts; the ranks
+    load the libraries and never build."""
+    from repro_torch.launch.mesh import default_backend, run_ranks
+
+    t_phase = time.perf_counter()
+    tr, te = partitions()
+    cfg = train_cfg("mlp", 0.01, tr.n_samples, 200)
+    n_eval = -(-te.n_samples // 512)
+    raw = lambda p: (p.client_features, p.labels, p.feature_slices)
+    for quant in (None, "int8"):                  # untimed: first use
+        drive_split(tr, te, dev, "treecss", train_cfg(
+            "mlp", 0.01, tr.n_samples, 2), "kernel", quant=quant)
+    base = {q: _unsharded_run(tr, te, dev, cfg, q) for q in (None, "int8")}
+    worlds = [w + (default_backend(w[1]),) for w in SHARDED_WORLDS]
+    if torch.cuda.device_count() >= 2:
+        worlds.append(("nccl-data2", 2, (2,), (None,), "nccl"))
+    rows, faults = [], []
+    for name, n, shape, quants, backend in worlds:
+        print(f"sharded: {name}: backend={backend} world={n} mesh={shape}",
+              flush=True)
+        t0 = time.perf_counter()
+        per_rank = run_ranks(
+            sharded_rank, n, (shape, quants, raw(tr), raw(te), cfg, SEED),
+            backend=backend, timeout=SHARDED_TIMEOUT)
+        world_s = time.perf_counter() - t0
+        for i, quant in enumerate(quants):
+            runs = [r[i] for r in per_rank]
+            rep, launches, walls = base[quant]
+            tag = f"sharded/{name}/{quant or 'f32'}"
+            faults += check_sharded(tag, shape, runs, rep, launches, n_eval,
+                                    base[None][0])
+            r0 = runs[0]
+            row = dict(
+                phase="sharded", world=name, backend=backend, world_size=n,
+                mesh=list(shape), quant=quant, nvidia_smi=smi,
+                world_s=world_s, n_align=int(r0["intersection"].shape[0]),
+                n_train=r0["n_train"], epochs=r0["epochs"],
+                steps=r0["steps"], padded_batch=r0["padded_batch"],
+                metric=r0["metric"], unsharded_metric=rep.metric,
+                final_loss=float(r0["losses"][-1]),
+                unsharded_final_loss=rep.train.losses[-1],
+                max_loss_rel_err=loss_rel_err(r0["losses"],
+                                              rep.train.losses),
+                wire_loss_rel_err=loss_rel_err(rep.train.losses,
+                                               base[None][0].train.losses),
+                unsharded_walls=walls,
+                per_rank=[dict(device=r["device"], walls=r["walls"],
+                               collectives=r["collectives"],
+                               host_staged=r["collectives"]["staged"] > 0,
+                               launches={k: v for k, v in
+                                         r["launches"].items() if v},
+                               k2_profiled=r["k2_profiled"])
+                          for r in runs])
+            emit(row)
+            rows.append(row)
+    if torch.cuda.device_count() < 2:
+        emit({"phase": "sharded_note", "nccl": "not run: the host has "
+              f"{torch.cuda.device_count()} card", "nvidia_smi": smi})
+    if faults:
+        raise AssertionError("sharded: " + "; ".join(faults))
+    rows.append({"phase": "sharded_total",
+                 "phase_s": time.perf_counter() - t_phase})
+    emit(rows[-1])
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3941,6 +4238,8 @@ def spilled(report: str):
 
 ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
                         "ssd_scan"],
+        "sharded": ["psi_prf", "sorted_intersect", "kmeans_update",
+                    "kmeans_assign", "splitnn_bottom"],
         "llm-paths": ["flash_attention", "ssd_scan"],
         "llm-train": ["flash_attention", "flash_attention_bwd", "ssd_scan"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
@@ -3954,8 +4253,8 @@ def main(argv) -> int:
     if (argv and only not in ONLY or len(argv) > 2 and not phases
             or not set(phases) <= {p for p, _ in LLM_PHASES}):
         print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
-              "...]|llm-train|kmeans-kernels|bottom-kernels|psi-kernels]",
-              file=sys.stderr)
+              "...]|llm-train|kmeans-kernels|bottom-kernels|psi-kernels|"
+              "sharded]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4028,6 +4327,13 @@ def main(argv) -> int:
         for r in rows:
             emit({"phase": "kernel", **r})
         quantizer_check(dev, slab, rng)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
+    if only == "sharded":
+        # the sharded pipeline: the quick check of an edit to sharding,
+        # launch/mesh or a mesh= path (not the contract run)
+        sharded_phase(dev, smi)
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
@@ -4129,6 +4435,8 @@ def main(argv) -> int:
             kernel_vs_f64=worst["y_kernel_vs_f64"],
             plain_vs_f64=worst["y_plain_vs_f64"]))
     pipe_rows += list(llm.values()) + [train]
+    # the sharded pipeline: its own path, its own launch counts (each rank's)
+    pipe_rows += sharded_phase(dev, smi)
     kernels = []
     for r in rows:
         if "check_only" in r or "timed_at" in r:

@@ -4,10 +4,16 @@
 the alignment-protocol knobs, with the reference's field names and
 defaults.  Two differences follow from the platform:
 
-- ``mesh`` becomes ``device``: the port runs on one CUDA device (or on
+- ``device`` is added: the device of this process (its rank's card, or
   the CPU when a caller asks for it, as the tests do).  ``None`` means
-  ``torch.device("cuda")``.  There is no mesh, so ``shard_axis`` is
-  gone.
+  ``torch.device("cuda")``, the current card, which
+  ``launch.mesh.run_ranks`` sets to the rank's own.
+- ``mesh``/``shard_axis`` keep the reference's meaning (a 1-D
+  ``("data",)`` or 2-D ``("data", "model")`` mesh that shards every
+  device stage, ``repro_torch.sharding``), with a
+  ``torch.distributed.device_mesh.DeviceMesh`` in place of a JAX mesh:
+  every rank of the mesh calls the entry point with the same arguments
+  and gets the same result.
 - ``AlignOptions.impl`` names the port's kernel implementations,
   ``"kernel"`` (the hand-written CUDA kernels) or ``"ref"`` (their
   plain PyTorch versions).  ``None`` picks by device: ``"kernel"`` on
@@ -15,9 +21,6 @@ defaults.  Two differences follow from the platform:
   same for the SplitNN bottom layer and also takes ``"loop"`` (the
   per-client parity oracle); the reference's ``"pallas"`` means
   ``"kernel"``.
-- ``mesh``/``shard_axis`` sharding waits for the multi-GPU slice
-  (ROADMAP.md, queue 6): ``EngineOptions`` has no such fields, so asking
-  for them raises ``TypeError``.
 
 The reference's legacy-kwarg shim (``_coerce_options``) is not ported:
 the port has no legacy callers, so every entry point takes the option
@@ -71,6 +74,9 @@ def resolve_bottom_impl(impl: Optional[str], device: torch.device) -> str:
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
     """Execution-layer options.  ``device`` places every device stage;
+    ``mesh``/``shard_axis`` shard them (the PSI rounds and the coreset
+    fit over ``data``, training over ``data`` and, on a 2-D mesh, the
+    clients over ``model``: ``repro_torch.sharding``);
     ``trace`` turns on the obs layer (a ``repro_torch.obs.Tracer`` or
     any truthy value).  ``train_engine``/``fuse_gather``/``block_b``/
     ``quant`` keep the reference's names and defaults; ``bottom_impl``
@@ -80,6 +86,8 @@ class EngineOptions:
     evaluation and serving (``repro_torch.quant``).  The k-NN pipeline
     reads none of them."""
     device: Any = None
+    mesh: Any = None
+    shard_axis: Optional[str] = None
     train_engine: str = "scan"
     bottom_impl: Optional[str] = None
     fuse_gather: bool = True
@@ -99,17 +107,26 @@ class AlignOptions:
     id fraction (paper §5.3); ``sort`` the engine's tag-sort mode
     (None = "device" on CUDA, "host" on the CPU); ``impl`` the kernel
     implementation (module docstring); ``device`` the alignment device
-    (``None`` inherits the engine device through
-    ``with_engine_defaults``)."""
+    and ``mesh``/``shard_axis`` an alignment mesh (``None`` inherits the
+    engine's through ``with_engine_defaults``)."""
     protocol: str = "rsa"
     psi_backend: str = "host"
     overlap: float = 0.7
     sort: Optional[str] = None
     impl: Optional[str] = None
     device: Any = None
+    mesh: Any = None
+    shard_axis: Optional[str] = None
 
     def with_engine_defaults(self, engine: EngineOptions) -> "AlignOptions":
-        """Inherit the engine device when no alignment device was given."""
-        if self.device is None and engine.device is not None:
-            return dataclasses.replace(self, device=engine.device)
-        return self
+        """Inherit the engine device when no alignment device was given,
+        and the engine mesh (with its axis unless one was given) when no
+        alignment mesh was."""
+        out = self
+        if out.device is None and engine.device is not None:
+            out = dataclasses.replace(out, device=engine.device)
+        if out.mesh is None and engine.mesh is not None:
+            out = dataclasses.replace(out, mesh=engine.mesh,
+                                      shard_axis=out.shard_axis
+                                      or engine.shard_axis)
+        return out

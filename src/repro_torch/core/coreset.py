@@ -15,6 +15,15 @@ fit (``kmeans_algo="minibatch"``) fits the clients one after another,
 as the reference, one gather-fused update launch per Sculley step.
 Steps 2-5 are host numpy at the label owner, copied from the reference.
 Per-client keys follow the reference's ``PRNGKey(seed + 17*m)``.
+
+With a mesh (``cluster_coreset(mesh=, shard_axis=)``) the batched fit's
+clients split over one mesh dim (``data`` by default;
+``repro_torch.sharding``): M pads to a multiple of the dim's size with
+client-0 filler, each rank fits its block of clients at the whole
+batch's (N_max, d_max) and for the whole batch's client count (so every
+client's sums run as in the unsharded fit), and the blocks' centroids,
+assignments and distances are all-gathered; selection then runs on
+every rank, byte-identical to the unsharded coreset.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ from repro_torch.core.kmeans import fit_client, kmeans_fit
 from repro_torch.data.vertical import VerticalPartition
 from repro_torch.kernels.padding import stack_padded
 from repro_torch.obs.trace import span
+from repro_torch.sharding import (MeshAxis, all_gather_rows, my_rows,
+                                  resolve_batch_mesh)
 
 
 @dataclasses.dataclass
@@ -57,6 +68,7 @@ class CoresetResult:
     per_client_seconds: List[float] = dataclasses.field(default_factory=list)
     select_seconds: float = 0.0
     batched: bool = False     # clients fit in one batched device call
+    shards: int = 1           # mesh-dim size the client batch split over
 
     @property
     def makespan_seconds(self) -> float:
@@ -174,21 +186,37 @@ def clients_batchable(features: Sequence[np.ndarray], *,
 
 
 def _fit_clients(features: Sequence[np.ndarray], k: int, seeds: Sequence[int],
-                 *, iters: int, impl: str, device: torch.device
-                 ) -> List[ClientClustering]:
+                 *, iters: int, impl: str, device: torch.device,
+                 axis: Optional[MeshAxis] = None) -> List[ClientClustering]:
     """Steps 1-2 for a group of clients in ONE batched fit: the slices
     zero-pad to (M, N_max, d_max) (zero columns are exact, zero rows are
     masked through ``n_valid``), k is shared (min over the group), and
-    each client's outputs slice back to its true (N_m, d_m)."""
+    each client's outputs slice back to its true (N_m, d_m).  With
+    ``axis`` this rank fits its block of the clients (module docstring)
+    and the blocks are all-gathered."""
+    m = len(features)
     ns = [int(f.shape[0]) for f in features]
     ds = [int(f.shape[1]) for f in features]
     k_eff = int(min(k, min(ns)))
-    keys = np.stack([rng.PRNGKey(s) for s in seeds])
-    stacked = stack_padded([torch.as_tensor(np.asarray(f, np.float32),
+    mine = my_rows(m, axis)
+    keys = np.stack([rng.PRNGKey(seeds[i]) for i in mine])
+    stacked = stack_padded([torch.as_tensor(np.asarray(features[i],
+                                                       np.float32),
                                             device=device)
-                            for f in features], max(ns), max(ds))
+                            for i in mine], max(ns), max(ds))
     cents, assign, sqd = kmeans_fit(keys, stacked, k_eff, iters=iters,
-                                    impl=impl, n_valid=ns)
+                                    impl=impl, n_valid=[ns[i] for i in mine],
+                                    clients=m)
+    if axis is not None:
+        # one all-gather of each client's (centroids, assign bits, sqd)
+        ml = len(mine)
+        block = torch.cat([cents.reshape(ml, -1),
+                           assign.view(torch.float32), sqd], 1)
+        every = all_gather_rows(block, axis)[:m]
+        cents = every[:, :k_eff * max(ds)].reshape(m, k_eff, max(ds))
+        assign = every[:, k_eff * max(ds):-max(ns)].contiguous().view(
+            torch.int32)
+        sqd = every[:, -max(ns):]
     assign = assign.cpu().numpy()
     sqd = sqd.cpu().numpy()
     return [ClientClustering(assign[i, :ns[i]],
@@ -196,36 +224,44 @@ def _fit_clients(features: Sequence[np.ndarray], k: int, seeds: Sequence[int],
                              rank_weights(assign[i, :ns[i]], sqd[i, :ns[i]],
                                           k_eff),
                              cents[i, :, :ds[i]])
-            for i in range(len(features))]
+            for i in range(m)]
 
 
 def cluster_coreset(partition: VerticalPartition, clusters_per_client: int, *,
                     seed: int = 0, kmeans_iters: int = 25,
                     kmeans_impl: Optional[str] = None, use_he: bool = False,
                     kmeans_algo: str = "lloyd",
-                    device=None) -> CoresetResult:
+                    device=None, mesh=None,
+                    shard_axis: Optional[str] = None) -> CoresetResult:
     """Full Cluster-Coreset over a vertical partition.
 
     All clients fit in one batched device call when
     ``clients_batchable`` allows it (Lloyd only); its wall time / M
     stands for ONE client's concurrent compute in ``per_client_seconds``
-    (the max-over-clients makespan model).
+    (the max-over-clients makespan model).  ``mesh`` shards that batch
+    over ``shard_axis`` (``data`` by default; a 2-D train mesh
+    replicates over ``model``), with the same selection (module
+    docstring); an axis the mesh lacks raises.
     Otherwise each client fits alone (``local_cluster_weights``), with
     its own k = min(k, N_m), key ``seed + 17·m`` and measured seconds;
-    ``kmeans_algo="minibatch"`` always takes that path."""
+    ``kmeans_algo="minibatch"`` always takes that path, unsharded."""
     dev = resolve_device(device)
     impl = resolve_impl(kmeans_impl, dev)
+    mesh, axis_name, n_shards = resolve_batch_mesh(mesh, shard_axis)
     feats = list(partition.client_features)
     m = len(feats)
     batched = clients_batchable(feats, algo=kmeans_algo,
                                 clusters=clusters_per_client)
+    if not batched:
+        n_shards = 1
     with span("coreset.fit", clients=m, batched=batched,
-              k=clusters_per_client, algo=kmeans_algo):
+              k=clusters_per_client, algo=kmeans_algo, shards=n_shards):
         if batched:
             t0 = time.perf_counter()
-            local = _fit_clients(feats, clusters_per_client,
-                                 [seed + 17 * i for i in range(m)],
-                                 iters=kmeans_iters, impl=impl, device=dev)
+            local = _fit_clients(
+                feats, clusters_per_client, [seed + 17 * i for i in range(m)],
+                iters=kmeans_iters, impl=impl, device=dev,
+                axis=None if mesh is None else MeshAxis(mesh, axis_name))
             per_client = [(time.perf_counter() - t0) / m] * m
         else:
             local, per_client = [], []
@@ -249,4 +285,5 @@ def cluster_coreset(partition: VerticalPartition, clusters_per_client: int, *,
     return CoresetResult(indices=idx, weights=w, n_groups=n_groups,
                          comm_bytes=comm, he_seconds=he_secs, local=local,
                          per_client_seconds=per_client,
-                         select_seconds=select_secs, batched=batched)
+                         select_seconds=select_secs, batched=batched,
+                         shards=n_shards)

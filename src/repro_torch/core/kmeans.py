@@ -60,7 +60,14 @@ def kmeans_pp_init(keys: np.ndarray, points: torch.Tensor, k: int,
     keys (M, 2) u32, points (M, N, d) f32, ``n_valid`` the clients' true
     row counts -> centroids (M, k, d).  Padded rows get zero D²
     mass, so they are never sampled and leave every cumsum boundary
-    (and so every draw) where the unpadded run has it."""
+    (and so every draw) where the unpadded run has it.
+
+    A client's arithmetic does not depend on the other clients of its
+    batch, so a sharded fit, whose ranks hold fewer clients, gives the
+    same bits: each client's D² total is its own reduction (a batched
+    row sum on the card splits its rows by the batch's size), and the
+    cumsum runs over the batch with one zero row more (a tensor of one
+    row takes another scan on the card, summed in another order)."""
     m, n, d = points.shape
     dev = points.device
     first, one_minus_u = _pp_draws(keys, k, n_valid)
@@ -71,9 +78,11 @@ def kmeans_pp_init(keys: np.ndarray, points: torch.Tensor, k: int,
     cents[:, 0] = c
     dists = torch.where(valid, ((points - c[:, None]) ** 2).sum(-1), 0.0)
     factors = torch.from_numpy(one_minus_u).to(dev)
+    zero_row = torch.zeros((1, n), dtype=torch.float32, device=dev)
     for i in range(1, k):
-        probs = dists / dists.sum(1, keepdim=True).clamp_min(1e-30)
-        cum = torch.cumsum(probs, dim=1)
+        total = torch.stack([row.sum() for row in dists])[:, None]
+        probs = dists / total.clamp_min(1e-30)
+        cum = torch.cumsum(torch.cat([probs, zero_row]), dim=1)[:m]
         r = cum[:, -1:] * factors[:, i - 1:i]
         idx = torch.searchsorted(cum, r).clamp_max(n - 1)[:, 0]
         c = points[clients, idx]
@@ -83,15 +92,19 @@ def kmeans_pp_init(keys: np.ndarray, points: torch.Tensor, k: int,
 
 
 def lloyd_step(points: torch.Tensor, cents: torch.Tensor,
-               valid: torch.Tensor, n_pad: torch.Tensor, impl: str
+               valid: torch.Tensor, n_pad: torch.Tensor, impl: str,
+               clients: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One Lloyd iteration for M clients: one launch of the fused update
     kernel, then the pad-and-mask count correction and the empty-cluster
     reseed.  ``valid`` (M, N) marks real rows, ``n_pad`` (M, 1) counts
-    the padding rows.  Returns (new centroids, assignment to ``cents``)."""
+    the padding rows; ``clients`` is the batch the kernel sums as
+    (``kmeans_update``).  Returns (new centroids, assignment to
+    ``cents``)."""
     m, n, _ = points.shape
     k = cents.shape[1]
-    assign, sqd, sums, counts = kmeans_update(points, cents, impl=impl)
+    assign, sqd, sums, counts = kmeans_update(points, cents, impl=impl,
+                                              clients=clients)
     # the cluster the zero padding rows joined, read from the SAME update
     # pass (row n-1 is padding whenever any padding exists; with none the
     # correction multiplies by zero)
@@ -117,13 +130,16 @@ def pad_masks(n: int, n_valid: Sequence[int], device
 
 def kmeans_fit(keys: np.ndarray, points: torch.Tensor, k: int, *,
                iters: int = 25, impl: Optional[str] = None,
-               n_valid: Optional[Sequence[int]] = None
+               n_valid: Optional[Sequence[int]] = None,
+               clients: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fit M clients at once.  keys (M, 2) u32 (one threefry key per
     client), points (M, N, d) on the device, ``n_valid`` the clients'
     true row counts (default N).  Returns (centroids (M, k, d), assign
     (M, N) int32, sq-distances (M, N) f32); the caller slices each
-    client back to its true (N_m, d_m)."""
+    client back to its true (N_m, d_m).  A rank of a sharded fit passes
+    the whole fit's client count as ``clients``, so every client's sums
+    run in the order of the unsharded fit (``kmeans_update``)."""
     points = points.float().contiguous()
     m, n, _ = points.shape
     impl = resolve_impl(impl, points.device)
@@ -131,18 +147,19 @@ def kmeans_fit(keys: np.ndarray, points: torch.Tensor, k: int, *,
     valid, n_pad = pad_masks(n, n_valid, points.device)
     cents = kmeans_pp_init(np.asarray(keys, np.uint32), points, k, n_valid)
     for _ in range(iters):
-        cents, _ = lloyd_step(points, cents, valid, n_pad, impl)
+        cents, _ = lloyd_step(points, cents, valid, n_pad, impl, clients)
     assign, sqd = kmeans_assign(points, cents, impl=impl)
     return cents, assign, sqd
 
 
-# rows a Sculley step samples (the reference's default, the only size
-# its callers use); a client of at most this many rows fits with Lloyd
+# rows a Sculley step samples (the reference's default); a client of at
+# most this many rows fits with Lloyd
 MINIBATCH_BATCH = 1024
 
 
 def kmeans_minibatch_fit(key: np.ndarray, points: torch.Tensor, k: int, *,
-                         iters: int = 25, impl: Optional[str] = None
+                         iters: int = 25, batch: int = MINIBATCH_BATCH,
+                         impl: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Mini-batch K-Means (Sculley 2010) for one client: the port of
     ``repro.core.kmeans.kmeans_minibatch_fit``.  key (2,) u32, points
@@ -150,9 +167,9 @@ def kmeans_minibatch_fit(key: np.ndarray, points: torch.Tensor, k: int, *,
     sq-distances (N,) f32).
 
     The reference's key stream, reuse included: ``key, sub = split(key)``
-    draws the ``min(N, 4·MINIBATCH_BATCH)``-row subsample that k-means++
-    seeds on, and the SAME ``key`` then seeds k-means++ and is split into
-    one key a step.  Each step draws ``MINIBATCH_BATCH`` row indices with
+    draws the ``min(N, 4·batch)``-row subsample that k-means++ seeds on,
+    and the SAME ``key`` then seeds k-means++ and is split into one key
+    a step.  Each step draws ``batch`` row indices with
     ``randint`` (all steps' indices are drawn on the host up front and
     uploaded once), runs one gather-fused update over them (K4 on CUDA)
     and applies the
@@ -164,7 +181,6 @@ def kmeans_minibatch_fit(key: np.ndarray, points: torch.Tensor, k: int, *,
     n, d = points.shape
     dev = points.device
     impl = resolve_impl(impl, dev)
-    batch = MINIBATCH_BATCH
     key, sub = rng.split(np.asarray(key, np.uint32))
     seed_idx = rng.choice_without_replacement(sub, n, min(n, 4 * batch))
     sample = points[torch.from_numpy(seed_idx).to(dev)][None]
@@ -190,31 +206,33 @@ def kmeans_minibatch_fit(key: np.ndarray, points: torch.Tensor, k: int, *,
 
 def fit_client(key: np.ndarray, points: torch.Tensor, k: int, *,
                iters: int = 25, impl: Optional[str] = None,
-               algo: str = "lloyd"
+               algo: str = "lloyd", batch: int = MINIBATCH_BATCH
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One client's fit, as the reference's ``kmeans`` picks it:
     ``algo="minibatch"`` (beyond the paper, Sculley 2010) runs
-    ``kmeans_minibatch_fit`` when the client has more than
-    ``MINIBATCH_BATCH`` rows, and everything else the Lloyd
+    ``kmeans_minibatch_fit`` with ``batch`` rows a step when the client
+    has more than ``batch`` rows, and everything else the Lloyd
     ``kmeans_fit``.  points (N, d) on the device -> (centroids (k, d),
     assign (N,), sq-distances (N,))."""
     if algo not in ("lloyd", "minibatch"):
         raise ValueError(f"algo must be 'lloyd' or 'minibatch', got {algo!r}")
-    if algo == "minibatch" and points.shape[0] > MINIBATCH_BATCH:
-        return kmeans_minibatch_fit(key, points, k, iters=iters, impl=impl)
+    if algo == "minibatch" and points.shape[0] > batch:
+        return kmeans_minibatch_fit(key, points, k, iters=iters, batch=batch,
+                                    impl=impl)
     c, a, s = kmeans_fit(np.asarray(key, np.uint32)[None], points[None], k,
                          iters=iters, impl=impl)
     return c[0], a[0], s[0]
 
 
 def kmeans(points: np.ndarray, k: int, *, seed: int = 0, iters: int = 25,
-           impl: Optional[str] = None, algo: str = "lloyd", device=None
+           impl: Optional[str] = None, algo: str = "lloyd",
+           batch: int = MINIBATCH_BATCH, device=None
            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """numpy-facing single-client fit (``fit_client`` from
-    ``PRNGKey(seed)``).  Returns (centroids, assign, sq_dists) as numpy
-    arrays."""
+    ``PRNGKey(seed)``, ``batch`` rows a minibatch step).  Returns
+    (centroids, assign, sq_dists) as numpy arrays."""
     dev = resolve_device(device)
     pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
     c, a, s = fit_client(rng.PRNGKey(seed), pts, int(k), iters=iters,
-                         impl=impl, algo=algo)
+                         impl=impl, algo=algo, batch=int(batch))
     return c.cpu().numpy(), a.cpu().numpy(), s.cpu().numpy()

@@ -182,7 +182,8 @@ def tree_mpsi(id_sets: Sequence[np.ndarray], *,
               options: AlignOptions | None = None) -> MPSIStats:
     """Tree-MPSI over ``m`` id sets. O(log m) concurrent rounds; with
     ``options.psi_backend="device"``, O(log m) batched engine dispatches
-    total."""
+    total, each sharded over ``options.mesh`` where one is given
+    (``psi/engine``)."""
     options = options or AlignOptions()
     protocol, backend = options.protocol, options.psi_backend
     m = len(id_sets)

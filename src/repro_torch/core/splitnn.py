@@ -158,8 +158,9 @@ def train_splitnn(partition: VerticalPartition, cfg: SplitNNConfig, *,
     host sync per epoch, ``bottom_impl`` picking the CUDA kernels
     ("kernel"), their plain versions ("ref") or per-client GEMMs
     ("loop"), ``fuse_gather`` fusing the step's row gather into the
-    bottom pass.  ``"loop"``: the per-minibatch host loop (the parity
-    oracle, one sync per step; f32 only).  ``options.quant``
+    bottom pass, ``mesh``/``shard_axis`` sharding it (``train.vfl``).
+    ``"loop"``: the per-minibatch host loop (the parity oracle, one
+    sync per step; f32 only, unsharded: a mesh raises).  ``options.quant``
     ("int8"|"fp8", DESIGN.md §12) quantizes the per-step activation send
     (and, for int8, the bottom GEMM) to a 1-byte wire dtype with pow2
     block scales."""
@@ -167,6 +168,9 @@ def train_splitnn(partition: VerticalPartition, cfg: SplitNNConfig, *,
 
     options = options or EngineOptions()
     if options.train_engine == "loop":
+        if options.mesh is not None:
+            raise ValueError("engine='loop' does not shard; use the scan "
+                             "engine for mesh training")
         if resolve_quant(options.quant) is not None:
             raise ValueError("engine='loop' communicates f32 only; use the "
                              "scan engine for quantized training")

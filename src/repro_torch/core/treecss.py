@@ -135,7 +135,14 @@ def run_pipeline(train_part: VerticalPartition,
     the k-NN vote), stage by stage.
 
     ``options.device`` places every device stage (default CUDA);
-    ``align`` inherits it unless it names its own.  ``kmeans_impl``,
+    ``align`` inherits it unless it names its own.  ``options.mesh``
+    (with ``shard_axis``) shards all three device stages: the PSI rounds
+    (``align`` inherits the mesh unless it names its own) and the
+    coreset fit over ``data``, byte-identical to the unsharded run, and
+    training over ``data`` and, on a 2-D mesh, the clients over
+    ``model``, within GEMM and all-reduce reassociation of it.  Every
+    rank of the mesh calls this with the same arguments and gets the
+    same report; k-NN and evaluation run whole on every rank.  ``kmeans_impl``,
     ``align.impl`` and ``options.bottom_impl`` pick the kernels
     ("kernel") or their plain versions ("ref"); ``None`` means the
     kernels on CUDA and the plain versions on the CPU.  Training takes
@@ -175,7 +182,8 @@ def run_pipeline(train_part: VerticalPartition,
             with cs_sp:
                 coreset_res = cluster_coreset(
                     aligned, clusters_per_client, seed=seed,
-                    kmeans_impl=kmeans_impl, device=device)
+                    kmeans_impl=kmeans_impl, device=device,
+                    mesh=options.mesh, shard_axis=options.shard_axis)
             coreset_wall = now() - t0
             cs_sp.set(n_coreset=int(coreset_res.indices.shape[0]),
                       comm_bytes=coreset_res.comm_bytes)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -114,16 +114,17 @@ def _tickets(dev: torch.device, size: int) -> torch.Tensor:
 
 
 def _outputs(name: str, points: torch.Tensor, centroids: torch.Tensor,
-             rows: int):
-    """Check the operands; the geometry, the outputs of a step over
-    ``rows`` rows a client, the partials scratch and the tickets."""
+             rows: int, clients: Optional[int] = None):
+    """Check the operands; the geometry (cut for ``clients`` clients, M
+    by default), the outputs of a step over ``rows`` rows a client, the
+    partials scratch and the tickets."""
     build.require_cuda(name, points, centroids, dtype=torch.float32)
     m, n, d = points.shape
     k = centroids.shape[1]
     if centroids.shape != (m, k, d):
         raise ValueError(f"{name}: centroids {tuple(centroids.shape)}"
                          f" do not match points {tuple(points.shape)}")
-    geo = geometry(m, rows, k, d)
+    geo = geometry(clients or m, rows, k, d)
     dev = points.device
     return (m, n, d, k, geo,
             torch.empty((m, rows), dtype=torch.int32, device=dev),
@@ -135,15 +136,19 @@ def _outputs(name: str, points: torch.Tensor, centroids: torch.Tensor,
             torch.empty((m, k), dtype=torch.float32, device=dev))
 
 
-def kmeans_update_cuda(points: torch.Tensor, centroids: torch.Tensor
+def kmeans_update_cuda(points: torch.Tensor, centroids: torch.Tensor,
+                       clients: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                   torch.Tensor]:
     """K3: points (M, N, d), centroids (M, K, d) f32 on one CUDA device ->
     (assign (M, N) int32, sq_dist (M, N) f32, sums (M, K, d) f32,
     counts (M, K) f32).  Sums are added in an order fixed by
-    ``geometry``, so two runs give the same bits."""
+    ``geometry(clients or M, ...)``, so two runs give the same bits, and
+    a batch of some of the clients launched with the whole batch's
+    ``clients`` gives each of them the whole batch's bits."""
     (m, n, d, k, geo, assign, sq_dist, partials, tickets, sums,
-     counts) = _outputs("kmeans_update", points, centroids, points.shape[1])
+     counts) = _outputs("kmeans_update", points, centroids, points.shape[1],
+                        clients)
     fn = build.function("kmeans_update", "kmeans_update_launch", 8, 8)
     err = build.launch(fn, points.device,
                        points.data_ptr(), centroids.data_ptr(),

@@ -15,7 +15,8 @@ from repro_torch.kernels.kmeans_update.kernel import (
 
 def kmeans_update(points: torch.Tensor, centroids: torch.Tensor, *,
                   impl: Optional[str] = None,
-                  idx: Optional[torch.Tensor] = None
+                  idx: Optional[torch.Tensor] = None,
+                  clients: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """points (M, N, d), centroids (M, K, d) f32 -> (assign (M, N) int32,
@@ -25,11 +26,16 @@ def kmeans_update(points: torch.Tensor, centroids: torch.Tensor, *,
     With ``idx`` (M, B) int32 the step runs over the minibatch rows
     ``points[i, idx[i]]`` (K4 on CUDA, gathered inside the kernel):
     assign and sq_dist are (M, B), and sums and counts cover the B
-    gathered rows, a duplicated index counted each time."""
+    gathered rows, a duplicated index counted each time.
+
+    ``clients`` (K3 only) is the client count the kernel cuts its CTAs
+    for, ``M`` by default: a rank of a sharded fit passes the whole
+    fit's, so each client's sums are added in the unsharded order.  The
+    plain version's sums do not depend on the batch."""
     use_ref = resolve_impl(impl, points.device) == "ref"
     if idx is None:
         return (ref.kmeans_update(points, centroids) if use_ref
-                else kmeans_update_cuda(points, centroids))
+                else kmeans_update_cuda(points, centroids, clients))
     if use_ref:
         return ref.kmeans_update_gather(points, centroids, idx)
     return kmeans_update_gather_cuda(points, centroids, idx)

@@ -240,9 +240,10 @@ class DeltaMPSI:
     """Incremental Tree-MPSI coordinator over ``m`` parties' indexes.
 
     Takes ONLY ``options=repro_torch.config.AlignOptions(...)``, which
-    selects protocol, backend, impl and device exactly as for
+    selects protocol, backend, impl, device and mesh exactly as for
     ``tree_mpsi`` (``psi_backend="device"`` batches index queries and
-    tree rounds through ``psi/engine.match_round``).
+    tree rounds through ``psi/engine.match_round``, sharding over
+    ``options.mesh``).
     """
 
     def __init__(self, id_sets: Sequence[np.ndarray], *,

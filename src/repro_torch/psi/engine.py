@@ -27,7 +27,19 @@ Sorting between tag evaluation and merge (``sort=``):
   "host"    two dispatches with a numpy u64 sort between them (the
             reference's ``_host_sorted_merge``).
 
-The default is "device" on CUDA and "host" on the CPU.  Id recovery:
+The default is "device" on CUDA and "host" on the CPU.
+
+Sharding (``options.mesh``): a round's pairs split over one mesh dim
+(``options.shard_axis`` or ``data``; ``repro_torch.sharding``).  The
+pair list pads to a multiple of the dim's size with row-0 filler, each
+rank runs its block of pairs through the same per-pair program at the
+round's P (every pair of a round pads to the same P on every rank), and
+the ragged intersections are all-gathered as one (pairs, 1 + P) int64
+block (the length, then the ids) and truncated, so every rank returns
+the round's intersections, byte-identical to the unsharded round.
+``union_merge`` runs its one pair on every rank unsharded.
+
+Id recovery:
 ``rank`` is the receiver-key count in merged order, so a selected slot's
 id is ``receiver_ids_by_tag[rank - 1]``.
 
@@ -49,6 +61,8 @@ from repro_torch.kernels.sorted_intersect.ops import (PAD_A64, PAD_B64,
                                                       next_pow2, pack_keys,
                                                       sorted_intersect)
 from repro_torch.obs.trace import span
+from repro_torch.sharding import (MeshAxis, all_gather_rows, my_rows,
+                                  resolve_batch_mesh)
 
 TAG_MASK = (1 << 62) - 1     # engine tag space: 62-bit
 _INT64_MAX = 2 ** 63 - 1
@@ -65,6 +79,7 @@ class EngineRound:
     intersections: List[np.ndarray]   # per pair: sorted unique int64 ids
     device_seconds: float             # dispatches + in-between host sort
     dispatches: int = 1
+    shards: int = 1                   # mesh-dim size the pairs split over
 
 
 def _default_sort(sort: Optional[str], device: torch.device) -> str:
@@ -141,6 +156,31 @@ def _oprf_single(r_ids: torch.Tensor, r_n: torch.Tensor,
     return sel, torch.gather(r_ids, 1, src)
 
 
+def _batch_axis(options: AlignOptions) -> Tuple[Optional[MeshAxis], int]:
+    """The mesh dim a round's pairs split over (None unsharded), and its
+    size."""
+    mesh, axis, n = resolve_batch_mesh(options.mesh, options.shard_axis)
+    return (None if mesh is None else MeshAxis(mesh, axis)), n
+
+
+def _gather_intersections(inters: List[np.ndarray],
+                          axis: Optional[MeshAxis], p: int, b: int,
+                          device: torch.device) -> List[np.ndarray]:
+    """Every rank's block of intersections, as one (pairs, 1 + P) int64
+    all-gather (the length, then the ids), truncated to the round's
+    ``b`` real pairs."""
+    if axis is None:
+        return inters
+    rows = np.zeros((len(inters), 1 + p), np.int64)
+    for i, x in enumerate(inters):
+        rows[i, 0] = len(x)
+        rows[i, 1:1 + len(x)] = x
+    with span("align.gather", pairs=len(inters), p=p, shards=axis.size):
+        every = all_gather_rows(torch.from_numpy(rows).to(device),
+                                axis).cpu().numpy()
+    return [every[i, 1:1 + every[i, 0]] for i in range(b)]
+
+
 def oprf_round(sender_sets: Sequence[np.ndarray],
                receiver_sets: Sequence[np.ndarray],
                seeds: Sequence[Tuple[int, int]], *,
@@ -149,7 +189,8 @@ def oprf_round(sender_sets: Sequence[np.ndarray],
 
     ``seeds[i]`` is the pair's session key as two u32 words.  Each
     receiver learns intersection(sender_sets[i], receiver_sets[i]).
-    ``options`` carries impl/sort/device."""
+    ``options`` carries impl/sort/device, and the mesh the pairs shard
+    over (module docstring)."""
     options = options or AlignOptions()
     b = len(sender_sets)
     if b == 0:
@@ -157,35 +198,44 @@ def oprf_round(sender_sets: Sequence[np.ndarray],
     device = resolve_device(options.device)
     impl = resolve_impl(options.impl, device)
     sort = _default_sort(options.sort, device)
+    axis, n_shards = _batch_axis(options)
     p = next_pow2(max(max((len(s) for s in sender_sets), default=0),
                       max((len(r) for r in receiver_sets), default=0), 1))
-    s_ids, s_n = _pack(sender_sets, p)
-    r_ids, r_n = _pack(receiver_sets, p)
-    seed_arr = np.asarray(seeds, np.int64).reshape(b, 2)
+    mine = my_rows(b, axis)
+    bl = len(mine)
+    receivers = [receiver_sets[i] for i in mine]
+    s_ids, s_n = _pack([sender_sets[i] for i in mine], p)
+    r_ids, r_n = _pack(receivers, p)
+    seed_arr = np.asarray(seeds, np.int64).reshape(b, 2)[mine]
 
     t0 = time.perf_counter()
     if sort == "device":
-        with span("align.dispatch", kind="single", pairs=b, p=p):
+        with span("align.dispatch", kind="single", pairs=bl, p=p,
+                  shards=n_shards):
             to_dev = lambda a: torch.from_numpy(a).to(device)
             sel, cand = _oprf_single(to_dev(r_ids), to_dev(r_n),
                                      to_dev(s_ids), to_dev(s_n),
                                      to_dev(seed_arr), impl)
             sel = sel.cpu().numpy().astype(bool)
             cand = cand.cpu().numpy()
-        inters = [np.sort(cand[i][sel[i]]) for i in range(b)]
-        return EngineRound(inters, time.perf_counter() - t0, 1)
-
-    with span("align.dispatch", kind="prf", pairs=b, p=p):
-        tags = prf_tags(torch.from_numpy(np.concatenate([r_ids, s_ids])
-                                         ).to(device),
-                        torch.from_numpy(np.concatenate([seed_arr, seed_arr])
-                                         ).to(device),
-                        impl=impl).cpu().numpy().astype(np.uint64)
-    r_tags = [tags[i, :r_n[i]] for i in range(b)]
-    s_tags = [tags[b + i, :s_n[i]] for i in range(b)]
-    inters = _host_sorted_merge(r_tags, receiver_sets, s_tags, p, device,
-                                impl)
-    return EngineRound(inters, time.perf_counter() - t0, 2)
+        inters = [np.sort(cand[i][sel[i]]) for i in range(bl)]
+        dispatches = 1
+    else:
+        with span("align.dispatch", kind="prf", pairs=bl, p=p,
+                  shards=n_shards):
+            tags = prf_tags(
+                torch.from_numpy(np.concatenate([r_ids, s_ids])).to(device),
+                torch.from_numpy(np.concatenate([seed_arr, seed_arr])
+                                 ).to(device),
+                impl=impl).cpu().numpy().astype(np.uint64)
+        r_tags = [tags[i, :r_n[i]] for i in range(bl)]
+        s_tags = [tags[bl + i, :s_n[i]] for i in range(bl)]
+        inters = _host_sorted_merge(r_tags, receivers, s_tags, p, device,
+                                    impl)
+        dispatches = 2
+    inters = _gather_intersections(inters, axis, p, b, device)
+    return EngineRound(inters, time.perf_counter() - t0, dispatches,
+                       shards=n_shards)
 
 
 def match_round(receiver_tags: Sequence[np.ndarray],
@@ -196,23 +246,28 @@ def match_round(receiver_tags: Sequence[np.ndarray],
     host-computed truncated signatures, already in [0, 2^62)).  Tags
     originate on the host, so sorting is host-side: one merge dispatch.
     ``receiver_ids[i]`` may be any int64 payload aligned with
-    ``receiver_tags[i]``; the matched payloads come back sorted."""
+    ``receiver_tags[i]``; the matched payloads come back sorted.  With
+    ``options.mesh`` the pairs shard as ``oprf_round``'s do."""
     options = options or AlignOptions()
     b = len(receiver_tags)
     if b == 0:
         return EngineRound([], 0.0, 0)
     device = resolve_device(options.device)
     impl = resolve_impl(options.impl, device)
+    axis, n_shards = _batch_axis(options)
     p = next_pow2(max(max((len(t) for t in receiver_tags), default=0),
                       max((len(t) for t in sender_tags), default=0), 1))
+    mine = my_rows(b, axis)
     t0 = time.perf_counter()
-    r_tags = [np.asarray(t, np.int64).astype(np.uint64)
-              for t in receiver_tags]
-    s_tags = [np.asarray(t, np.int64).astype(np.uint64)
-              for t in sender_tags]
-    inters = _host_sorted_merge(r_tags, receiver_ids, s_tags, p, device,
-                                impl)
-    return EngineRound(inters, time.perf_counter() - t0, 1)
+    r_tags = [np.asarray(receiver_tags[i], np.int64).astype(np.uint64)
+              for i in mine]
+    s_tags = [np.asarray(sender_tags[i], np.int64).astype(np.uint64)
+              for i in mine]
+    inters = _host_sorted_merge(r_tags, [receiver_ids[i] for i in mine],
+                                s_tags, p, device, impl)
+    inters = _gather_intersections(inters, axis, p, b, device)
+    return EngineRound(inters, time.perf_counter() - t0, 1,
+                       shards=n_shards)
 
 
 def union_merge(a_tags64: np.ndarray, b_tags64: np.ndarray, *,
@@ -225,8 +280,11 @@ def union_merge(a_tags64: np.ndarray, b_tags64: np.ndarray, *,
     origin`` come back as u64 with the padding stripped (the pads are
     the only keys with the top bit set, i.e. negative as int64), so the
     caller can resolve same-tag collisions by origin
-    (``psi/delta.TagIndex`` uses it as run recency)."""
+    (``psi/delta.TagIndex`` uses it as run recency).  Every rank of a
+    mesh runs the one pair itself (the shard-axis name is still
+    checked)."""
     options = options or AlignOptions()
+    _batch_axis(options)
     device = resolve_device(options.device)
     impl = resolve_impl(options.impl, device)
     p = next_pow2(max(len(a_tags64), len(b_tags64), 1))

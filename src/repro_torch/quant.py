@@ -21,9 +21,11 @@ Each client's bottom activations may travel to the label owner in a
 
 The byte accounting (``wire_bytes``, ``scale_bytes_per_step``,
 ``payload_bytes``) is the reference's, copied as it is so
-``comm_bytes`` and ``gather_payload_bytes`` match exactly.  The
-quantized all-gather (``all_gather_quantized``) needs a collective and
-comes with the multi-GPU slice (ROADMAP.md, queue 6).
+``comm_bytes`` and ``gather_payload_bytes`` match exactly.
+``all_gather_quantized`` is the wire of a mesh whose clients shard over
+a ``model`` dim: each rank's wire values and exponents travel as ONE
+int8 payload in one all-gather (``repro_torch.sharding``), its backward
+the f32 reduce-scatter (the STE).
 """
 from __future__ import annotations
 
@@ -31,9 +33,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.sharding import (MeshAxis, all_gather_rows,
+                                  reduce_scatter_rows)
+
 __all__ = [
     "FP8_DTYPE",
     "QUANT_BLOCK_ROWS",
+    "all_gather_quantized",
     "dequantize",
     "dequantize_row_blocks",
     "fake_quantize",
@@ -214,6 +220,33 @@ def fake_quantize(acts: torch.Tensor, quant: str) -> torch.Tensor:
     """Quantize -> dequantize with an identity backward (the STE): the
     wire rounding a quantized send applies, on one device."""
     return _FakeQuantize.apply(acts, quant)
+
+
+class _AllGatherQuantized(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acts, axis, quant):
+        ctx.axis = axis
+        _, b, o = acts.shape
+        payload = all_gather_rows(
+            pack_payload(*quantize_row_blocks(acts, quant)), axis)
+        return dequantize_row_blocks(*unpack_payload(payload, b, o, quant))
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_rows(g, ctx.axis), None, None
+
+
+def all_gather_quantized(acts: torch.Tensor, axis: MeshAxis,
+                         quant: str) -> torch.Tensor:
+    """The quantized all-gather of the clients' activations over a mesh
+    dim: this rank's (M_loc, B, o) f32 block quantized by row blocks,
+    packed with its exponents into ONE int8 payload, one tiled
+    all-gather, then unpacked and dequantized -> (size·M_loc, B, o) f32,
+    the f32 gather's shape.  The backward is straight-through: the f32
+    sum reduce-scatter, the f32 gather's transpose.  A block the wire
+    already rounded (the bottom pass's wire forms) quantizes to the same
+    values again, so the fused kernels' rounding is what arrives."""
+    return _AllGatherQuantized.apply(acts, axis, quant)
 
 
 def scale_bytes_per_step(rows: int, m_clients: int,

@@ -22,8 +22,8 @@ from typing import Any, Callable, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-__all__ = ["AdamState", "adam_init", "adam_update", "tree_leaves",
-           "tree_map"]
+__all__ = ["AdamState", "adam_init", "adam_update", "sgd_init", "sgd_update",
+           "tree_leaves", "tree_map"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -72,10 +72,12 @@ def _groups(leaves: List[torch.Tensor]) -> List[slice]:
 
 
 def adam_update(params, grads, state: AdamState, *, lr: float = 1e-3,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
-                ) -> Tuple[Any, AdamState]:
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.0) -> Tuple[Any, AdamState]:
     """One Adam step, in place on ``params`` and ``state``'s moments.
-    ``grads`` is a tree of ``params``'s structure or its leaf list."""
+    ``grads`` is a tree of ``params``'s structure or its leaf list.
+    ``weight_decay`` adds ``weight_decay · p`` to the step before ``lr``
+    scales it (the reference's decoupled decay)."""
     step = state.step + 1
     t = np.float32(step)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
@@ -84,11 +86,12 @@ def adam_update(params, grads, state: AdamState, *, lr: float = 1e-3,
                       tree_leaves(state.nu), tree_leaves(grads))
     for part in _groups(ps):
         _adam_group(ps[part], [g.float() for g in gs[part]], ms[part],
-                    vs[part], lr, b1, b2, eps, bc1, bc2)
+                    vs[part], lr, b1, b2, eps, bc1, bc2, weight_decay)
     return params, AdamState(step=step, mu=state.mu, nu=state.nu)
 
 
-def _adam_group(ps, gs, ms, vs, lr, b1, b2, eps, bc1, bc2) -> None:
+def _adam_group(ps, gs, ms, vs, lr, b1, b2, eps, bc1, bc2,
+                weight_decay) -> None:
     with torch.no_grad():
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, torch._foreach_mul(gs, 1.0 - b1))
@@ -99,5 +102,23 @@ def _adam_group(ps, gs, ms, vs, lr, b1, b2, eps, bc1, bc2) -> None:
         den = torch._foreach_sqrt(torch._foreach_div(vs, bc2))
         torch._foreach_add_(den, eps)
         torch._foreach_div_(upd, den)
+        if weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(ps, weight_decay))
         torch._foreach_mul_(upd, lr)
         torch._foreach_sub_(ps, upd)
+
+
+def sgd_init(params) -> int:
+    """Plain SGD's state: the step count."""
+    return 0
+
+
+def sgd_update(params, grads, state: int, *, lr: float = 0.1, **_
+               ) -> Tuple[Any, int]:
+    """One SGD step, ``p - lr·g`` in f32 cast back to p's dtype, in
+    place on ``params``; other keyword arguments (Adam's) are ignored,
+    as the reference does."""
+    with torch.no_grad():
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            p.copy_((p.float() - g.float() * lr).to(p.dtype))
+    return params, state + 1

@@ -32,12 +32,35 @@ per-step quantization does, and K10 gathers them and their scales.  fp8
 is comm-only: the GEMM stays f32, on K1/K2's fp8 wire form (K2 in
 training, K1 in evaluation and serving), whose epilogue rounds.
 
+With ``EngineOptions.mesh`` the engine shards over a 1-D ``("data",)``
+or 2-D ``("data", "model")`` mesh (``sharding.resolve_train_mesh``), one
+process a rank, every rank running the same loop:
+
+- ``data`` shards the step's batch columns (the batch pads to a multiple
+  of the dim's size; the padded columns are weighted out).  Each rank
+  forms the unnormalized loss sum S = Σ w·l and weight sum W of its
+  columns and their gradients; S, W and the gradients are all-reduced
+  in one flat buffer and divided by max(W, 1e-12), so every rank takes
+  the same replicated Adam step, within the all-reduce's reassociation
+  of the unsharded one (not bitwise, unlike the PSI and coreset
+  shards).
+- ``model`` shards the M-client bottom: the clients pad to a multiple of
+  the dim's size with all-zero dummies, and each rank holds a contiguous
+  block of them (their weights, their Adam moments, their slab).  The
+  clients' activation send is ONE all-gather a step
+  (``sharding.gather_rows``, or ``quant.all_gather_quantized`` under a
+  wire), whose backward is the sum reduce-scatter.  The label owner's
+  loss counts on model rank 0 only (the others multiply theirs by 0.0),
+  so the bottom gradients all-reduce over ``data`` only, and the top's,
+  S and W over both dims.
+- One host sync an epoch still, on every rank; ``comm_bytes``,
+  ``steps_per_epoch`` and ``gather_payload_bytes`` are the unsharded
+  run's; the returned params are whole (the model blocks gathered).
+
 Left out, being TPU-only: the slab's 128-lane pre-padding (``d_eff``:
 the CUDA kernels take unpadded widths) and the warm-up compile epoch
 with its ``train.compile`` span (nothing compiles: the kernels are
-built once per process, at first use).  Sharding over a mesh, and with
-it the quantized all-gather, waits for the multi-GPU slice (ROADMAP.md,
-queue 6).
+built once per process, at first use).
 """
 from __future__ import annotations
 
@@ -53,8 +76,13 @@ from repro_torch.config import (EngineOptions, resolve_bottom_impl,
 from repro_torch.kernels.splitnn_bottom.ops import int8_rows, splitnn_bottom
 from repro_torch.obs.metrics import StatsMixin
 from repro_torch.obs.trace import span
-from repro_torch.quant import (payload_bytes, resolve_quant,
-                               scale_bytes_per_step)
+from repro_torch.quant import (all_gather_quantized, payload_bytes,
+                               resolve_quant, scale_bytes_per_step)
+from repro_torch.sharding import (MeshAxis, all_gather_rows, all_reduce_sum,
+                                  gather_rows, padded_rows,
+                                  resolve_train_mesh)
+from repro_torch.train.losses import (binary_xent_terms, softmax_xent_terms,
+                                      squared_error_terms)
 from repro_torch.train.optimizer import (adam_init, adam_update, tree_leaves,
                                          tree_map)
 
@@ -73,10 +101,12 @@ class EngineStats(StatsMixin):
     ``dispatches`` counts epoch-function calls in the timed training
     loop and ``host_syncs`` blocking device→host transfers: one of each
     per epoch for the epoch engine, one of each per minibatch for the
-    loop.  ``shards``/``model_shards`` stay 1 (no mesh yet); ``quant``
-    is the activation wire dtype and ``gather_payload_bytes`` the
-    modeled per-step forward activation payload at the logical batch
-    size."""
+    loop (a gloo group's staging of CUDA tensors through host memory is
+    the transport's, counted in ``sharding.COLLECTIVES``).
+    ``shards``/``model_shards`` are the (data, model) mesh sizes the run
+    sharded over (1 unsharded); ``quant`` is the activation wire dtype
+    and ``gather_payload_bytes`` the modeled per-step forward activation
+    payload at the logical batch size."""
     dispatches: int = 0
     host_syncs: int = 0
     shards: int = 1
@@ -161,8 +191,10 @@ def unpack_slab_params(packed, feature_dims: Sequence[int]):
 # ------------------------------------------------------------ slab forward
 
 
-def _bottom_acts(packed, cfg, m: int, x_slab, bottom_impl, idx, quant,
-                 x_int8=None):
+def _bottom_acts(packed, cfg, m: Optional[int], x_slab, bottom_impl, idx,
+                 quant, x_int8=None):
+    """The first ``m`` clients' bottom activations (all of them, dummy
+    clients included, where ``m`` is None)."""
     w = packed["bw"]
     b = packed.get("bb")
     if b is None:     # bias-free models: a constant zero, no phantom param
@@ -185,16 +217,26 @@ def forward_slab_packed(packed, cfg, m: int, x_slab: torch.Tensor, *,
                         bottom_impl: Optional[str] = None,
                         idx: Optional[torch.Tensor] = None,
                         quant: Optional[str] = None,
-                        x_int8=None) -> torch.Tensor:
+                        x_int8=None,
+                        model_axis: Optional[MeshAxis] = None
+                        ) -> torch.Tensor:
     """SplitNN forward from slab-form params.  ``x_slab`` is the
     (M, B, d_max) batch slab — or, with ``idx`` (B,) int32, the FULL
     (M, N, d_max) slab whose minibatch gather fuses into the bottom pass
     (K2; K10 under int8).  Matches ``splitnn_forward`` on the per-client
     slices up to GEMM summation order.  ``quant`` applies the wire
     rounding to the bottom pass's output, inside the pass; ``x_int8`` is
-    ``int8_rows(x_slab)`` where the caller has it."""
-    acts = _bottom_acts(packed, cfg, m, x_slab, bottom_impl, idx, quant,
+    ``int8_rows(x_slab)`` where the caller has it.  ``model_axis`` names
+    the mesh dim the clients are sharded over: ``packed`` and ``x_slab``
+    then hold this rank's block of clients, and the activation send is
+    one all-gather over it (quantized under ``quant``); dummy clients
+    are dropped after it."""
+    acts = _bottom_acts(packed, cfg, None, x_slab, bottom_impl, idx, quant,
                         x_int8)
+    if model_axis is not None:
+        acts = (gather_rows(acts, model_axis) if quant is None
+                else all_gather_quantized(acts, model_axis, quant))
+    acts = acts[:m]                              # drop dummy-client padding
     if cfg.model in ("lr", "linreg"):
         return acts.sum(0) + packed["top"]["b"]
     return _top_mlp(packed["top"], acts)
@@ -288,6 +330,46 @@ def _labels(partition, cfg, device) -> torch.Tensor:
 # ---------------------------------------------------------- epoch engine
 
 
+def _loss_sums(out: torch.Tensor, cfg, y: torch.Tensor, w: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unnormalized Eq.(2) pieces (Σ w·l_i, Σ w) of a rank's rows, with
+    the losses' own per-sample terms: their all-reduced quotient is the
+    unsharded loss up to reassociation."""
+    if cfg.n_classes == 0:
+        li = squared_error_terms(out[:, 0:1], y[:, None])
+    elif cfg.n_classes == 2 and out.shape[-1] == 1:
+        li = binary_xent_terms(out[:, 0], y)
+    else:
+        li = softmax_xent_terms(out, y)
+    w = w.float()
+    return (w * li).sum(), w.sum()
+
+
+def _sharded_step_grads(out, cfg, y, w, leaves, n_bottom: int,
+                        data_axis: Optional[MeshAxis],
+                        model_axis: Optional[MeshAxis]):
+    """(loss, grads) of a sharded step: the rank's unnormalized sums and
+    their gradients, all-reduced in one flat buffer (the bottom leaves,
+    the first ``n_bottom``, over ``data``; the rest, S and W over
+    ``data`` and ``model``), then divided by max(W, 1e-12)."""
+    s, wsum = _loss_sums(out, cfg, y, w)
+    if model_axis is not None and model_axis.rank != 0:
+        # the label owner is model rank 0: the other ranks' copies are
+        # 0.0, so the gather's transpose carries rank 0's cotangent only
+        s, wsum = s * 0.0, wsum * 0.0
+    grads = torch.autograd.grad(s, leaves)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [s.detach().reshape(1), wsum.detach().reshape(1)])
+    if data_axis is not None:
+        all_reduce_sum(flat, data_axis)
+    if model_axis is not None:
+        all_reduce_sum(flat[sum(t.numel() for t in leaves[:n_bottom]):],
+                       model_axis)
+    wtot = flat[-1].clamp_min(1e-12)
+    parts = torch.split(flat[:-2] / wtot, [t.numel() for t in leaves])
+    return flat[-2] / wtot, [g.view_as(t) for g, t in zip(parts, leaves)]
+
+
 def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
                bandwidth: float = 10e9 / 8, latency: float = 2e-4,
                options: Optional[EngineOptions] = None,
@@ -303,7 +385,9 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
     bottom pass (bitwise-equal to ``False``, which gathers first).
     ``options.quant`` ("int8"|"fp8") narrows the activation send (module
     docstring); it needs the slab bottom path.  ``options.device`` places
-    everything (default CUDA)."""
+    everything (default CUDA); ``options.mesh``/``shard_axis`` shard the
+    batch over ``data`` and the clients over ``model`` (module
+    docstring; ``"loop"`` cannot take a ``model`` dim and raises)."""
     from repro_torch.core import splitnn as models
 
     options = options or EngineOptions()
@@ -312,20 +396,39 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
     use_slab = impl != "loop"
     fuse = use_slab and bool(options.fuse_gather)
     quant = resolve_quant(options.quant)
+    mesh, data_name, n_data, model_name, n_model = resolve_train_mesh(
+        options.mesh, options.shard_axis)
+    if n_model > 1 and not use_slab:
+        raise ValueError(
+            "model-axis sharding needs the slab bottom path "
+            "(bottom_impl='kernel'|'ref'), not 'loop'")
     if quant is not None and not use_slab:
         raise ValueError(
             "quantized activations need the slab bottom path "
             "(bottom_impl='kernel'|'ref'), not 'loop'")
+    data_axis = MeshAxis(mesh, data_name) if n_data > 1 else None
+    model_axis = MeshAxis(mesh, model_name) if n_model > 1 else None
 
     n = partition.n_samples
     m = partition.n_clients
     feature_dims = [f.shape[1] for f in partition.client_features]
+    # this rank's clients: all of them, or its block of the model dim
+    m_pad = padded_rows(m, n_model)
+    mine = model_axis.block(m_pad) if model_axis else slice(0, m_pad)
 
     zoo = models.init_splitnn(cfg, feature_dims, device=device)
-    params = pack_slab_params(zoo, max(feature_dims)) if use_slab else zoo
+    if use_slab:
+        params = pack_slab_params(zoo, max(feature_dims), m_pad)
+        if model_axis is not None:
+            params = {k: v if k == "top" else v[mine].clone()
+                      for k, v in params.items()}
+    else:
+        params = zoo
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
+    n_bottom = len(tree_leaves({k: v for k, v in params.items()
+                                if k != "top"}))
     opt = adam_init(params)
 
     y_all = _labels(partition, cfg, device)
@@ -333,33 +436,42 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
             if sample_weights is not None else np.ones(n, np.float32))
     w_all = torch.as_tensor(w_np, device=device)
     if use_slab:
-        data = [torch.as_tensor(pack_slab(partition.client_features),
-                                device=device)]
+        data = [torch.as_tensor(
+            pack_slab(partition.client_features, m_pad)[mine], device=device)]
     else:
         data = [torch.as_tensor(np.asarray(f, np.float32), device=device)
                 for f in partition.client_features]
 
     bs = min(cfg.batch_size, n)
     steps_per_epoch = -(-n // bs)
-    padded_bs = bs                                # one device: no padding
+    padded_bs = padded_rows(bs, n_data)
+    # this rank's columns of every step
+    cols = data_axis.block(padded_bs) if data_axis else slice(0, padded_bs)
     # the slab's int8 rows and their scales, once per run (loop-invariant)
     x_int8 = int8_rows(data[0]) if fuse and quant == "int8" else None
 
-    def step_loss(ib: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
+    def step_out(ib: torch.Tensor) -> torch.Tensor:
+        if not use_slab:
+            return models.splitnn_forward(
+                params, cfg, [x.index_select(0, ib) for x in data])
+        if fuse:
+            return forward_slab_packed(params, cfg, m, data[0],
+                                       bottom_impl=impl, idx=ib, quant=quant,
+                                       x_int8=x_int8, model_axis=model_axis)
+        return forward_slab_packed(params, cfg, m,
+                                   data[0].index_select(1, ib),
+                                   bottom_impl=impl, quant=quant,
+                                   model_axis=model_axis)
+
+    def step_grads(ib: torch.Tensor, mb: torch.Tensor):
         y = y_all.index_select(0, ib)
         w = w_all.index_select(0, ib) * mb
-        if not use_slab:
-            out = models.splitnn_forward(
-                params, cfg, [x.index_select(0, ib) for x in data])
-        elif fuse:
-            out = forward_slab_packed(params, cfg, m, data[0],
-                                      bottom_impl=impl, idx=ib, quant=quant,
-                                      x_int8=x_int8)
-        else:
-            out = forward_slab_packed(params, cfg, m,
-                                      data[0].index_select(1, ib),
-                                      bottom_impl=impl, quant=quant)
-        return models._loss_from_out(out, cfg, y, w)
+        out = step_out(ib)
+        if mesh is None:
+            loss = models._loss_from_out(out, cfg, y, w)
+            return loss, torch.autograd.grad(loss, leaves)
+        return _sharded_step_grads(out, cfg, y, w, leaves, n_bottom,
+                                   data_axis, model_axis)
 
     rng = np.random.default_rng(cfg.seed)
     # the forward activation ships in the wire dtype; a quantized
@@ -367,10 +479,10 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
     per_sample = models.activation_bytes_per_sample(cfg, m, quant)
     per_epoch_bytes = (per_sample * n
                        + steps_per_epoch * scale_bytes_per_step(bs, m, quant))
-    stats = EngineStats(steps_per_epoch=steps_per_epoch,
+    stats = EngineStats(shards=n_data, steps_per_epoch=steps_per_epoch,
                         padded_batch=padded_bs, engine="scan",
-                        bottom_impl=impl, fused_gather=fuse,
-                        quant=quant or "none",
+                        bottom_impl=impl, model_shards=n_model,
+                        fused_gather=fuse, quant=quant or "none",
                         gather_payload_bytes=payload_bytes(
                             models.activation_width(cfg), bs, m, quant))
     losses: List[float] = []
@@ -389,8 +501,7 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
             idx_d, mask_d = _to_device(idx, device), _to_device(mask, device)
             acc = torch.zeros((), dtype=torch.float32, device=device)
             for s in range(steps_per_epoch):
-                loss = step_loss(idx_d[s], mask_d[s])
-                grads = torch.autograd.grad(loss, leaves)
+                loss, grads = step_grads(idx_d[s, cols], mask_d[s, cols])
                 params, opt = adam_update(params, grads, opt, lr=cfg.lr)
                 acc = acc + loss.detach()
             stats.dispatches += 1
@@ -407,6 +518,10 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
                 break
     train_seconds = time.perf_counter() - t0
     sim_comm = comm_bytes / bandwidth + latency * 2 * total_steps * m
+    if model_axis is not None:          # whole params on every rank
+        params = {k: v if k == "top" else all_gather_rows(v.detach(),
+                                                          model_axis)
+                  for k, v in params.items()}
     out_params = (unpack_slab_params(params, feature_dims) if use_slab
                   else tree_map(lambda t: t.detach().clone(), params))
     return TrainReport(losses=losses, epochs=epoch, steps=total_steps,
