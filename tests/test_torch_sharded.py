@@ -165,7 +165,8 @@ ONE_D = ["oprf-host-5", "oprf-host-8", "oprf-device-5", "oprf-device-8",
          "resolve"]
 WORLDS = {
     2: {"data": ONE_D + ["tree_mpsi-rsa", "pipeline-lr"],
-        "one": ["oprf-host-5", "coreset", "resolve", "refusals"],
+        "one": ["oprf-host-5", "coreset", "train-lr-60", "resolve",
+                "refusals"],
         "host": ["resolve"]},
     3: {"data": ONE_D},
     8: {"2x4": ["train-lr-64", "train-lr-60", "train-mlp",
@@ -570,6 +571,9 @@ def test_single_device_mesh_is_a_noop(worlds, unsharded):
     res = _ranks(w, "one", "coreset")
     assert res["shards"] == 1
     assert _same(res, unsharded["coreset"])
+    train = _ranks(w, "one", "train-lr-60")
+    assert (train["shards"], train["model_shards"]) == (1, 1)
+    assert _same(train, unsharded["train-lr-60"])
 
 
 # --------------------------------------------------------------- launcher
