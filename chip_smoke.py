@@ -10,6 +10,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
     python3 chip_smoke.py --only llm-train        # build K11/K12, training
     python3 chip_smoke.py --only sharded          # the VFL kernels, mesh=
+    python3 chip_smoke.py --only llm-sharded      # build K11, LLM on a mesh
 
 Phases, each printing JSON lines:
 
@@ -309,6 +310,32 @@ Phases, each printing JSON lines:
               an eval block, and the profiler seeing K2's (K10's) kernel
               in one epoch; each stage's wall a rank and its collectives
               (calls, staged, bytes).
+20. llm_sharded — LLM training on a (data 2, model 2) mesh, profile
+              "2d", 4 gloo ranks on the one card (every collective staged
+              through host memory: no NCCL figure), K11 built here before
+              the ranks start; again over NCCL, one rank a card, where the
+              host has 2 or more.  tinyllama-1.1b at full width and depth
+              (B 2 × S 2,048): the f32 loss within ``TRAIN_LOSS_RTOL`` and
+              every gradient leaf, gathered whole, within ``grad_gate``'s
+              bounds of the unsharded ones on the card (the worst leaf
+              named); the config's bf16 (f32 masters, bf16 compute): the
+              first gradient, gathered whole, each leaf at most 3× as far
+              from the f32 one as the unsharded bf16 leaf is (plus
+              ``TRAIN_GRAD_FLOOR``·max‖g‖), then 3 steps twice: losses
+              bitwise across the runs and falling, the first within 0.1%
+              of the unsharded first loss; K11 launched 44 times and its
+              backward 22 times a step on every rank, both seen by the
+              profiler there; each rank's params and Adam moments at most 30% of
+              the unsharded bytes; step ms, peak GB and collectives a step
+              for each rank.  olmoe-1b-7b at full width, 2 layers (the
+              card cannot hold 16 layers' f32 training state), B 2 × S
+              1,024, f32: with the capacity factor raised until no token
+              drops, the loss and gradients against the unsharded ones
+              at S (scheme A: two ``all_to_all``s a layer) and at S - 1
+              (scheme B: ``model`` does not divide it); at the config's
+              capacity factor, finite, the aux loss recorded; a
+              ``forward_lm`` at S = 1 (scheme B) within 1e-4·(1 +
+              max|logits|) of the unsharded one.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -3849,7 +3876,7 @@ def llm_train_phase(dev):
         if launches != want:
             faults.append(f"a bf16 step launched {launches}, not {want}")
             break
-    del params, opt, step, first, second
+    del params, opt, first, second
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4193,6 +4220,437 @@ def sharded_phase(dev, smi):
     return rows
 
 
+# -------------------------------------------------------- llm_sharded phase
+
+#: the LLM mesh phase: tinyllama-1.1b at full width and depth and
+#: olmoe-1b-7b at full width, its depth cut to 2 layers (16 layers' f32
+#: params, grads and two moments, 6.9B × 16 B, exceed the card's 80 GB,
+#: which the ranks share), on a (data 2, model 2) mesh of 4 gloo ranks on
+#: the one card, profile "2d"
+LLM_SHARDED_MESH = (2, 2)
+LLM_SHARDED_STEPS = 3          # bf16 steps a run, two runs
+LLM_SHARDED_TIMEOUT = 600      # seconds the world may take, spawn to join
+LLM_SHARDED_RESIDENT = 0.30    # a rank's params + moments / the unsharded
+LLM_SHARDED_BF16_RTOL = 1e-3   # first bf16 loss against the unsharded one
+# bf16 gradient: × the unsharded one's distance from f32.  Measured worst
+# 1.68× (embed: its gradient crosses 44 bf16 TP sums); a leaf on the wrong
+# rank or dims is about its norm away, 73× for embed (the unsharded bf16
+# embed gradient is 1.4% of its norm from the f32 one)
+LLM_SHARDED_BF16_SLACK = 3.0
+MOE_SHARDED_ARCH, MOE_SHARDED_LAYERS = "olmoe-1b-7b", 2
+MOE_SHARDED_BATCH, MOE_SHARDED_SEQ = 2, 1024
+MOE_DECODE_RTOL = 1e-4         # S = 1 logits: × (1 + max|logits|)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _sharded_grad_gate(tag, lay, keys, grads, want, faults, allow=None):
+    """Each sharded gradient leaf gathered whole (every rank takes part)
+    against the unsharded one ``want`` holds on rank 0, within
+    ``grad_gate``'s bounds or, where rank 0 gives them, within ``allow``
+    (a distance a leaf): ({worst leaf, its distance over its bound} on
+    rank 0, else None)."""
+    ratios, rel = [], []
+    norms = [float(w.double().norm()) for w in want] if want else None
+    if want is not None and allow is None:
+        top = max(norms)
+        allow = [TRAIN_GRAD_RTOL * n + TRAIN_GRAD_FLOOR * top for n in norms]
+    for i, (k, g) in enumerate(zip(keys, grads)):
+        whole = lay.whole(lay.specs[k], g)
+        if want is not None:
+            d = float((whole.double() - want[i].double()).norm())
+            ratios.append(d / allow[i])
+            rel.append(d / max(norms[i], 1e-300))
+        del whole
+    if want is None:
+        return None
+    worst = int(np.argmax(ratios))
+    if ratios[worst] > 1.0:
+        faults.append(f"{tag}: leaf {keys[worst]} gradient {ratios[worst]}"
+                      "× its bound from the unsharded one")
+    return dict(worst_leaf=keys[worst], worst_leaf_rel_err=rel[worst],
+                worst_leaf_of_bound=ratios[worst], leaves=len(keys))
+
+
+def _count_now():
+    from repro_torch import sharding
+    from repro_torch.kernels.build import LAUNCHES
+    torch.cuda.synchronize()
+    return ({k: v for k, v in LAUNCHES.items() if v},
+            dict(sharding.COLLECTIVES))
+
+
+def _reset_counts():
+    from repro_torch import sharding
+    from repro_torch.kernels.build import reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    sharding.reset_collectives()
+
+
+def llm_sharded_dense(device, mesh, faults):
+    """tinyllama-1.1b on ``mesh``: the f32 loss and gradients against the
+    unsharded ones (rank 0 computes those on the card first), then the
+    config's bf16 steps, twice, under the count, the clock and the
+    profiler.  Returns this rank's row."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.steps import (init_train_state, loss_and_grads,
+                                         make_train_step)
+
+    rank = dist.get_rank()
+    cfg = get_config(TRAIN_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = train_batch(cfg, device, TRAIN_BATCH, TRAIN_SEQ)
+    layers = attention_layers(cfg)
+    want_launches = {"flash_attention": 2 * layers,
+                     "flash_attention_bwd": layers}
+    row = dict(rank=rank, device=str(device))
+
+    want = loss_u = None
+    if rank == 0:               # the unsharded f32 gradient, on the card
+        params = api.init_params(SEED, cfg32, device=device)
+        loss_u, _, want = loss_and_grads(params, cfg32, batch)
+        del params
+        gc.collect()
+    dist.barrier()
+    with sharding.use_mesh(mesh):
+        lay = sharding.lm_layout(cfg32)
+        params = lay.shard(api.init_params(SEED, cfg32, device=device))
+        keys = [k for k, _ in sharding.flat_tree(params)]
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss_s, _, grads = loss_and_grads(params, cfg32, batch)
+        launches, coll = _count_now()
+        row["f32_ms"] = (time.perf_counter() - t0) * 1e3
+        row["f32_loss"] = float(loss_s)
+        row["f32_launches"] = launches
+        row["f32_collectives"] = coll
+        if launches != want_launches:
+            faults.append(f"rank {rank}: f32 gradient launched {launches}, "
+                          f"not {want_launches}")
+        gate = _sharded_grad_gate(f"{TRAIN_ARCH} f32", lay, keys, grads,
+                                  want, faults)
+        if rank == 0:
+            err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+            row["f32"] = dict(gate, loss_sharded=float(loss_s),
+                              loss_unsharded=float(loss_u),
+                              loss_rel_err=err)
+            if not err <= TRAIN_LOSS_RTOL:
+                faults.append(f"f32 loss {float(loss_s)} vs unsharded "
+                              f"{float(loss_u)}")
+        del params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the config's bf16 compute on the same f32 master params: the first
+    # gradient, gathered whole, no more than LLM_SHARDED_BF16_SLACK times
+    # as far from the f32 one as the unsharded bf16 gradient is
+    allow = loss16 = None
+    if rank == 0:
+        params = api.init_params(SEED, cfg, device=device)
+        loss16, _, g16 = loss_and_grads(params, cfg, batch)
+        top = max(float(w.double().norm()) for w in want)
+        allow = [LLM_SHARDED_BF16_SLACK * float((g.double() - w.double())
+                                                .norm())
+                 + TRAIN_GRAD_FLOOR * top for g, w in zip(g16, want)]
+        row["bf16_unsharded_first_loss"] = float(loss16)
+        del params, g16
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    with sharding.use_mesh(mesh):
+        lay = sharding.lm_layout(cfg)
+        params = lay.shard(api.init_params(SEED, cfg, device=device))
+        t0 = time.perf_counter()
+        loss_s, _, grads = loss_and_grads(params, cfg, batch)
+        row["bf16_grad_ms"] = (time.perf_counter() - t0) * 1e3
+        gate = _sharded_grad_gate(f"{TRAIN_ARCH} bf16", lay, keys, grads,
+                                  want, faults, allow)
+        if rank == 0:
+            row["bf16"] = dict(gate, loss_sharded=float(loss_s),
+                               loss_unsharded=float(loss16),
+                               loss_f32=float(loss_u))
+        del params, grads, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def run(profiled=False):
+        """LLM_SHARDED_STEPS steps from the seed; with ``profiled`` the
+        last one under the profiler, which must see K11's forward and
+        backward kernels on every rank (a session may record none: that
+        step is then timed again unprofiled and the next one profiled,
+        up to 3 more)."""
+        with sharding.use_mesh(mesh):
+            params, opt = init_train_state(SEED, cfg, device=device)
+            step = make_train_step(cfg, lr=TRAIN_LR)
+            losses, ms, counts, prof = [], [], [], None
+            for i in range(LLM_SHARDED_STEPS):
+                _reset_counts()
+                t0 = time.perf_counter()
+                if profiled and i == LLM_SHARDED_STEPS - 1:
+                    out = []
+                    prof = profile_device(lambda: out.append(
+                        step(params, opt, batch)), reps=1, warm=False)
+                    params, opt, m = out[0]
+                else:
+                    params, opt, m = step(params, opt, batch)
+                counts.append(_count_now())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].item())
+        return params, opt, losses, ms, counts, prof
+
+    torch.cuda.reset_peak_memory_stats()
+    first = run()
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    second = run(profiled=True)
+    params, opt = second[:2]
+    resident = _tree_bytes((params, opt.mu, opt.nu))
+    whole = 3 * 4 * sum(int(np.prod(s)) for _, s in sharding.flat_tree(
+        api.param_shapes(cfg)))
+    row["resident_gb"] = resident / 1e9
+    row["resident_share"] = resident / whole
+    if resident / whole > LLM_SHARDED_RESIDENT:
+        faults.append(f"rank {rank} holds {resident / whole:.3f} of the "
+                      "unsharded params and moments")
+    per_name, dev_ms, wall_ms = second[5]
+    seen = sorted({k for k in per_name if "flash_attention" in k})
+    if not _every_rank(any("bwd" in k for k in seen)
+                       and any("bwd" not in k for k in seen), device):
+        with sharding.use_mesh(mesh):   # a session may record no kernel
+            step = make_train_step(cfg, lr=TRAIN_LR)
+            for _ in range(3):
+                per_name, dev_ms, wall_ms = profile_device(
+                    lambda: step(params, opt, batch), reps=1, warm=False)
+                seen = sorted({k for k in per_name if "flash_attention" in k})
+                if _every_rank(any("bwd" in k for k in seen)
+                               and any("bwd" not in k for k in seen),
+                               device):
+                    break
+    row["profiled_k11"] = seen
+    if not (any("bwd" in k for k in seen)
+            and any("bwd" not in k for k in seen)):
+        faults.append(f"rank {rank}: the profiler saw no K11 forward and "
+                      f"backward ({seen})")
+    row["profile"] = dict(device_ms=dev_ms, wall_ms=wall_ms)
+    losses = [first[2], second[2]]
+    bits = [np.asarray(l, np.float32).view(np.int32).tolist()
+            for l in losses]
+    row["bf16_losses"] = losses[0]
+    row["bf16_losses_bitwise_equal"] = bits[0] == bits[1]
+    row["step_ms"] = first[3] + second[3]     # the last one profiled
+    row["step_launches"] = first[4][0][0]
+    row["step_collectives"] = first[4][-1][1]
+    if bits[0] != bits[1]:
+        faults.append(f"rank {rank}: bf16 losses differ between two runs: "
+                      f"{losses}")
+    if not losses[0][-1] < losses[0][0]:
+        faults.append(f"rank {rank}: bf16 loss did not fall: {losses[0]}")
+    first_loss = row.get("bf16_unsharded_first_loss")
+    if first_loss is not None and not abs(losses[0][0] - first_loss) <= \
+            LLM_SHARDED_BF16_RTOL * abs(first_loss):
+        faults.append(f"bf16 first loss {losses[0][0]} vs unsharded "
+                      f"{first_loss}")
+    for launches, _ in first[4] + second[4]:
+        if launches != want_launches:
+            faults.append(f"rank {rank}: a bf16 step launched {launches}, "
+                          f"not {want_launches}")
+            break
+    del params, opt, first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def llm_sharded_moe(device, mesh, faults):
+    """olmoe-1b-7b at full width, 2 layers, f32, on ``mesh``: one loss and
+    gradient with the capacity factor raised until no token drops
+    against the unsharded one (rank 0), at S (scheme A's two
+    ``all_to_all``s) and at S - 1, which ``model`` does not divide
+    (scheme B: each rank its experts, their inputs' gradients summed);
+    the config's own capacity factor (finite, aux recorded); a
+    ``forward_lm`` at S = 1 (scheme B) against the unsharded one at this
+    rank's rows.  Returns this rank's row."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.transformer import forward_lm
+    from repro_torch.train.steps import loss_and_grads
+
+    rank = dist.get_rank()
+    base = dataclasses.replace(get_config(MOE_SHARDED_ARCH),
+                               n_layers=MOE_SHARDED_LAYERS, dtype="float32")
+    nodrop = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=base.moe.num_experts / base.moe.top_k))
+    batch = train_batch(base, device, MOE_SHARDED_BATCH, MOE_SHARDED_SEQ)
+    tokens1 = batch["tokens"][:, :1]
+    # a sequence that model does not divide: scheme B under training
+    odd = {k: v[:, :MOE_SHARDED_SEQ - 1] if k in ("tokens", "labels")
+           else v for k, v in batch.items()}
+    row = dict(rank=rank)
+    params = api.init_params(SEED, base, device=device)
+    with torch.no_grad():       # scheme B's yardstick: the whole model
+        want1 = forward_lm(params, base, tokens1, remat=False)[0]
+    want = loss_u = want_b = loss_ub = None
+    if rank == 0:
+        loss_u, _, want = loss_and_grads(params, nodrop, batch)
+        loss_ub, _, want_b = loss_and_grads(params, nodrop, odd)
+    dist.barrier()
+    with sharding.use_mesh(mesh):
+        lay = sharding.lm_layout(nodrop)
+        blocks = lay.shard(params)
+        del params
+        gc.collect()
+        keys = [k for k, _ in sharding.flat_tree(blocks)]
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss_s, (_, aux_s), grads = loss_and_grads(blocks, nodrop, batch)
+        launches, coll = _count_now()
+        row.update(nodrop_ms=(time.perf_counter() - t0) * 1e3,
+                   nodrop_loss=float(loss_s), nodrop_aux=float(aux_s),
+                   nodrop_launches=launches, nodrop_collectives=coll)
+        gate = _sharded_grad_gate(f"{MOE_SHARDED_ARCH} no drops", lay, keys,
+                                  grads, want, faults)
+        if rank == 0:
+            err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+            row["nodrop"] = dict(gate, loss_sharded=float(loss_s),
+                                 loss_unsharded=float(loss_u),
+                                 loss_rel_err=err)
+            if not err <= TRAIN_LOSS_RTOL:
+                faults.append(f"olmoe loss {float(loss_s)} vs unsharded "
+                              f"{float(loss_u)}")
+        del grads, want
+        gc.collect()
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss_s, _, grads = loss_and_grads(blocks, nodrop, odd)
+        _, coll = _count_now()
+        row.update(odd_ms=(time.perf_counter() - t0) * 1e3,
+                   odd_collectives=coll)
+        gate = _sharded_grad_gate(
+            f"{MOE_SHARDED_ARCH} scheme B, S {MOE_SHARDED_SEQ - 1}, no "
+            "drops", lay, keys, grads, want_b, faults)
+        if rank == 0:
+            err = abs(float(loss_s) - float(loss_ub)) / abs(float(loss_ub))
+            row["nodrop_odd"] = dict(gate, seq=MOE_SHARDED_SEQ - 1,
+                                     loss_sharded=float(loss_s),
+                                     loss_unsharded=float(loss_ub),
+                                     loss_rel_err=err)
+            if not err <= TRAIN_LOSS_RTOL:
+                faults.append(f"olmoe S {MOE_SHARDED_SEQ - 1} loss "
+                              f"{float(loss_s)} vs unsharded "
+                              f"{float(loss_ub)}")
+        del grads, want_b
+        gc.collect()
+        lay = sharding.lm_layout(base)
+        loss_c, (ce_c, aux_c), grads = loss_and_grads(blocks, base, batch)
+        finite = bool(np.isfinite(float(loss_c)) and all(
+            bool(torch.isfinite(g).all()) for g in grads))
+        row.update(config_cf=base.moe.capacity_factor,
+                   config_loss=float(loss_c), config_ce=float(ce_c),
+                   config_aux=float(aux_c), config_finite=finite)
+        if not finite:
+            faults.append(f"rank {rank}: olmoe at its capacity factor is "
+                          "not finite")
+        del grads
+        rows = lay.rows(tokens1.shape[0])
+        with torch.no_grad():
+            got1 = forward_lm(blocks, base, tokens1[rows], remat=False)[0]
+        err = float((got1 - want1[rows]).abs().max())
+        scale = 1.0 + float(want1.abs().max())
+        row.update(decode_max_abs_err=err, decode_scale=scale)
+        if not err <= MOE_DECODE_RTOL * scale:
+            faults.append(f"rank {rank}: olmoe S = 1 logits {err} from the "
+                          f"unsharded ({MOE_DECODE_RTOL}·{scale})")
+    del blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def llm_sharded_rank(device, shape, profile, parts):
+    """One rank of the LLM mesh phase: ``parts`` ("dense", "moe") on a
+    ``shape`` mesh over the world under ``profile``.  Returns (rows,
+    faults); the phase raises on any rank's fault."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_train_mesh
+
+    sharding.set_profile(profile)
+    mesh = make_train_mesh(*shape)
+    faults, rows = [], {}
+    if "dense" in parts:
+        rows["dense"] = llm_sharded_dense(device, mesh, faults)
+    if "moe" in parts:
+        rows["moe"] = llm_sharded_moe(device, mesh, faults)
+    return rows, faults
+
+
+def llm_sharded_phase(dev, smi):
+    """LLM training on a (data, model) mesh: tinyllama-1.1b (full width
+    and depth) and olmoe-1b-7b (full width, 2 layers) on 4 gloo ranks on
+    the one card, (2, 2), profile "2d" (``llm_sharded_rank``); where the
+    host has 2 or more cards, tinyllama again over NCCL, one rank a
+    card.  K11 was built here, before any rank starts; the ranks load
+    it.  Every number a rank reports is gloo staged through host memory
+    on one card unless the row says NCCL."""
+    import gc
+
+    from repro_torch.launch.mesh import default_backend, run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    worlds = [("gloo-2x2", 4, LLM_SHARDED_MESH, ("dense", "moe"),
+               default_backend(4))]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        shape = (2, 2) if n >= 4 else (1, 2)
+        worlds.append((f"nccl-{shape[0]}x{shape[1]}", shape[0] * shape[1],
+                       shape, ("dense",), "nccl"))
+    out, faults = [], []
+    for name, world, shape, parts, backend in worlds:
+        print(f"llm_sharded: {name}: backend={backend} world={world} "
+              f"mesh={shape} profile=2d", flush=True)
+        t0 = time.perf_counter()
+        per_rank = run_ranks(llm_sharded_rank, world,
+                             (shape, "2d", parts), backend=backend,
+                             timeout=LLM_SHARDED_TIMEOUT)
+        row = dict(phase="llm_sharded", world=name, backend=backend,
+                   world_size=world, mesh=list(shape), profile="2d",
+                   staged_through_host=backend == "gloo",
+                   nvidia_smi=smi, world_s=time.perf_counter() - t0)
+        for part in parts:
+            row[part] = [r[0][part] for r in per_rank]
+        for r in per_rank:
+            faults += [f"{name}: {f}" for f in r[1]]
+        emit(row)
+        out.append(row)
+    if n < 2:
+        emit({"phase": "llm_sharded_note", "nccl": "not run: the host has "
+              f"{n} card", "nvidia_smi": smi})
+    total = {"phase": "llm_sharded_total",
+             "phase_s": time.perf_counter() - t_phase}
+    emit(total)
+    if faults:
+        raise AssertionError("llm_sharded: " + "; ".join(faults))
+    return out + [total]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4242,6 +4700,7 @@ ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
                     "kmeans_assign", "splitnn_bottom"],
         "llm-paths": ["flash_attention", "ssd_scan"],
         "llm-train": ["flash_attention", "flash_attention_bwd", "ssd_scan"],
+        "llm-sharded": ["flash_attention", "flash_attention_bwd"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
         "bottom-kernels": ["splitnn_bottom"],
         "psi-kernels": ["psi_prf", "sorted_intersect"]}
@@ -4254,7 +4713,7 @@ def main(argv) -> int:
             or not set(phases) <= {p for p, _ in LLM_PHASES}):
         print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
               "...]|llm-train|kmeans-kernels|bottom-kernels|psi-kernels|"
-              "sharded]", file=sys.stderr)
+              "sharded|llm-sharded]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4334,6 +4793,14 @@ def main(argv) -> int:
         # the sharded pipeline: the quick check of an edit to sharding,
         # launch/mesh or a mesh= path (not the contract run)
         sharded_phase(dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
+    if only == "llm-sharded":
+        # LLM training on a (data, model) mesh: the quick check of an edit
+        # to the LLM half of sharding, the models' mesh paths or
+        # launch/train (not the contract run)
+        llm_sharded_phase(dev, smi)
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
@@ -4437,6 +4904,9 @@ def main(argv) -> int:
     pipe_rows += list(llm.values()) + [train]
     # the sharded pipeline: its own path, its own launch counts (each rank's)
     pipe_rows += sharded_phase(dev, smi)
+    # LLM training on a (data, model) mesh: its own launch counts (each
+    # rank's K11 forward and backward a step)
+    pipe_rows += llm_sharded_phase(dev, smi)
     kernels = []
     for r in rows:
         if "check_only" in r or "timed_at" in r:

@@ -65,10 +65,29 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, Optional[str]]:
     return t.view(torch.int16).numpy().view(np.uint16), _BF16
 
 
+def _layout(cfg):
+    if cfg is None:
+        return None
+    from repro_torch.sharding import lm_layout
+    return lm_layout(cfg)
+
+
 def save_checkpoint(path: str, tree: Any, *, step: Optional[int] = None,
-                    extra: Optional[Dict[str, Any]] = None) -> None:
+                    extra: Optional[Dict[str, Any]] = None,
+                    cfg=None) -> None:
     """Write ``tree`` to ``path`` (``np.savez``: ``.npz`` is appended
-    where missing), with ``step`` and ``extra`` in ``__meta__``."""
+    where missing), with ``step`` and ``extra`` in ``__meta__``.  Given
+    the ``cfg`` of a tree sharded on the active mesh, every rank calls
+    it: the whole leaves are gathered, rank 0 writes the keys and shapes
+    an unsharded save writes, and the ranks wait for it."""
+    lay = _layout(cfg)
+    if lay is not None:
+        import torch.distributed as dist
+        whole = lay.gather(tree)
+        if dist.get_rank() == 0:
+            save_checkpoint(path, whole, step=step, extra=extra)
+        dist.barrier()
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     flat: Dict[str, np.ndarray] = {}
     exotic: Dict[str, str] = {}
@@ -80,7 +99,8 @@ def save_checkpoint(path: str, tree: Any, *, step: Optional[int] = None,
     np.savez(path, __meta__=json.dumps(meta), **flat)
 
 
-def _restore(arr: np.ndarray, dtype_name: Optional[str], like):
+def _restore(arr: np.ndarray, dtype_name: Optional[str], like,
+             block=None):
     if isinstance(like, (int, float)):
         return type(like)(arr.item())
     if dtype_name == _BF16:
@@ -90,6 +110,8 @@ def _restore(arr: np.ndarray, dtype_name: Optional[str], like):
                          "the port's trees do not hold")
     else:
         t = torch.from_numpy(np.array(arr))
+    if block is not None:
+        t = block(t)
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint: leaf of shape {tuple(t.shape)}, "
                          f"expected {tuple(like.shape)}")
@@ -112,11 +134,14 @@ def _rebuild(like, leaves):
     return next(leaves)
 
 
-def load_checkpoint(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
+def load_checkpoint(path: str, like: Any, *, cfg=None
+                    ) -> Tuple[Any, Dict[str, Any]]:
     """Restore a tree with the structure of ``like``: each tensor in the
     dtype it was saved in, on the device of ``like``'s leaf.  Returns
     (tree, meta); a key ``like`` has and the file lacks raises
-    ``KeyError``."""
+    ``KeyError``.  Given the ``cfg`` of a ``like`` sharded on the active
+    mesh, each whole leaf is cut to this rank's block."""
+    lay = _layout(cfg)
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
         exotic = meta.get("exotic_dtypes", {})
@@ -124,5 +149,8 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, Dict[str, Any]]:
         for key, leaf in _paths(like):
             if key not in data:
                 raise KeyError(f"checkpoint missing key {key!r}")
-            leaves.append(_restore(data[key], exotic.get(key), leaf))
+            spec = lay.spec_of(key) if lay is not None else None
+            leaves.append(_restore(
+                data[key], exotic.get(key), leaf,
+                None if spec is None else lambda t: lay.block(spec, t)))
     return _rebuild(like, iter(leaves)), meta

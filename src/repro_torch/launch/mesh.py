@@ -73,7 +73,12 @@ def make_train_mesh(data: int, model: int):
 
 def make_host_mesh():
     """A (1, 1) ``("data", "model")`` mesh over rank 0: every sharded
-    path collapses on it to the single-device one."""
+    path collapses on it to the single-device one.  A process that is
+    not a rank of a world gets its shape alone
+    (``sharding.MeshShape``), which the paths read the same way."""
+    if not dist.is_initialized():
+        from repro_torch.sharding import MeshShape
+        return MeshShape(("data", "model"), (1, 1))
     return _mesh((1, 1), ("data", "model"))
 
 

@@ -10,6 +10,7 @@ audio (stub frame embeddings).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Union
 
 import torch
@@ -18,8 +19,8 @@ from repro_torch.config import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
 
-__all__ = ["init_params", "extra_embeds_of", "forward", "init_serve_state",
-           "serve_decode_step"]
+__all__ = ["init_params", "param_shapes", "extra_embeds_of", "forward",
+           "init_serve_state", "serve_decode_step"]
 
 
 def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
@@ -37,6 +38,20 @@ def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
     return transformer.init_lm(gen, cfg)
 
 
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg: ArchConfig):
+    """The tree of ``cfg``'s whole param shapes (``torch.Size`` leaves):
+    ``init_params`` run on fake tensors, which hold no memory (the
+    sharding rules need the whole shapes; ``sharding.LMLayout``).  Do
+    not modify the returned tree: it is cached."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.train.optimizer import tree_map
+    with FakeTensorMode():
+        params = init_params(0, cfg, device="cpu")
+    return tree_map(lambda t: torch.Size(t.shape), params)
+
+
 def extra_embeds_of(cfg: ArchConfig, batch: Dict[str, Any]):
     """The embeddings a decoder-only family prepends: the vlm's patches."""
     if cfg.family == "vlm":
@@ -49,7 +64,9 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, Any], *,
             scan_impl: Optional[str] = None):
     """Full-sequence forward -> (logits, aux_loss, n_prefix).  ``remat``
     recomputes each layer in the backward; ``impl`` selects K11 and K12,
-    ``scan_impl`` K12 alone where given (``models.transformer``)."""
+    ``scan_impl`` K12 alone where given (``models.transformer``).  Under
+    an active mesh (``sharding.use_mesh``) ``params`` are this rank's
+    blocks and ``batch`` its rows (``sharding.LMLayout``)."""
     if cfg.family == "audio":
         logits = encdec.forward_encdec(params, cfg, batch["tokens"],
                                        batch["frames"], impl=impl,

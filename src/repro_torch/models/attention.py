@@ -23,7 +23,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense_init, softcap
 
-__all__ = ["NEG_INF", "init_attention", "project", "qkv_project",
+__all__ = ["NEG_INF", "init_attention", "local_heads", "project",
+           "qkv_project",
            "out_project", "full_attention", "chunked_attention", "attend",
            "init_cache", "cache_slot", "cache_update", "cache_fill",
            "decode_attention"]
@@ -45,6 +46,42 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype):
             p[name] = torch.zeros((heads, dh), dtype=dtype,
                                   device=gen.device)
     return p
+
+
+def local_heads(params, cfg: ArchConfig, axis):
+    """A tensor-parallel rank's attention params: ``params`` holds its
+    block of the q heads (``wq`` (D, H/m, Dh), ``wo`` (H/m·Dh, D)) and
+    either its block of the kv heads, where they divide ``model``, or all
+    of them.  Returns the params the rank's heads read: the biases' rows
+    of its heads and, for whole kv heads, those its q heads use (GQA:
+    q head h reads kv head h // (H/KV)), each through ``copy_to_model``,
+    since every rank uses such a replicated param in part."""
+    from repro_torch.sharding import copy_to_model
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hl = params["wq"].shape[1]
+    q0, g = axis.rank * hl, h // kv
+    out = dict(params)
+    if "bq" in params:
+        out["bq"] = copy_to_model(params["bq"], axis)[q0:q0 + hl]
+    kvl = params["wk"].shape[1]
+    if kvl != kv:                 # kv heads sharded with the q heads
+        k0 = axis.rank * kvl
+        for name in ("bk", "bv"):
+            if name in params:
+                out[name] = copy_to_model(params[name], axis)[k0:k0 + kvl]
+        return out
+    if hl % g == 0:               # whole groups: their kv heads
+        idx = slice(q0 // g, q0 // g + hl // g)
+    elif g % hl == 0:             # part of one group: its kv head
+        idx = slice(q0 // g, q0 // g + 1)
+    else:                         # one kv head for each q head
+        idx = torch.arange(q0, q0 + hl, device=params["wk"].device) // g
+    for name in ("wk", "wv"):
+        out[name] = copy_to_model(params[name], axis)[:, idx]
+    for name in ("bk", "bv"):
+        if name in params:
+            out[name] = copy_to_model(params[name], axis)[idx]
+    return out
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

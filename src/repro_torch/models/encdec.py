@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (dtype_of, embed_init, gelu_mlp,
@@ -95,14 +96,23 @@ def _enc_block(lp, x, cfg: ArchConfig, positions, impl):
     return x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps))
 
 
-def _run_layers(block, stack, n: int, x, remat: bool, *args):
+def _run_layers(block, stack, n: int, x, remat: bool, *args, lay=None,
+                name: str = "layers"):
     """``x`` through the ``n`` layers of ``stack``, each under the
-    non-reentrant checkpoint while ``remat`` and grad mode are on."""
+    non-reentrant checkpoint while ``remat`` and grad mode are on; under
+    a mesh (``lay``) each layer's params gathered whole inside it."""
     remat = remat and torch.is_grad_enabled()
+    fn = block if lay is None else _gathered(block, lay, name)
     for lp in layers_of(stack, n):
-        x = (checkpoint(block, lp, x, *args, use_reentrant=False) if remat
-             else block(lp, x, *args))
+        x = (checkpoint(fn, lp, x, *args, use_reentrant=False) if remat
+             else fn(lp, x, *args))
     return x
+
+
+def _gathered(block, lay, name: str):
+    def run(lp, *args):
+        return block(lay.gather_layer(lp, name), *args)
+    return run
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor, *,
@@ -116,7 +126,8 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor, *,
     x = frames.to(dt) + pos_tab[None]
     positions = torch.arange(s, dtype=torch.int32, device=frames.device)
     x = _run_layers(_enc_block, params["enc_layers"], cfg.enc_layers, x,
-                    remat, cfg, positions, impl)
+                    remat, cfg, positions, impl, lay=sharding.lm_layout(cfg),
+                    name="enc_layers")
     return layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -155,7 +166,8 @@ def decode_train(params, cfg: ArchConfig, tokens, memory, *,
     mem_positions = torch.arange(memory.shape[1], dtype=torch.int32,
                                  device=x.device)
     x = _run_layers(_dec_block, params["dec_layers"], cfg.n_layers, x,
-                    remat, memory, cfg, positions, mem_positions, impl)
+                    remat, memory, cfg, positions, mem_positions, impl,
+                    lay=sharding.lm_layout(cfg), name="dec_layers")
     return _logits(params, cfg, x[:, -1:] if last_only else x)
 
 
@@ -163,7 +175,15 @@ def forward_encdec(params, cfg: ArchConfig, tokens, frames, *,
                    last_only: bool = False, impl: Optional[str] = None,
                    remat: bool = True):
     """Full encoder-decoder forward: (decoder tokens, encoder frames) ->
-    logits; ``remat`` recomputes each layer in the backward."""
+    logits; ``remat`` recomputes each layer in the backward.  Under an
+    active mesh ``params`` are this rank's blocks and the inputs its
+    rows: every param is gathered whole (the non-layer ones once, each
+    layer's inside its checkpoint) and the model runs replicated over
+    ``model``; tensor parallelism for this family is queued (ROADMAP.md
+    queue 6)."""
+    lay = sharding.lm_layout(cfg)
+    if lay is not None:
+        params = lay.gather_top(params)
     memory = encode(params, cfg, frames, impl=impl, remat=remat)
     return decode_train(params, cfg, tokens, memory, last_only=last_only,
                         impl=impl, remat=remat)

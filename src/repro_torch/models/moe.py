@@ -5,10 +5,13 @@ Every token picks its top-k experts by router probability; every expert
 then takes its top-C tokens by gate (C = ``capacity``), runs its SwiGLU
 FFN on them, batched over the expert axis, and the gate-weighted outputs
 are summed back per token.  Tokens beyond an expert's capacity are
-dropped.  The port takes the reference's single-device path always:
-``moe_forward_ep`` (expert parallelism) waits for the multi-GPU slice
-(ROADMAP.md queue 6); ``dispatch_cumsum``/``combine_cumsum``, the
-dispatch that path uses, are ported as functions of their own.
+dropped.  ``moe_forward`` takes the reference's paths on the reference's
+condition: on a mesh with a ``model`` axis under the ``"2d"`` profile
+whose size divides the experts, ``moe_forward_ep`` (expert parallelism,
+both its schemes, on ``torch.distributed``); otherwise the single-device
+path (``_moe_forward_global``), over the whole batch where a mesh shards
+it: the reference's GSPMD computes that path on the global token axis,
+so each expert's top-C tokens are chosen among all ranks' tokens.
 
 Order, so that the port chooses what the reference chooses and runs
 deterministically on the card:
@@ -27,16 +30,18 @@ deterministically on the card:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import os
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import dense_init, silu
 
-__all__ = ["init_moe", "capacity", "top_k", "moe_forward",
-           "dispatch_cumsum", "combine_cumsum"]
+__all__ = ["init_moe", "capacity", "top_k", "moe_forward", "uses_ep",
+           "slab_gather_axis", "moe_forward_ep", "dispatch_cumsum", "combine_cumsum"]
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, moe: MoEConfig,
@@ -70,10 +75,51 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(x, -1, idx), idx
 
 
+def uses_ep(mesh, moe: MoEConfig) -> bool:
+    """The reference's dispatch condition for ``moe_forward_ep``: a mesh
+    with a ``model`` dim, the ``"2d"`` profile, more than one device in
+    all, and ``model`` dividing the experts (a ``("data", "model")``
+    mesh of shape (2, 1) takes it with one model rank).  ``mesh`` may be
+    a ``sharding.MeshShape``."""
+    if mesh is None:
+        return False
+    sizes = sharding.axis_sizes(mesh)
+    return ("model" in sizes and sharding.profile() == "2d"
+            and math.prod(sizes.values()) > 1
+            and moe.num_experts % sizes["model"] == 0)
+
+
+def slab_gather_axis(mesh, moe: MoEConfig):
+    """The ``data`` axis (a ``sharding.MeshAxis``) over which
+    ``moe_forward_ep`` gathers the expert slabs' FSDP shards itself,
+    cast to the compute dtype, its backward a reduce-scatter; None where
+    the layer's gather hands it the slabs whole on ``data``
+    (``REPRO_MOE_GATHER_INSIDE=0``, no EP, or ``data`` of size 1).  The
+    one statement of the choice: ``sharding.LMLayout.gather_layer``
+    leaves the slabs to the MoE exactly when this is not None."""
+    if not uses_ep(mesh, moe) or \
+            os.environ.get("REPRO_MOE_GATHER_INSIDE", "1") == "0":
+        return None
+    return sharding.mesh_axis(mesh, "data")
+
+
 def moe_forward(params, x: torch.Tensor, moe: MoEConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> (y, aux_loss): the reference's single-device path."""
-    return _moe_forward_local(params, x, moe)
+    """x: (B,S,D) -> (y, aux_loss).  Under an active mesh ``x`` is this
+    rank's rows and ``params`` its layer's gathered params (the expert
+    slabs its block of the experts where ``moe_forward_ep`` runs)."""
+    mesh = sharding.active_mesh()
+    if uses_ep(mesh, moe):
+        return moe_forward_ep(params, x, moe, mesh)
+    return _moe_forward_global(params, x, moe, _batch_axes(mesh))
+
+
+def _batch_axes(mesh):
+    """The batch axes of ``mesh`` with more than one rank, in order."""
+    if mesh is None:
+        return []
+    return [a for a in (sharding.mesh_axis(mesh, n)
+                        for n in sharding.dp_spec(mesh)) if a is not None]
 
 
 def _route(xf: torch.Tensor, router: torch.Tensor, e: int, k: int):
@@ -89,36 +135,18 @@ def _route(xf: torch.Tensor, router: torch.Tensor, e: int, k: int):
     return gates, probs, top_p, top_i
 
 
-def _moe_forward_local(params, x: torch.Tensor, moe: MoEConfig
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device gather dispatch: route, each expert's top-C tokens
-    by gate, the expert FFNs, the fixed-order combine."""
-    b, s, d = x.shape
-    e, k = moe.num_experts, moe.top_k
-    t = b * s
-    xf = x.reshape(t, d)
-    gates, probs, _, top_i = _route(xf, params["router"], e, k)
-    c = capacity(t, moe)
-    sel_gate, sel_idx = top_k(gates.T, c)                        # (E,C)
-    xe = xf[sel_idx.reshape(-1)].reshape(e, c, d)
-    dt = x.dtype
-    ye = _expert_ffn(xe, params["wi_gate"], params["wi_up"], params["wo"],
-                     dt, n_chunks=1)
-    ye = ye * sel_gate[..., None].to(dt)
-    y = _combine_selected(ye, sel_idx, top_i)
-    return y.reshape(b, s, d), _aux_loss(gates, probs, moe)
-
-
 def _combine_selected(ye: torch.Tensor, sel_idx: torch.Tensor,
                       top_i: torch.Tensor) -> torch.Tensor:
     """ye (E,C,D) gate-weighted expert outputs of the tokens ``sel_idx``
     (E,C) -> y (T,D): each token's sum over the experts it chose that
-    kept it, in ascending expert order, from zero, in ye's dtype."""
+    kept it, in ascending expert order, from zero, in ye's dtype.  An
+    index T in ``sel_idx`` marks a slot of no token of this ``top_i``."""
     e, c, d = ye.shape
     t = top_i.shape[0]
-    slot = torch.full((e, t), -1, dtype=torch.int64, device=ye.device)
+    slot = torch.full((e, t + 1), -1, dtype=torch.int64, device=ye.device)
     slot.scatter_(1, sel_idx, torch.arange(
         c, dtype=torch.int64, device=ye.device).expand(e, c).contiguous())
+    slot = slot[:, :t]
     experts = torch.sort(top_i, dim=1).values                    # (T,k)
     slots = torch.gather(slot.T, 1, experts)                      # (T,k)
     y = torch.zeros((t, d), dtype=ye.dtype, device=ye.device)
@@ -179,11 +207,137 @@ def _expert_ffn(xe: torch.Tensor, wi_gate, wi_up, wo, dt,
     return one(xe)
 
 
-def _aux_loss(gates: torch.Tensor, probs: torch.Tensor, moe: MoEConfig
-              ) -> torch.Tensor:
-    """Switch-style load-balance loss (the reference's, without the
-    cross-device means of the expert-parallel path)."""
+def _aux_loss(gates: torch.Tensor, probs: torch.Tensor, moe: MoEConfig,
+              axes: Sequence = ()) -> torch.Tensor:
+    """Switch-style load-balance loss; the two fractions are first
+    averaged over the ranks of ``axes`` (the reference's ``pmean``; one
+    f32 all-reduce, whose backward hands each rank its share)."""
     dispatch_frac = (gates > 0).float().mean(0)
     prob_frac = probs.mean(0)
+    axes = [a for a in axes if a is not None]
+    if axes:
+        both = sharding.reduce_sum(torch.stack([dispatch_frac, prob_frac]),
+                                   *axes) / math.prod(a.size for a in axes)
+        dispatch_frac, prob_frac = both[0], both[1]
     return (moe.num_experts * (dispatch_frac * prob_frac).sum()
             * moe.aux_loss_coef)
+
+
+def _moe_forward_global(params, x: torch.Tensor, moe: MoEConfig, axes
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The single-device gather dispatch (route, each expert's top-C
+    tokens by gate, the expert FFNs, the fixed-order combine) over a
+    batch sharded on ``axes`` (this rank's rows ``x``; no axes: the
+    whole batch), as GSPMD computes it: capacity from all ranks' tokens,
+    and each expert's top-C tokens by gate among all of them (the ranks'
+    gates all-gathered, rank-major); each rank runs the experts on its
+    own selected tokens and combines its own rows."""
+    b, s, d = x.shape
+    e, k = moe.num_experts, moe.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    gates, probs, _, top_i = _route(xf, params["router"], e, k)
+    everyone = gates.detach()
+    for axis in reversed(axes):
+        everyone = sharding.all_gather_rows(everyone, axis)
+    idx = 0
+    for axis in axes:
+        idx = idx * axis.size + axis.rank
+    c = capacity(everyone.shape[0], moe)
+    _, sel_idx = top_k(everyone.T, c)                            # (E,C)
+    loc = sel_idx - idx * t
+    loc = torch.where((loc >= 0) & (loc < t), loc, t)            # t: not mine
+    xe = torch.cat([xf, xf.new_zeros((1, d))])[loc.reshape(-1)].reshape(
+        e, c, d)
+    sel_gate = torch.cat([gates, gates.new_zeros((1, e))]).T.gather(1, loc)
+    dt = x.dtype
+    ye = _expert_ffn(xe, params["wi_gate"], params["wi_up"], params["wo"],
+                     dt, n_chunks=1)
+    ye = ye * sel_gate[..., None].to(dt)
+    y = _combine_selected(ye, loc, top_i)
+    return y.reshape(b, s, d), _aux_loss(gates, probs, moe, axes)
+
+
+def moe_forward_ep(params, x: torch.Tensor, moe: MoEConfig, mesh
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism (the reference's ``shard_map`` body, on
+    ``torch.distributed``): the experts shard over ``model``; ``params``
+    holds this rank's block of the expert slabs (E/m, ...), ``x`` its
+    rows (the batch over the batch axes), whole on ``model``.
+
+    Scheme A (``S % model == 0``, ``S > 1``): the tokens shard over
+    ``model`` too (each rank its block of the sequence): local route,
+    capacity from the local token count, dispatch, ``all_to_all`` of the
+    expert blocks to their ranks, the local experts' FFN on every rank's
+    tokens, ``all_to_all`` back, combine, the sequence gathered back.
+    Scheme B (any other S: decode at ``S == 1``, or a sequence that
+    ``model`` does not divide): every rank routes all its tokens, runs
+    its own experts' slots, and the combine is an f32 sum over
+    ``model``; the tokens and gates entering the rank's own experts'
+    share sum their gradients over ``model``, as the reference's
+    ``shard_map`` does for its replicated inputs.
+    ``REPRO_MOE_DISPATCH`` (``cumsum``, the default, or the gate
+    ``top_k`` form) is read as the reference reads it, and
+    ``REPRO_MOE_GATHER_INSIDE`` through ``slab_gather_axis``.  The aux loss averages over the batch axes
+    and, in scheme A, ``model``."""
+    model = sharding.mesh_axis(mesh, "model")
+    m = sharding.mesh_axis_size(mesh, "model")
+    dp = _batch_axes(mesh)
+    e, k = moe.num_experts, moe.top_k
+    e_local = e // m
+    b, s, d = x.shape
+    dt = x.dtype
+    token_sharded = s % m == 0 and s > 1
+    use_cumsum = os.environ.get("REPRO_MOE_DISPATCH", "cumsum") == "cumsum"
+    wi_gate, wi_up, wo = params["wi_gate"], params["wi_up"], params["wo"]
+    inside = slab_gather_axis(mesh, moe)
+    if inside is not None:
+        wi_gate, wi_up, wo = sharding.flat_gather(
+            [wi_gate, wi_up, wo], [1, 1, 2], inside, dt, True)
+    router = params["router"]
+    if token_sharded:
+        router = sharding.copy_to_model(router, model)
+        x = sharding.split_dim(x, model, 1)
+    bl, sl, _ = x.shape
+    t = bl * sl
+    xf = x.reshape(t, d)
+    gates, probs, top_p, top_i = _route(xf, router, e, k)
+    c = capacity(t, moe)
+    if not token_sharded:
+        # every model rank routes all its tokens alike, so the route's and
+        # the aux's gradients are whole on each; what feeds the rank's own
+        # experts' share of y sums its cotangent over model (Megatron's f)
+        xf, top_p, gates = (sharding.copy_to_model(v, model)
+                            for v in (xf, top_p, gates))
+    if use_cumsum:
+        xe, eid, pos_clip, keep = dispatch_cumsum(xf, top_i, c, e)
+    else:
+        sel_gate, sel_idx = top_k(gates.T, c)                    # (E,C)
+        xe = xf[sel_idx.reshape(-1)].reshape(e, c, d)
+    if token_sharded:
+        # expert blocks to their ranks: (m, E_l, C, D) from every rank
+        xe = sharding.all_to_all(xe, model).reshape(m, e_local, c, d)
+        xe = xe.transpose(0, 1).reshape(e_local, m * c, d)
+        ye = _expert_ffn(xe, wi_gate, wi_up, wo, dt)
+        ye = ye.reshape(e_local, m, c, d).transpose(0, 1).contiguous()
+        ye = sharding.all_to_all(ye, model).reshape(e, c, d)
+        if use_cumsum:
+            y = combine_cumsum(ye, top_p, eid, pos_clip, keep, dt)
+        else:
+            y = _combine_selected(ye * sel_gate[..., None].to(dt), sel_idx,
+                                  top_i)
+        aux = _aux_loss(gates, probs, moe, dp + [model])
+        return sharding.gather_dim(y.reshape(bl, sl, d), model, 1), aux
+    r0 = (model.rank if model is not None else 0) * e_local
+    mine = slice(r0, r0 + e_local)
+    ye = _expert_ffn(xe[mine], wi_gate, wi_up, wo, dt)
+    if not use_cumsum:
+        ye = ye * sel_gate[mine, :, None].to(dt)
+    pad = lambda n: ye.new_zeros((n, c, d))
+    ye = torch.cat([pad(r0), ye, pad(e - r0 - e_local)])         # (E,C,D)
+    if use_cumsum:
+        y = combine_cumsum(ye, top_p, eid, pos_clip, keep, dt)
+    else:
+        y = _combine_selected(ye.float(), sel_idx, top_i)
+    y = sharding.reduce_sum(y.float(), model).to(dt)
+    return y.reshape(b, s, d), _aux_loss(gates, probs, moe, dp)

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -120,8 +121,22 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
 
 # --------------------------------------------------------------- block fwd
 
+def _tp_axis(local: int, whole: int):
+    """The ``model`` axis where a param holds ``local`` of ``whole``
+    columns (tensor parallelism under a mesh), else None."""
+    return sharding.mesh_axis(sharding.active_mesh(), "model") \
+        if local != whole else None
+
+
 def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, prefix,
                     impl):
+    """Attention with rotary; under tensor parallelism (``lp`` holds the
+    rank's q heads) on the rank's heads, its K11 launch on them, ``wo``
+    row-parallel and summed over ``model``."""
+    tp = _tp_axis(lp["wq"].shape[1], cfg.n_heads)
+    if tp is not None:
+        x_norm = sharding.copy_to_model(x_norm, tp)
+        lp = attn_mod.local_heads(lp, cfg, tp)
     q, k, v = attn_mod.qkv_project(lp, x_norm)
     q = rotary_embed(q, positions, cfg.rope_theta)
     k = rotary_embed(k, positions, cfg.rope_theta)
@@ -129,18 +144,21 @@ def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, prefix,
         q, k, v, q_pos=positions, k_pos=positions, causal=True,
         window=window, prefix=prefix, logit_cap=cfg.attn_logit_softcap,
         kernel_impl=impl)
-    return attn_mod.out_project(lp, out), k, v
+    return sharding.reduce_sum(attn_mod.out_project(lp, out), tp), k, v
 
 
 def _ffn_path(lp, x, cfg: ArchConfig):
     """The dense/moe block's second half: x + (post-norm'd) GLU MLP or
-    MoE.  Returns (x, aux_loss or None)."""
+    MoE; the MLP column- then row-parallel where ``lp`` holds the rank's
+    d_ff block.  Returns (x, aux_loss or None)."""
     h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
     aux = None
     if cfg.moe is not None:
         m, aux = moe_mod.moe_forward(lp["moe"], h, cfg.moe)
     else:
-        m = glu_mlp(lp["mlp"], h, cfg.mlp_act)
+        tp = _tp_axis(lp["mlp"]["wi_gate"].shape[-1], cfg.d_ff)
+        m = glu_mlp(lp["mlp"], sharding.copy_to_model(h, tp), cfg.mlp_act)
+        m = sharding.reduce_sum(m, tp)
     if cfg.sandwich_norms:
         m = rmsnorm(lp["post_mlp_norm"], m, cfg.norm_eps)
     return x + m, aux
@@ -184,8 +202,20 @@ def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
 # ----------------------------------------------------------------- forward
 
 def _embed_tokens(params, cfg: ArchConfig, tokens):
+    """The token embeddings; vocab-parallel where ``embed`` holds the
+    rank's rows: ids outside them read zeros, the ranks' rows summed."""
     dt = dtype_of(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dt)
+    emb = params["embed"]
+    tp = _tp_axis(emb.shape[0], cfg.vocab_padded)
+    if tp is None:
+        x = emb[tokens.long()].to(dt)
+    else:
+        ids = tokens.long() - tp.rank * emb.shape[0]
+        ok = (ids >= 0) & (ids < emb.shape[0])
+        x = emb[ids.clamp(0, emb.shape[0] - 1)].to(dt)
+        x = sharding.reduce_sum(
+            torch.where(ok[..., None], x, torch.zeros((), dtype=dt,
+                                                      device=x.device)), tp)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
@@ -211,9 +241,13 @@ def embed_inputs(params, cfg: ArchConfig, tokens, extra_embeds=None):
 
 
 def lm_logits(params, cfg: ArchConfig, x):
+    """Logits in f32; where the head holds the rank's vocab block, its
+    block of the logits, gathered over ``model``."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype)
+    tp = _tp_axis(head.shape[-1], cfg.vocab_padded)
+    logits = sharding.copy_to_model(x, tp) @ head.to(x.dtype)
+    logits = sharding.gather_dim(logits, tp, -1)
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
@@ -222,22 +256,35 @@ def forward_lm(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
                scan_impl: Optional[str] = None):
     """Full-sequence forward. Returns (logits (B,S',Vp), aux_loss,
     n_prefix).  ``remat`` recomputes each layer in the backward (only
-    while grad mode is on; the values are the same either way)."""
-    x, n_prefix = embed_inputs(params, cfg, tokens, extra_embeds)
+    while grad mode is on; the values are the same either way).
+
+    Under an active mesh (``sharding.lm_layout``) ``params`` are this
+    rank's blocks and ``tokens`` its rows: the non-layer params are
+    gathered once, each layer's inside its checkpoint (so the recompute
+    gathers them again), and the logits are this rank's rows."""
+    lay = sharding.lm_layout(cfg)
+    top = params if lay is None else lay.gather_top(params)
+    x, n_prefix = embed_inputs(top, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     wins = layer_windows(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
     for i, lp in enumerate(layers_of(params["layers"], cfg.n_layers)):
+        args = (lp, x, cfg, positions, wins[i], impl, scan_impl, lay)
         if remat:
-            x, aux = checkpoint(block_forward, lp, x, cfg, positions,
-                                wins[i], impl, scan_impl,
-                                use_reentrant=False)
+            x, aux = checkpoint(_layer_forward, *args, use_reentrant=False)
         else:
-            x, aux = block_forward(lp, x, cfg, positions, wins[i], impl,
-                                   scan_impl)
+            x, aux = _layer_forward(*args)
         aux_total = aux_total + aux
-    return lm_logits(params, cfg, x), aux_total, n_prefix
+    return lm_logits(top, cfg, x), aux_total, n_prefix
+
+
+def _layer_forward(lp, x, cfg, positions, window, impl, scan_impl, lay):
+    """``block_forward`` on the layer's params, gathered first under a
+    mesh."""
+    if lay is not None:
+        lp = lay.gather_layer(lp)
+    return block_forward(lp, x, cfg, positions, window, impl, scan_impl)
 
 
 # ------------------------------------------------------------------ decode

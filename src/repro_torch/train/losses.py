@@ -9,7 +9,7 @@ terms (``*_terms``) are shared with the sharded train engine, which sums
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -55,12 +55,15 @@ def binary_xent_terms(logits: torch.Tensor, labels: torch.Tensor
 
 def weighted_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                           w: Optional[torch.Tensor] = None, *,
-                          label_mask: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          label_mask: Optional[torch.Tensor] = None,
+                          axes: Sequence = ()) -> torch.Tensor:
     """logits (..., C), labels (...) integer, w broadcastable to labels
     -> scalar Σ_i w_i·CE_i / Σ_i w_i.  ``label_mask`` (labels' shape)
     drops the positions where it is 0 from both sums, as the
-    reference's token-level mask does."""
+    reference's token-level mask does.  ``axes`` (``sharding.MeshAxis``es
+    whose ranks hold the other rows): both sums are taken over their
+    ranks' rows too, in one f32 all-reduce whose backward hands each
+    rank the gradient of the whole loss at its own rows."""
     ce = softmax_xent_terms(logits, labels)
     if label_mask is not None:
         ce = ce * label_mask.float()
@@ -71,6 +74,11 @@ def weighted_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
             w.shape + (1,) * (ce.ndim - w.ndim)).expand(ce.shape)
     if label_mask is not None:
         w_full = w_full * label_mask.float()
+    if axes:
+        from repro_torch.sharding import reduce_sum
+        both = reduce_sum(torch.stack([(w_full * ce).sum(), w_full.sum()]),
+                          *axes)
+        return both[0] / torch.clamp(both[1], min=1e-12)
     return (w_full * ce).sum() / torch.clamp(w_full.sum(), min=1e-12)
 
 
