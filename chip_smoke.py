@@ -9,6 +9,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
     python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
     python3 chip_smoke.py --only llm-train        # build K11/K12, training
+    python3 chip_smoke.py --only long-context     # build K11/K12, long_500k
     python3 chip_smoke.py --only sharded          # the VFL kernels, mesh=
     python3 chip_smoke.py --only llm-sharded      # build K11, LLM on a mesh
 
@@ -290,7 +291,30 @@ Phases, each printing JSON lines:
               tinyllama's params and Adam state after 3 steps, loaded
               into fresh tensors on the card: step 4 bitwise the
               uninterrupted run's.
-19. sharded — the HI treecss × mlp pipeline with ``mesh=``
+19. long_context — the long_500k serving shape (one request, a context
+              of 524,288) of mamba2-1.3b, hymba-1.5b and gemma2-9b at
+              full width and depth in bf16, with ``force_window`` as
+              ``launch.specs.build_decode`` sets it (every attention
+              layer on a ring cache of its window): a seeded prompt of
+              32,768 tokens through the engine's prefill (K12 a Mamba2
+              layer, K11 an attention layer, counted), timed over 3 more
+              runs, bitwise equal; 32 greedy serve steps from it and 32
+              from a copy of its caches at positions 524,256 … 524,287
+              (ms a token, finite logits); peak GB; the decode state's
+              bytes beside what full-context caches would take, no cache
+              of the context's size.  Gates: the first, middle and last
+              layer's K11 and K12 launches of the counted bf16 prefill,
+              kept with their inputs and held against the plain versions
+              on them (K11's bf16 tensor-core instance on three slices of
+              1,024 query rows within one bf16 ulp, 2^-7·|plain| + 1e-6;
+              K12 within 1e-5·(1 + max|plain|)), each also timed alone;
+              the f32 model at 8,192 tokens (every ring wraps), kernels
+              against plain versions: the prefill's last logits, 8 steps
+              after it and 8 far out, fed the plain run's tokens, within
+              1e-3·(1 + max|logits|); every ring cache's ``pos`` as
+              ``cache_slot`` maps it; CUDA's cos/sin of the rotary angles
+              there within 1e-6 of float64's.
+20. sharded — the HI treecss × mlp pipeline with ``mesh=``
               (``repro_torch.sharding``), the kernels built once here
               before any rank starts: 2 ranks on ``("data",)`` and 4 on
               (data 2, model 2), f32 and int8, spawned by
@@ -310,12 +334,12 @@ Phases, each printing JSON lines:
               an eval block, and the profiler seeing K2's (K10's) kernel
               in one epoch; each stage's wall a rank and its collectives
               (calls, staged, bytes).
-20. llm_sharded — LLM training on a (data 2, model 2) mesh, profile
+21. llm_sharded — LLM training on a (data 2, model 2) mesh, profile
               "2d", 4 gloo ranks on the one card (every collective staged
               through host memory: no NCCL figure), K11 built here before
               the ranks start; again over NCCL, one rank a card, where the
-              host has 2 or more.  tinyllama-1.1b at full width and depth
-              (B 2 × S 2,048): the f32 loss within ``TRAIN_LOSS_RTOL`` and
+              host has 2 or more.  tinyllama-1.1b at full width, 8 of
+              its 22 layers (B 2 × S 2,048): the f32 loss within ``TRAIN_LOSS_RTOL`` and
               every gradient leaf, gathered whole, within ``grad_gate``'s
               bounds of the unsharded ones on the card (the worst leaf
               named); the config's bf16 (f32 masters, bf16 compute): the
@@ -323,8 +347,8 @@ Phases, each printing JSON lines:
               from the f32 one as the unsharded bf16 leaf is (plus
               ``TRAIN_GRAD_FLOOR``·max‖g‖), then 3 steps twice: losses
               bitwise across the runs and falling, the first within 0.1%
-              of the unsharded first loss; K11 launched 44 times and its
-              backward 22 times a step on every rank, both seen by the
+              of the unsharded first loss; K11 launched 16 times and its
+              backward 8 times a step on every rank, both seen by the
               profiler there; each rank's params and Adam moments at most 30% of
               the unsharded bytes; step ms, peak GB and collectives a step
               for each rank.  olmoe-1b-7b at full width, 2 layers (the
@@ -3716,6 +3740,357 @@ def llm_phase(dev, phase, arch):
     return row
 
 
+# --------------------------------------------------- long-context serving
+
+# long_500k (configs.INPUT_SHAPES): one request (B = 1) decoding at a
+# context of 524,288, for the archs ``launch.specs.supports`` allows it
+LONG_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "gemma2-9b")
+LONG_PROMPT = 32_768           # prefill_32k's seq_len
+LONG_NEW = 32
+LONG_CHECK_PROMPT = 8_192      # twice gemma2's window: every ring wraps
+LONG_CHECK_STEPS = 8           # f32 steps compared after it and far out
+ROPE_F64_TOL = 1e-6            # CUDA cos/sin of the f32 angle vs float64
+LONG_SLICE = 1024              # query rows of a plain K11 slice
+
+
+def kept_calls(module, name, keep):
+    """A context in which ``module.<name>`` (a kernel's op, which the
+    model looks up at each call) runs as before and keeps, on the host,
+    the args, keywords and result of its calls numbered ``keep`` (from 0):
+    yields {number: (args, kwargs, result)}; launches are counted by the
+    op itself, as before."""
+    import contextlib
+
+    host = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+
+    @contextlib.contextmanager
+    def run():
+        orig, kept, seen = getattr(module, name), {}, [0]
+
+        def spy(*args, **kw):
+            out = orig(*args, **kw)
+            if seen[0] in keep:
+                kept[seen[0]] = (tuple(map(host, args)), kw,
+                                 tuple(map(host, out)) if isinstance(
+                                     out, tuple) else host(out))
+            seen[0] += 1
+            return out
+
+        setattr(module, name, spy)
+        try:
+            yield kept
+        finally:
+            setattr(module, name, orig)
+    return run()
+
+
+@torch.no_grad()
+def long_kernel_checks(dev, arch, k11, k12):
+    """The K11 and K12 launches kept from the counted bf16 prefill of
+    32,768 tokens (the first, middle and last layer's), held against
+    their plain versions on the same inputs: K11's output (its bf16
+    tensor-core instance, with the layer's window, pinned prefix and
+    softcap) on three slices of ``LONG_SLICE`` query rows (the first,
+    the middle, the last; the plain version is f32 full attention on
+    the keys up to the slice's end, suffix-aligned) within one bf16 ulp,
+    2^-7·|plain| + 1e-6, the ``kernels`` line's bf16 bound; K12's y and
+    final state (f32) within 1e-5·(1 + max|plain|), its rows' bound.
+    Each kept launch is also timed alone (CUDA events); K11's beside its
+    bound, as ``flash_row`` counts it (QKᵀ one bf16 pass, P·V three, over
+    the pairs the causal window and prefix leave visible).  Returns
+    (rows, faults)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    rows, faults = [], []
+    for call, ((q, k, v), kw, out) in sorted(k11.items()):
+        q, k, v, out = (t.to(dev).contiguous() for t in (q, k, v, out))
+        mask = {key: kw[key] for key in ("causal", "window", "prefix",
+                                         "logit_cap")}
+        sq, err = q.shape[1], 0.0
+        for a in sorted({0, (sq - LONG_SLICE) // 2, sq - LONG_SLICE}):
+            e = a + LONG_SLICE
+            want = fa_ref.flash_attention(q[:, a:e], k[:, :e], v[:, :e],
+                                          **mask).float()
+            d = (out[:, a:e].float() - want).abs()
+            err = max(err, float(d.max()))
+            if bool((d > BF16_ULP * want.abs() + 1e-6).any()):
+                faults.append(f"{arch}: K11 launch {call} at the long "
+                              f"shape, rows {a}…{e}, {float(d.max())} off "
+                              "the plain version (> one bf16 ulp)")
+            del want, d
+        r = np.arange(sq, dtype=np.int64)         # sq == sk: a prefill
+        visible = int((np.minimum(r + 1, mask["window"] or sq) + np.clip(
+            np.minimum(mask["prefix"], r - mask["window"] + 1), 0, None)
+            * (mask["window"] > 0)).sum())
+        b_ms, b_by = bound(
+            q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            (1 + 3) * 2 * q.shape[0] * q.shape[2] * q.shape[3] * visible,
+            BF16_FLOPS)
+        rows.append(dict(
+            name="flash_attention", launch=call, shape=list(q.shape)
+            + [k.shape[2]], dtype=str(q.dtype).split(".")[-1], **mask,
+            rows_checked=3 * LONG_SLICE, max_abs_err=err,
+            ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, **mask),
+                       reps=5), bound_ms=b_ms, bound_by=b_by,
+            visible_pairs=visible))
+        del q, k, v, out
+    for call, (args, kw, (y, fs)) in sorted(k12.items()):
+        args = tuple(t.to(dev).float().contiguous() for t in args)
+        y, fs = y.to(dev), fs.to(dev)
+        wy, wfs = ssd_ref.ssd_scan(*args, kw["chunk"])
+        err = 0.0
+        for what, got, want in (("y", y, wy), ("state", fs, wfs)):
+            d = float((got - want).abs().max())
+            err = max(err, d)
+            if d > 1e-5 * (1 + float(want.abs().max())):
+                faults.append(f"{arch}: K12 launch {call} at the long "
+                              f"shape, {what} {d} off the plain version")
+        rows.append(dict(
+            name="ssd_scan", launch=call, shape=list(args[0].shape),
+            chunk=kw["chunk"], max_abs_err=err,
+            ms=cuda_ms(lambda: ssd_scan_cuda(*args, chunk=kw["chunk"]),
+                       reps=5)))
+        del args, y, fs, wy, wfs
+    torch.cuda.empty_cache()
+    return rows, faults
+
+
+def long_steps(params, step, caches, start, tok, n, feed=None):
+    """``n`` serve steps at positions ``start`` … ``start + n - 1``, fed
+    ``tok`` then each step's argmax, or the tokens of ``feed`` (B, n):
+    (ms a token, logits (n, B, Vp) f32, the tokens fed (B, n))."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, fed, cur = [], [], tok
+    for t in range(n):
+        cur = cur if feed is None else feed[:, t]
+        fed.append(cur)
+        cur, lg, caches = step(params, caches, start + t, cur)
+        logits.append(lg.float())
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / n, torch.stack(logits),
+            torch.stack(fed, 1))
+
+
+def ring_faults(arch, cfg, caches, nxt, force_window):
+    """Every windowed cache's ``pos`` against ``attention.cache_slot``'s
+    map after a prefill of ``nxt`` positions: the pinned prefix and the
+    window's last positions, each in its slot, and nothing else."""
+    from repro_torch.models import attention, transformer
+
+    prefix = cfg.hybrid_meta_tokens
+    wins = transformer.layer_windows(cfg, force_window=force_window)
+    out = []
+    for i, e in enumerate(caches):
+        if "attn" not in e or not wins[i]:
+            continue
+        pos = e["attn"]["pos"]
+        cap = pos.shape[0]
+        want = torch.full_like(pos, -1)
+        for p in list(range(prefix)) + list(range(max(prefix, nxt - cap
+                                                       + prefix), nxt)):
+            want[attention.cache_slot(p, cap, wins[i], prefix)] = p
+        if cap != prefix + wins[i] or not torch.equal(pos, want):
+            out.append(f"{arch} layer {i}: ring slots hold "
+                       f"{pos.tolist()[:8]}…, cache_slot's map "
+                       f"{want.tolist()[:8]}… (capacity {cap})")
+    return out
+
+
+def rope_probe(cfg, dev, ctx):
+    """Rotary at positions ctx - 32 … ctx - 1 on the card: the ``inv_freq``
+    entries that differ from the CPU's, CUDA's cos/sin of the f32 angles
+    against float64's of the same angles, and the rotated values against
+    the CPU's (seeded x)."""
+    from repro_torch.models.layers import rotary_embed
+
+    half = cfg.resolved_head_dim // 2
+    pos = torch.arange(ctx - 32, ctx, dtype=torch.int32)
+    inv = [1.0 / (cfg.rope_theta ** (torch.arange(
+        half, dtype=torch.float32, device=d) / half)) for d in (dev, "cpu")]
+    ang = pos.to(dev)[:, None].float() * inv[0]
+    a64 = ang.cpu().double()
+    trig = max(float((torch.cos(ang).cpu().double() - a64.cos()).abs().max()),
+               float((torch.sin(ang).cpu().double() - a64.sin()).abs().max()))
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(1, 32, 2, 2 * half)).astype(np.float32))
+    rot = (rotary_embed(x.to(dev), pos.to(dev), cfg.rope_theta).cpu()
+           - rotary_embed(x, pos, cfg.rope_theta)).abs().max()
+    return dict(head_dim=2 * half, theta=cfg.rope_theta,
+                inv_freq_differ=int((inv[0].cpu() != inv[1]).sum()),
+                cos_sin_vs_f64=trig, rotary_card_vs_cpu=float(rot),
+                max_abs_x=float(x.abs().max()))
+
+
+def long_context_run(dev, arch):
+    """One long_500k path at full width and depth in the config's bf16:
+    seeded params on the card, a seeded prompt of 32,768 tokens through
+    the engine's prefill (``force_window`` as ``specs.build_decode`` sets
+    it; the caches sized for the 524,288 context) — the run whose
+    launches count —, timed over 3 more runs, then 32 greedy serve steps
+    from it and 32 from a copy of its caches at positions 524,256 …
+    524,287.  Gates: the K11/K12 launches of the counted prefill (the
+    first, middle and last layer's) against their plain versions on the
+    same inputs (``long_kernel_checks``); the f32 model at 8,192 tokens,
+    kernels against plain versions (``impl="ref"``), the prefill's last
+    logits and 8 steps after it and 8 far out, each fed the plain run's
+    tokens, within ``LLM_F32_RTOL``·(1 + max|logits|) (far out, no prompt
+    position lies inside a window: the steps hold the rings' masking and,
+    for hymba, the pinned prefix's K/V; for gemma2 the two runs agree
+    there by construction); every ring cache's slots as ``cache_slot``
+    maps them."""
+    import dataclasses
+    import gc
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels.build import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import specs
+    from repro_torch.models import api, transformer
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    from repro_torch.train.optimizer import tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    shape = INPUT_SHAPES["long_500k"]
+    if not specs.supports(cfg, shape)[0]:
+        raise AssertionError(f"{arch}: not a long_500k arch")
+    b, ctx = shape.global_batch, shape.seq_len
+    fw = shape.name == "long_500k" and cfg.family != "ssm"
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(SEED, cfg, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (b, LONG_PROMPT)).astype(np.int32)).to(dev)
+    pre = make_prefill_step(cfg, context_len=ctx, force_window=fw,
+                            last_only=True)
+    step = make_serve_step(cfg, force_window=fw)
+    pre(params, {"tokens": toks[:, :512]})               # first use, untimed
+    torch.cuda.synchronize()
+    want = path_launches(cfg, LONG_PROMPT, LONG_NEW)
+    keep = {op: {0, n // 2, n - 1} for op, n in want.items()}
+    reset_launches()
+    with kept_calls(fa_ops, "flash_attention",
+                    keep.get("flash_attention", ())) as k11, \
+            kept_calls(ssd_ops, "ssd_scan", keep.get("ssd_scan", ())) as k12:
+        logits, caches, nxt = pre(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    if launched != want:
+        raise AssertionError(f"{arch} long_500k: launches {launched}, "
+                             f"expected {want}")
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, _, _ = pre(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(again, logits):
+            raise AssertionError(f"{arch} long_500k: two prefills differ")
+    del again
+    state = _tree_bytes(caches)
+    with FakeTensorMode():
+        full_state = _tree_bytes(transformer.init_decode_state(
+            cfg, b, ctx, force_window=False, device="cpu"))
+    far = tree_map(torch.clone, caches)
+    tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    decode_ms, steps, fed = long_steps(params, step, caches, nxt, tok0,
+                                       LONG_NEW)
+    far_ms, far_steps, far_fed = long_steps(params, step, far,
+                                            ctx - LONG_NEW, tok0, LONG_NEW)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    faults = []
+    for name, t in (("prefill", logits), ("decode", steps),
+                    ("far decode", far_steps)):
+        if not bool(torch.isfinite(t).all()):
+            faults.append(f"non-finite {name} logits")
+    caps = sorted({e["attn"]["k"].shape[1] for e in caches if "attn" in e})
+    if any(c >= ctx for c in caps):
+        faults.append(f"a full-context cache under force_window: {caps}")
+    del caches, far, steps, far_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gate: the f32 model at 8,192 tokens, plain versions then kernels
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch32 = {"tokens": toks[:, :LONG_CHECK_PROMPT]}
+    step32 = make_serve_step(cfg32, force_window=fw)
+    runs = {}
+    for impl in ("ref", None):
+        lg, c32, n32 = make_prefill_step(
+            cfg32, context_len=ctx, force_window=fw, impl=impl,
+            last_only=True)(params, batch32)
+        if impl is None:
+            faults += ring_faults(arch, cfg32, c32, n32, fw)
+        lg = lg[:, -1].float()
+        feed = runs["ref"] if impl is None else None
+        first = torch.argmax(lg, -1).to(torch.int32)
+        far32 = tree_map(torch.clone, c32)
+        _, near, near_fed = long_steps(
+            params, step32, c32, n32, first, LONG_CHECK_STEPS,
+            feed=feed["near_fed"] if feed else None)
+        _, out, out_fed = long_steps(
+            params, step32, far32, ctx - LONG_CHECK_STEPS, first,
+            LONG_CHECK_STEPS, feed=feed["far_fed"] if feed else None)
+        runs["ref" if impl else "kernel"] = dict(
+            logits=torch.cat([lg[None], near, out]), near_fed=near_fed,
+            far_fed=out_fed)
+        del c32, far32
+        gc.collect()
+        torch.cuda.empty_cache()
+    p32, k32 = runs["ref"]["logits"], runs["kernel"]["logits"]
+    tol32 = LLM_F32_RTOL * (1 + float(p32.abs().max()))
+    errs = (k32 - p32).abs().amax((1, 2))
+    if not bool(torch.isfinite(k32).all()):
+        faults.append("non-finite f32 kernel logits")
+    if float(errs.max()) > tol32:
+        faults.append(f"f32 logits, kernel vs plain, {errs.tolist()} > "
+                      f"{tol32} (prefill, {LONG_CHECK_STEPS} steps, "
+                      f"{LONG_CHECK_STEPS} far steps)")
+    rope = rope_probe(cfg, dev, ctx) if cfg.family != "ssm" else None
+    if rope and rope["cos_sin_vs_f64"] > ROPE_F64_TOL:
+        faults.append(f"rotary at ~5.2e5 rad: CUDA cos/sin "
+                      f"{rope['cos_sin_vs_f64']} from float64's")
+    row = dict(
+        phase="long_context", arch=arch, shape=shape.name, batch=b,
+        context=ctx, force_window=fw, prompt=LONG_PROMPT,
+        new_tokens=LONG_NEW, dtype=cfg.dtype,
+        params=sum(t.numel() for t in _leaves(params)),
+        launches=launched, prefill_ms=prefill_ms,
+        decode_ms_per_token=decode_ms, far_decode_ms_per_token=far_ms,
+        far_positions=[ctx - LONG_NEW, ctx - 1], peak_mem_gb=peak_gb,
+        decode_state_bytes=state, decode_state_bytes_without_window=full_state,
+        cache_capacities=caps, tokens=fed[0, :8].tolist(),
+        far_tokens=far_fed[0, :8].tolist(),
+        f32_check_prompt=LONG_CHECK_PROMPT, f32_tol=tol32,
+        f32_errs=errs.tolist(), f32_logits_max_abs=float(p32.abs().max()),
+        rope=rope)
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["long_kernels"], more = long_kernel_checks(dev, arch, k11, k12)
+    faults += more
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    if faults:
+        raise AssertionError(f"{arch} long_500k: " + "; ".join(faults))
+    return row
+
+
+def long_context_phase(dev):
+    """The long_500k paths of mamba2-1.3b, hymba-1.5b and gemma2-9b, each
+    with its own launch count (K12 / K11 and K12 / K11 a layer of the
+    prefill)."""
+    return [long_context_run(dev, arch) for arch in LONG_ARCHS]
+
+
 # ----------------------------------------------------------- LLM training
 
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "tinyllama-1.1b", 2, 2048, 6
@@ -4699,6 +5074,7 @@ ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
         "sharded": ["psi_prf", "sorted_intersect", "kmeans_update",
                     "kmeans_assign", "splitnn_bottom"],
         "llm-paths": ["flash_attention", "ssd_scan"],
+        "long-context": ["flash_attention", "ssd_scan"],
         "llm-train": ["flash_attention", "flash_attention_bwd", "ssd_scan"],
         "llm-sharded": ["flash_attention", "flash_attention_bwd"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
@@ -4712,7 +5088,8 @@ def main(argv) -> int:
     if (argv and only not in ONLY or len(argv) > 2 and not phases
             or not set(phases) <= {p for p, _ in LLM_PHASES}):
         print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
-              "...]|llm-train|kmeans-kernels|bottom-kernels|psi-kernels|"
+              "...]|llm-train|long-context|kmeans-kernels|bottom-kernels|"
+              "psi-kernels|"
               "sharded|llm-sharded]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4729,7 +5106,8 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     secs = build.build_all(ONLY.get(only))
     sass = ssd_sass = bwd_sass = None
-    if only in (None, "llm-kernels", "llm-paths", "llm-train"):
+    if only in (None, "llm-kernels", "llm-paths", "llm-train",
+                "long-context"):
         # K11's bf16 instances must run both products on the tensor cores;
         # K12's census is a record (its products are f32 FMAs, PERF.md)
         sass = sass_census("flash_attention")
@@ -4838,6 +5216,13 @@ def main(argv) -> int:
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
+    if only == "long-context":
+        # the long_500k serving paths (force_window): the quick check of
+        # an edit to the long-context path (not the contract run)
+        long_context_phase(dev)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     if only == "llm-train":
         # LLM training at full width, the reduced configs and the
         # checkpoint resume: the quick check of an edit to the training
@@ -4902,6 +5287,8 @@ def main(argv) -> int:
             kernel_vs_f64=worst["y_kernel_vs_f64"],
             plain_vs_f64=worst["y_plain_vs_f64"]))
     pipe_rows += list(llm.values()) + [train]
+    # long_500k serving: its own launch counts (K11/K12 a prefill layer)
+    pipe_rows += long_context_phase(dev)
     # the sharded pipeline: its own path, its own launch counts (each rank's)
     pipe_rows += sharded_phase(dev, smi)
     # LLM training on a (data, model) mesh: its own launch counts (each

@@ -15,11 +15,15 @@ CUDA state or thread is inherited) join one process group through a
 each rank's return value.  A rank that raises, dies or outlives the
 timeout fails the call, and every rank still alive is then stopped.
 
-``make_production_mesh`` (the TPU pod meshes, with ``launch/specs`` and
-``launch/dryrun``) waits for a later slice (ROADMAP.md, queue 7d).
+``make_production_mesh`` gives the reference's production meshes, one
+pod (16, 16) ``("data", "model")`` or two (2, 16, 16) ``("pod", "data",
+"model")``: a ``DeviceMesh`` inside a world of that many ranks, else
+their shape alone, which ``launch/specs`` and ``launch/dryrun`` lay
+params, batches and caches out on.
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import shutil
@@ -31,8 +35,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_data_mesh", "make_train_mesh", "make_host_mesh",
-           "default_backend", "run_ranks"]
+__all__ = ["make_production_mesh", "make_data_mesh", "make_train_mesh",
+           "make_host_mesh", "default_backend", "run_ranks"]
 
 
 def _mesh(shape, names):
@@ -43,6 +47,20 @@ def _mesh(shape, names):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: (16, 16) ``("data", "model")``, or with
+    ``multi_pod`` (2, 16, 16) ``("pod", "data", "model")``.  A
+    ``DeviceMesh`` over the ranks where a process group of that size is
+    running; otherwise its shape (``sharding.MeshShape``), what the
+    layout rules read."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dist.is_initialized() and dist.get_world_size() == math.prod(shape):
+        return _mesh(shape, names)
+    from repro_torch.sharding import MeshShape
+    return MeshShape(names, shape)
 
 
 def make_data_mesh(n_devices: Optional[int] = None, *, model: int = 1):

@@ -10,8 +10,9 @@ audio (stub frame embeddings).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -19,8 +20,16 @@ from repro_torch.config import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
 
-__all__ = ["init_params", "param_shapes", "extra_embeds_of", "forward",
-           "init_serve_state", "serve_decode_step"]
+__all__ = ["TensorSpec", "init_params", "param_specs", "param_shapes",
+           "extra_embeds_of", "forward", "init_serve_state",
+           "serve_decode_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and dtype, with no storage."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
@@ -39,17 +48,23 @@ def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
 
 
 @functools.lru_cache(maxsize=None)
-def param_shapes(cfg: ArchConfig):
-    """The tree of ``cfg``'s whole param shapes (``torch.Size`` leaves):
-    ``init_params`` run on fake tensors, which hold no memory (the
-    sharding rules need the whole shapes; ``sharding.LMLayout``).  Do
-    not modify the returned tree: it is cached."""
+def param_specs(cfg: ArchConfig):
+    """``init_params``' tree as ``TensorSpec``s: run on fake tensors,
+    which hold no memory.  Do not modify the returned tree: it is
+    cached."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.train.optimizer import tree_map
-    with FakeTensorMode():
+    with FakeTensorMode(allow_non_fake_inputs=True):
         params = init_params(0, cfg, device="cpu")
-    return tree_map(lambda t: torch.Size(t.shape), params)
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), params)
+
+
+def param_shapes(cfg: ArchConfig):
+    """The tree of ``cfg``'s whole param shapes (``torch.Size`` leaves;
+    the sharding rules need the whole shapes: ``sharding.LMLayout``)."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda s: torch.Size(s.shape), param_specs(cfg))
 
 
 def extra_embeds_of(cfg: ArchConfig, batch: Dict[str, Any]):
@@ -81,9 +96,12 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, Any], *,
 # ------------------------------------------------------------------ serving
 
 def init_serve_state(params, cfg: ArchConfig, batch: int, context_len: int,
-                     *, memory: Optional[torch.Tensor] = None, device=None):
+                     *, memory: Optional[torch.Tensor] = None,
+                     force_window: bool = False, device=None):
     """Decode caches; the audio family's also hold the cross K/V of the
-    encoder ``memory``, which it needs."""
+    encoder ``memory``, which it needs.  ``force_window`` puts every
+    attention layer of a decoder-only family on a ring cache of its
+    window (``transformer.layer_windows``)."""
     if cfg.family == "audio":
         if memory is None:
             raise ValueError(f"{cfg.arch_id}: decoding needs the encoder "
@@ -93,15 +111,18 @@ def init_serve_state(params, cfg: ArchConfig, batch: int, context_len: int,
     if device is None:
         device = params["embed"].device
     return transformer.init_decode_state(cfg, batch, context_len,
+                                         force_window=force_window,
                                          device=device)
 
 
 def serve_decode_step(params, cfg: ArchConfig, caches, cur_index: int,
-                      token, *, impl: Optional[str] = None):
+                      token, *, force_window: bool = False,
+                      impl: Optional[str] = None):
     """One decode step -> (logits (B,Vp), caches).  ``impl`` reaches the
     audio family's cross-attention (K11 on the card); a decoder-only
-    step runs no kernel."""
+    step runs no kernel.  ``force_window`` as the caches were made."""
     if cfg.family == "audio":
         return encdec.decode_step(params, cfg, caches, cur_index, token,
                                   impl=impl)
-    return transformer.decode_step(params, cfg, caches, cur_index, token)
+    return transformer.decode_step(params, cfg, caches, cur_index, token,
+                                   force_window=force_window)

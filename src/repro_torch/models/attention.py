@@ -5,7 +5,10 @@ Supports sliding windows (ring-buffer caches), always-visible prefixes,
 attention logit softcapping and optional rotary.  ``attend`` picks the
 algorithm: on a CUDA tensor the default is K11, the hand-written flash
 kernel (``kernels/flash_attention``); on the CPU it is the reference's
-rule (full below 8,192 tokens, chunked above).  Masked scores take the
+rule (full below 8,192 tokens, chunked above).  ``use_form(form)``
+fixes the form the layers' calls take inside it (the reference's
+``attn_impl``, which its model code passes down; the dry run counts its
+FLOPs in the ``"full"`` form).  Masked scores take the
 finite ``NEG_INF``, as the reference, so a row whose first visible k
 block is fully masked stays finite.
 
@@ -16,6 +19,7 @@ decode step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -26,10 +30,13 @@ from repro_torch.models.layers import dense_init, softcap
 __all__ = ["NEG_INF", "init_attention", "local_heads", "project",
            "qkv_project",
            "out_project", "full_attention", "chunked_attention", "attend",
+           "use_form",
            "init_cache", "cache_slot", "cache_update", "cache_fill",
            "decode_attention"]
 
 NEG_INF = -1e30
+
+_FORM: Optional[str] = None     # use_form's, None: attend's own rule
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -199,6 +206,8 @@ def attend(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
     reference's full/chunked rule on the CPU.  ``kernel_impl`` reaches
     K11's op: ``"ref"`` asks for its plain version on the card."""
     if impl in (None, "auto"):
+        impl = _FORM
+    if impl in (None, "auto"):
         if q.device.type == "cuda":
             impl = "flash"
         else:
@@ -212,6 +221,21 @@ def attend(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
     fn = {"full": full_attention, "chunked": chunked_attention}[impl]
     return fn(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
               window=window, prefix=prefix, logit_cap=logit_cap)
+
+
+@contextlib.contextmanager
+def use_form(form: Optional[str]):
+    """Inside it, ``attend`` called with no form computes ``form``
+    (``"full"``, ``"chunked"``, ``"flash"``; ``None``/``"auto"``:
+    its own rule); on exit the form before it holds again."""
+    global _FORM
+    if form not in (None, "auto", "full", "chunked", "flash"):
+        raise ValueError(f"unknown attention form {form!r}")
+    outer, _FORM = _FORM, form
+    try:
+        yield
+    finally:
+        _FORM = outer
 
 
 # ----------------------------------------------------------------- KV caches

@@ -12,8 +12,10 @@ layer's params once (``layers_of``).  The reference's ``unroll`` only
 shapes XLA's program (a Python loop in place of the scan) and is not
 ported: the port's loop is already unrolled.  The reference's
 layer-scanned ``prefill_scanned``/``decode_step_scanned`` exist to keep
-XLA's programs small and are not ported; ``force_window`` (long_500k)
-waits for ``launch/`` (ROADMAP.md queue 7d).
+XLA's programs small and are not ported.  ``force_window`` (the
+long_500k serving shape, ``launch.specs.build_decode``) puts every
+attention layer on a ring cache of ``sliding_window`` slots, so a
+decode at a context of 524,288 holds O(window) keys a layer.
 
 Families: hybrid (hymba) runs attention and Mamba2 side by side on one
 normed input, with ``hybrid_meta_tokens`` learned tokens prepended and
@@ -52,16 +54,19 @@ __all__ = ["layer_windows", "init_layer", "init_lm", "block_forward",
 
 # ------------------------------------------------------------ layer metadata
 
-def layer_windows(cfg: ArchConfig) -> List[int]:
+def layer_windows(cfg: ArchConfig, *, force_window: bool = False
+                  ) -> List[int]:
     """Per-layer sliding window (0 = full attention): gemma2-style
     local/global alternation keeps even layers local; hymba's
-    ``hybrid_global_layers`` attend in full."""
+    ``hybrid_global_layers`` attend in full.  ``force_window`` gives
+    those global layers ``sliding_window`` too (a config with no window
+    keeps 0)."""
     if cfg.local_global_alternate:
-        return [cfg.sliding_window if i % 2 == 0 else 0
+        return [cfg.sliding_window if i % 2 == 0 or force_window else 0
                 for i in range(cfg.n_layers)]
     if cfg.family == "hybrid":
-        return [0 if i in cfg.hybrid_global_layers else cfg.sliding_window
-                for i in range(cfg.n_layers)]
+        return [0 if i in cfg.hybrid_global_layers and not force_window
+                else cfg.sliding_window for i in range(cfg.n_layers)]
     return [cfg.sliding_window] * cfg.n_layers
 
 
@@ -290,14 +295,14 @@ def _layer_forward(lp, x, cfg, positions, window, impl, scan_impl, lay):
 # ------------------------------------------------------------------ decode
 
 def init_decode_state(cfg: ArchConfig, batch: int, context_len: int, *,
-                      device=None):
+                      force_window: bool = False, device=None):
     """Per-layer cache list sized for decoding with ``context_len`` history.
     A full-attention layer also holds the prepended meta tokens and
     patches; a windowed one the pinned meta tokens plus its window."""
     dt = dtype_of(cfg.dtype)
     prefix = cfg.hybrid_meta_tokens
     cap_full = context_len + cfg.hybrid_meta_tokens + cfg.vision_tokens
-    wins = layer_windows(cfg)
+    wins = layer_windows(cfg, force_window=force_window)
     caches: List[Any] = []
     for i in range(cfg.n_layers):
         entry: Dict[str, Any] = {}
@@ -327,15 +332,17 @@ def _decode_attn(lp, cfg, x_norm, cache, cur_index: int, window: int,
     return attn_mod.out_project(lp, out), cache
 
 
-def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token):
+def decode_step(params, cfg: ArchConfig, caches, cur_index: int, token, *,
+                force_window: bool = False):
     """One decode step. token: (B,) int32; cur_index: the absolute position
     (a Python int, counting any meta tokens and patches). Returns (logits
-    (B,Vp), caches); attention caches are updated in place."""
+    (B,Vp), caches); attention caches are updated in place.
+    ``force_window`` must be the one the caches were made with."""
     cur_index = int(cur_index)
     eps = cfg.norm_eps
     prefix = cfg.hybrid_meta_tokens
     x = _embed_tokens(params, cfg, token[:, None])                # (B,1,D)
-    wins = layer_windows(cfg)
+    wins = layer_windows(cfg, force_window=force_window)
     new_caches = []
     for i in range(cfg.n_layers):
         lp = layer_of(params["layers"], i)
@@ -370,8 +377,8 @@ def _attn_prefill(lp, cfg, h, cache, positions, window, prefix, impl):
 
 
 def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
-            context_len: Optional[int] = None, impl: Optional[str] = None,
-            last_only: bool = False):
+            context_len: Optional[int] = None, force_window: bool = False,
+            impl: Optional[str] = None, last_only: bool = False):
     """Run the full prompt (after any patches and meta tokens) and build
     decode caches.
 
@@ -385,9 +392,10 @@ def prefill(params, cfg: ArchConfig, tokens, extra_embeds=None, *,
     b, s_total, _ = x.shape
     context_len = context_len or s_total
     positions = torch.arange(s_total, dtype=torch.int32, device=x.device)
-    wins = layer_windows(cfg)
+    wins = layer_windows(cfg, force_window=force_window)
     prefix = cfg.hybrid_meta_tokens
-    caches = init_decode_state(cfg, b, context_len, device=x.device)
+    caches = init_decode_state(cfg, b, context_len,
+                               force_window=force_window, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_of(params["layers"], i)
         entry = caches[i]

@@ -8,7 +8,9 @@ layer, K12 in every Mamba2 mixer) and builds the decode caches;
 chains the two, or, for the encoder-decoder (audio), encodes the frames
 (K11 in every encoder layer), teacher-forces the prompt through the
 decoder's cache and decodes (K11 in every cross-attention).
-``impl="ref"`` runs the kernels' plain versions on any device.  Serving
+``impl="ref"`` runs the kernels' plain versions on any device.
+``force_window`` (the long_500k shape) puts every attention layer on a
+ring cache of its window, in the prefill and the steps alike.  Serving
 needs no gradient, so everything runs under ``torch.no_grad()`` (K12 has
 no backward and refuses operands that require grad; K11's backward is
 for training, ``train/steps``).
@@ -36,6 +38,7 @@ def serve_context_len(cfg: ArchConfig, n_prompt: int, n_new: int,
 
 
 def make_prefill_step(cfg: ArchConfig, *, context_len: int,
+                      force_window: bool = False,
                       impl: Optional[str] = None, last_only: bool = False):
     """prefill_step(params, batch) -> (logits, caches, next_index)."""
 
@@ -43,18 +46,21 @@ def make_prefill_step(cfg: ArchConfig, *, context_len: int,
     def prefill_step(params, batch):
         return transformer.prefill(
             params, cfg, batch["tokens"], api.extra_embeds_of(cfg, batch),
-            context_len=context_len, impl=impl, last_only=last_only)
+            context_len=context_len, force_window=force_window, impl=impl,
+            last_only=last_only)
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, *, impl: Optional[str] = None):
+def make_serve_step(cfg: ArchConfig, *, force_window: bool = False,
+                    impl: Optional[str] = None):
     """serve_step(params, caches, cur_index, token) -> (next_token, logits,
     caches)."""
 
     @torch.no_grad()
     def serve_step(params, caches, cur_index, token):
-        logits, caches = api.serve_decode_step(params, cfg, caches,
-                                               cur_index, token, impl=impl)
+        logits, caches = api.serve_decode_step(
+            params, cfg, caches, cur_index, token,
+            force_window=force_window, impl=impl)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_token, logits, caches
     return serve_step
@@ -63,6 +69,7 @@ def make_serve_step(cfg: ArchConfig, *, impl: Optional[str] = None):
 @torch.no_grad()
 def greedy_decode(params, cfg: ArchConfig, prompt_tokens: torch.Tensor,
                   n_new: int, *, extra_embeds: Optional[torch.Tensor] = None,
+                  force_window: bool = False,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Prefill a prompt (B,S) then greedily decode ``n_new`` tokens ->
     (B, n_new) int32.  ``extra_embeds``: the vlm's patches, or the audio
@@ -72,7 +79,7 @@ def greedy_decode(params, cfg: ArchConfig, prompt_tokens: torch.Tensor,
         # token there is nothing to condition on
         raise ValueError("greedy_decode needs at least one prompt token "
                          "(got an empty prompt)")
-    step = make_serve_step(cfg, impl=impl)
+    step = make_serve_step(cfg, force_window=force_window, impl=impl)
     if cfg.family == "audio":
         memory = encdec.encode(params, cfg, extra_embeds, impl=impl)
         b, s = prompt_tokens.shape
@@ -87,7 +94,7 @@ def greedy_decode(params, cfg: ArchConfig, prompt_tokens: torch.Tensor,
     prefill = make_prefill_step(
         cfg, context_len=serve_context_len(cfg, prompt_tokens.shape[1],
                                            n_new, extra_embeds),
-        impl=impl, last_only=True)
+        force_window=force_window, impl=impl, last_only=True)
     logits, caches, next_idx = prefill(
         params, {"tokens": prompt_tokens, "patches": extra_embeds})
     cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
