@@ -307,7 +307,8 @@ Phases, each printing JSON lines:
               kept with their inputs and held against the plain versions
               on them (K11's bf16 tensor-core instance on three slices of
               1,024 query rows within one bf16 ulp, 2^-7·|plain| + 1e-6;
-              K12 within 1e-5·(1 + max|plain|)), each also timed alone;
+              K12 within 1e-5·(1 + max|plain|)), each also timed alone
+              beside its bound (K11 also beside SDPA's time);
               the f32 model at 8,192 tokens (every ring wraps), kernels
               against plain versions: the prefill's last logits, 8 steps
               after it and 8 far out, fed the plain run's tokens, within
@@ -338,8 +339,9 @@ Phases, each printing JSON lines:
               "2d", 4 gloo ranks on the one card (every collective staged
               through host memory: no NCCL figure), K11 built here before
               the ranks start; again over NCCL, one rank a card, where the
-              host has 2 or more.  tinyllama-1.1b at full width, 8 of
-              its 22 layers (B 2 × S 2,048): the f32 loss within ``TRAIN_LOSS_RTOL`` and
+              host has 2 or more.  tinyllama-1.1b at full width and
+              depth (B 2 × S 2,048): the f32 loss within
+              ``TRAIN_LOSS_RTOL`` and
               every gradient leaf, gathered whole, within ``grad_gate``'s
               bounds of the unsharded ones on the card (the worst leaf
               named); the config's bf16 (f32 masters, bf16 compute): the
@@ -359,7 +361,22 @@ Phases, each printing JSON lines:
               (scheme B: ``model`` does not divide it); at the config's
               capacity factor, finite, the aux loss recorded; a
               ``forward_lm`` at S = 1 (scheme B) within 1e-4·(1 +
-              max|logits|) of the unsharded one.
+              max|logits|) of the unsharded one.  hymba-1.5b at full
+              width, 4 layers (global layer 0, three windowed), B 2 × S
+              2,048: attention context-parallel (25 q heads; each model
+              rank its 1,088 q rows, keys to the block's end), the Mamba
+              mixer and the MLP tensor-parallel; the f32 loss and every
+              gradient leaf against the unsharded ones as tinyllama's;
+              bf16 3 steps twice, bitwise; K11 8 + 4 launches a step a
+              rank, each at (Sq, Sk) = (1,088, 1,088) on model rank 0 and
+              (1,088, 2,176) on rank 1; two forward and two backward
+              launches kept and held against the plain versions on each
+              rank (one bf16 ulp; the backward as ``flash_bwd_row``
+              holds it) and timed there, one rank at a time; collectives,
+              ms and peak GB a step.  mamba2-1.3b, internvl2-1b (B 2 × S
+              2,048) and whisper-large-v3 (448 decoder tokens over its
+              1,500 frames), full width, 2 layers (whisper 2 + 2), f32:
+              one loss and gradient each against the unsharded run.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -1932,7 +1949,9 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
     assert not kw.get("logit_cap"), "SDPA cannot softcap"
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if masks.get("window") or masks.get("prefix"):
+    if masks.get("window") or masks.get("prefix") or (
+            masks.get("causal", True) and sq != sk):
+        # SDPA's is_causal aligns the top left: Sq < Sk takes the mask
         row_pos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
         col = torch.arange(sk, device=dev)[None, :]
         mask = col <= row_pos if masks.get("causal", True) else col >= 0
@@ -1941,7 +1960,6 @@ def flash_row(dev, rng, b, sq, sk, h, kv, dh, dtype, check_only=None,
                 col < masks.get("prefix", 0))
         lib_kw, what = dict(attn_mask=mask), "a boolean attn_mask"
     elif masks.get("causal", True):
-        assert sq == sk, "SDPA's is_causal aligns the top left"
         lib_kw, what = dict(is_causal=True), "is_causal"
     else:
         lib_kw, what = {}, "no mask"
@@ -1971,7 +1989,7 @@ def flash_rows(dev, rng):
     its cross-attention (Sq = 1 against the 1,500 frames), the last two
     checked in f32 too; and bf16 at G = 128 (the heads split over CTAs)
     and at Dh = 36 (rows not 16-byte aligned: the kernel's element-wise
-    loads)."""
+    loads); hymba-1.5b's context-parallel shapes (``hymba_cp_rows``)."""
     f32, bf16 = torch.float32, torch.bfloat16
     rows = [flash_row(dev, rng, 2, 2048, 2048, 32, 4, 64, bf16, causal=True)]
     for dtype in (f32, bf16):
@@ -2016,6 +2034,30 @@ def flash_rows(dev, rng):
                   check_only="G=128"),
         flash_row(dev, rng, 2, 300, 300, 4, 2, 36, bf16, causal=True,
                   window=100, check_only="Dh=36")]
+    rows += hymba_cp_rows(dev, rng, flash_row)
+    return rows
+
+
+def hymba_cp_rows(dev, rng, row_fn):
+    """``row_fn`` (``flash_row`` or ``flash_bwd_row``) at hymba-1.5b's
+    context-parallel shapes on (2, 2) (``llm_sharded``'s hymba run): a
+    data rank's one batch row of 128 meta tokens + 2,048, each model rank
+    its block of 1,088 q rows against the keys up to the block's end
+    (rank 0: 1,088, rank 1: 2,176), G = 5, Dh = 64, prefix 128: timed
+    under the window of 1,024 (3 of the run's 4 layers), checked in the
+    global layer's full attention; the forward launches twice a layer a
+    step (remat), the backward once."""
+    rows = []
+    for rank, sk in enumerate(HYMBA_CP_SK):
+        tag = f"hymba-1.5b context-parallel, model rank {rank}"
+        extra = ({"launches_a_step": HYMBA_SHARDED_LAYERS - 1}
+                 if row_fn is flash_bwd_row else {})
+        rows.append(row_fn(dev, rng, 1, HYMBA_CP_SQ, sk, 25, 5, 64,
+                           torch.bfloat16, causal=True, window=1024,
+                           prefix=128, timed_at=tag, **extra))
+        rows.append(row_fn(dev, rng, 1, HYMBA_CP_SQ, sk, 25, 5, 64,
+                           torch.bfloat16, causal=True, prefix=128,
+                           check_only=f"{tag}, global layer"))
     return rows
 
 
@@ -2214,7 +2256,8 @@ def flash_bwd_rows(dev, rng):
     frames, no causal mask) and its teacher-forced cross-attention (Sq =
     448 against 1,500 frames, no causal mask); and ragged edges in both
     dtypes: Sq < Sk with a window and prefix, Dh = 36, G = 128, Dh = 160
-    with G = 7 (``check_only``)."""
+    with G = 7 (``check_only``); hymba-1.5b's context-parallel shapes
+    (``hymba_cp_rows``)."""
     from repro_torch.configs import get_config
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2256,7 +2299,29 @@ def flash_bwd_rows(dev, rng):
             flash_bwd_row(dev, rng, 1, 257, 257, 7, 1, 160, dtype,
                           causal=True, logit_cap=20.0,
                           check_only=f"Dh=160, G=7, softcap, {tag}")]
+    rows += hymba_cp_rows(dev, rng, flash_bwd_row)
     return rows
+
+
+def ssd_work(b, s, h, p, n, chunk):
+    """K12's work on (B, S, H, P) x, N states, chunks of ``chunk``: (the
+    function's bytes: x and y, dt, A, B and C, the final state, f32; the
+    flops of its products; its elementwise f32 ops a (b, h); the older
+    count of the products, the K12 rows' ``old`` bound).  The products:
+    per (b, h, chunk) the decayed lower triangle times dt·x, the state
+    feed and the state update; C Bᵀ (no head axis) once per (b, chunk)."""
+    head = cbt = elem = old = 0
+    for c0 in range(0, s, chunk):
+        ln = min(chunk, s - c0)
+        tri = ln * (ln + 1) // 2
+        head += 2 * tri * p + 2 * (2 * ln * n * p)
+        cbt += 2 * tri * n
+        elem += ln * p + 2 * p * n
+        # the older count: C Bᵀ per head too, in nine bf16 passes
+        old += 2 * tri * n + 2 * tri * p + 2 * ln * n * p + 2 * ln * p * n
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                  + b * h * p * n)
+    return nbytes, b * h * head + b * cbt, elem, old
 
 
 def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
@@ -2304,18 +2369,7 @@ def ssd_row(dev, rng, b, s, h, p, n, chunk, check_only=None,
     # kernel does them as f32 FMAs in the plain version's order, whose
     # time at the CUDA cores' 67 TFLOP/s is f32_fma_ms.  dt·x and the
     # state decay are elementwise f32.  The exps are not counted.
-    head = cbt = elem = old = 0
-    for c0 in range(0, s, chunk):
-        ln = min(chunk, s - c0)
-        tri = ln * (ln + 1) // 2
-        head += 2 * tri * p + 2 * (2 * ln * n * p)
-        cbt += 2 * tri * n
-        elem += ln * p + 2 * p * n
-        # PR 16's count: C Bᵀ per head too, in nine bf16 passes
-        old += 2 * tri * n + 2 * tri * p + 2 * ln * n * p + 2 * ln * p * n
-    nbytes = 4 * (2 * x.numel() + dt.numel() + h + 2 * Bm.numel()
-                  + fs.numel())
-    flops = b * h * head + b * cbt
+    nbytes, flops, elem, old = ssd_work(b, s, h, p, n, chunk)
     b_ms, b_by = bound(nbytes, [(3 * flops, TF32_FLOPS),
                                 (b * h * elem, F32_FLOPS)])
     fma_ms, _ = bound(nbytes, [(flops, F32_FLOPS), (b * h * elem, F32_FLOPS)])
@@ -3753,12 +3807,13 @@ ROPE_F64_TOL = 1e-6            # CUDA cos/sin of the f32 angle vs float64
 LONG_SLICE = 1024              # query rows of a plain K11 slice
 
 
-def kept_calls(module, name, keep):
+def kept_calls(module, name, keep, shapes=None):
     """A context in which ``module.<name>`` (a kernel's op, which the
     model looks up at each call) runs as before and keeps, on the host,
     the args, keywords and result of its calls numbered ``keep`` (from 0):
     yields {number: (args, kwargs, result)}; launches are counted by the
-    op itself, as before."""
+    op itself, as before.  ``shapes``, a list, gets every call's tensor
+    args' shapes."""
     import contextlib
 
     host = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
@@ -3769,6 +3824,9 @@ def kept_calls(module, name, keep):
 
         def spy(*args, **kw):
             out = orig(*args, **kw)
+            if shapes is not None:
+                shapes.append([tuple(a.shape) for a in args
+                               if isinstance(a, torch.Tensor)])
             if seen[0] in keep:
                 kept[seen[0]] = (tuple(map(host, args)), kw,
                                  tuple(map(host, out)) if isinstance(
@@ -3784,6 +3842,34 @@ def kept_calls(module, name, keep):
     return run()
 
 
+def long_sdpa(q, k, v, mask):
+    """SDPA's time on a long K11 launch's inputs with the same mask as a
+    boolean ``attn_mask`` (suffix-aligned), where SDPA can compute it
+    (no softcap): the kv heads repeated to the q heads outside the timed
+    call, so that the memory-efficient backend takes the mask (with
+    ``enable_gqa`` only the math backend takes a mask, and its f32
+    scores of B·H·S² would not fit the card at these lengths)."""
+    if mask["logit_cap"]:
+        return dict(library_ms=None, library="none: SDPA cannot softcap")
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sq, sk, g = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    row = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    col = torch.arange(sk, device=q.device)[None, :]
+    ok = col <= row if mask["causal"] else col >= 0
+    if mask["window"]:
+        ok &= ((row - col) < mask["window"]) | (col < mask["prefix"])
+    qt, kt, vt = (t.transpose(1, 2) for t in (
+        q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=ok), reps=5)
+    del ok, qt, kt, vt
+    return dict(library_ms=ms, library="torch scaled_dot_product_attention"
+                "(a boolean attn_mask, kv heads repeated, memory-efficient "
+                "backend)")
+
+
 @torch.no_grad()
 def long_kernel_checks(dev, arch, k11, k12):
     """The K11 and K12 launches kept from the counted bf16 prefill of
@@ -3797,8 +3883,9 @@ def long_kernel_checks(dev, arch, k11, k12):
     final state (f32) within 1e-5·(1 + max|plain|), its rows' bound.
     Each kept launch is also timed alone (CUDA events); K11's beside its
     bound, as ``flash_row`` counts it (QKᵀ one bf16 pass, P·V three, over
-    the pairs the causal window and prefix leave visible).  Returns
-    (rows, faults)."""
+    the pairs the causal window and prefix leave visible), and SDPA's
+    time on the same inputs (``long_sdpa``); K12's beside its bound, as
+    ``ssd_row`` counts it (``ssd_work``).  Returns (rows, faults)."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -3836,7 +3923,7 @@ def long_kernel_checks(dev, arch, k11, k12):
             rows_checked=3 * LONG_SLICE, max_abs_err=err,
             ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, **mask),
                        reps=5), bound_ms=b_ms, bound_by=b_by,
-            visible_pairs=visible))
+            visible_pairs=visible, **long_sdpa(q, k, v, mask)))
         del q, k, v, out
     for call, (args, kw, (y, fs)) in sorted(k12.items()):
         args = tuple(t.to(dev).float().contiguous() for t in args)
@@ -3849,11 +3936,17 @@ def long_kernel_checks(dev, arch, k11, k12):
             if d > 1e-5 * (1 + float(want.abs().max())):
                 faults.append(f"{arch}: K12 launch {call} at the long "
                               f"shape, {what} {d} off the plain version")
+        b, s, h, p = args[0].shape
+        nbytes, flops, elem, _ = ssd_work(b, s, h, p, args[3].shape[-1],
+                                          kw["chunk"])
+        b_ms, b_by = bound(nbytes, [(3 * flops, TF32_FLOPS),
+                                    (b * h * elem, F32_FLOPS)])
         rows.append(dict(
             name="ssd_scan", launch=call, shape=list(args[0].shape),
             chunk=kw["chunk"], max_abs_err=err,
             ms=cuda_ms(lambda: ssd_scan_cuda(*args, chunk=kw["chunk"]),
-                       reps=5)))
+                       reps=5), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
         del args, y, fs, wy, wfs
     torch.cuda.empty_cache()
     return rows, faults
@@ -4686,46 +4779,12 @@ def llm_sharded_dense(device, mesh, faults):
     cfg = get_config(TRAIN_ARCH)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     batch = train_batch(cfg, device, TRAIN_BATCH, TRAIN_SEQ)
-    layers = attention_layers(cfg)
-    want_launches = {"flash_attention": 2 * layers,
-                     "flash_attention_bwd": layers}
+    want_launches = k11_launches(cfg)
     row = dict(rank=rank, device=str(device))
 
-    want = loss_u = None
-    if rank == 0:               # the unsharded f32 gradient, on the card
-        params = api.init_params(SEED, cfg32, device=device)
-        loss_u, _, want = loss_and_grads(params, cfg32, batch)
-        del params
-        gc.collect()
-    dist.barrier()
-    with sharding.use_mesh(mesh):
-        lay = sharding.lm_layout(cfg32)
-        params = lay.shard(api.init_params(SEED, cfg32, device=device))
-        keys = [k for k, _ in sharding.flat_tree(params)]
-        _reset_counts()
-        t0 = time.perf_counter()
-        loss_s, _, grads = loss_and_grads(params, cfg32, batch)
-        launches, coll = _count_now()
-        row["f32_ms"] = (time.perf_counter() - t0) * 1e3
-        row["f32_loss"] = float(loss_s)
-        row["f32_launches"] = launches
-        row["f32_collectives"] = coll
-        if launches != want_launches:
-            faults.append(f"rank {rank}: f32 gradient launched {launches}, "
-                          f"not {want_launches}")
-        gate = _sharded_grad_gate(f"{TRAIN_ARCH} f32", lay, keys, grads,
-                                  want, faults)
-        if rank == 0:
-            err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
-            row["f32"] = dict(gate, loss_sharded=float(loss_s),
-                              loss_unsharded=float(loss_u),
-                              loss_rel_err=err)
-            if not err <= TRAIN_LOSS_RTOL:
-                faults.append(f"f32 loss {float(loss_s)} vs unsharded "
-                              f"{float(loss_u)}")
-        del params, grads
-        gc.collect()
-        torch.cuda.empty_cache()
+    f32, want, loss_u = _f32_gate(f"{TRAIN_ARCH} f32", cfg32, mesh, device,
+                                  batch, faults, want_launches)
+    row.update(f32)
 
     # the config's bf16 compute on the same f32 master params: the first
     # gradient, gathered whole, no more than LLM_SHARDED_BF16_SLACK times
@@ -4746,6 +4805,7 @@ def llm_sharded_dense(device, mesh, faults):
     with sharding.use_mesh(mesh):
         lay = sharding.lm_layout(cfg)
         params = lay.shard(api.init_params(SEED, cfg, device=device))
+        keys = [k for k, _ in sharding.flat_tree(params)]
         t0 = time.perf_counter()
         loss_s, _, grads = loss_and_grads(params, cfg, batch)
         row["bf16_grad_ms"] = (time.perf_counter() - t0) * 1e3
@@ -4958,6 +5018,271 @@ def llm_sharded_moe(device, mesh, faults):
     return row
 
 
+#: hymba-1.5b at full width on (2, 2): 4 layers (its global layer 0 and
+#: three windowed layers), B 2 × S 2,048 (2,176 rows with the 128 meta
+#: tokens); its 25 q heads do not divide model = 2, so attention runs
+#: context-parallel: model rank 0 its q rows 0…1,087 against keys
+#: 0…1,087, rank 1 rows 1,088…2,175 against all 2,176 keys
+HYMBA_SHARDED_ARCH, HYMBA_SHARDED_LAYERS = "hymba-1.5b", 4
+HYMBA_CP_SQ, HYMBA_CP_SK = 1088, (1088, 2176)
+#: (arch, layers, decoder tokens): one f32 step each at full width
+GENERIC_SHARDED = (("mamba2-1.3b", 2, 2048), ("internvl2-1b", 2, 2048),
+                   ("whisper-large-v3", 2, 448))
+
+
+def k11_launches(cfg):
+    """K11's forward and backward launches in one training forward and
+    backward of ``cfg`` under remat (each attention layer's forward
+    twice), the kernels that launch at all."""
+    n = attention_layers(cfg)
+    return {k: v for k, v in (("flash_attention", 2 * n),
+                              ("flash_attention_bwd", n)) if v}
+
+
+def _f32_gate(tag, cfg, mesh, device, batch, faults, want_launches):
+    """One f32 loss and gradient of ``cfg`` on ``mesh`` against the
+    unsharded one (rank 0 computes that on the card first): the loss
+    within ``TRAIN_LOSS_RTOL``, each gradient leaf gathered whole within
+    ``grad_gate``'s bounds (``_sharded_grad_gate``), the kernels
+    launched as ``want_launches`` says.  Returns (this rank's row: the
+    step's ms, launches, collectives, peak GB and kept leaves, on rank 0
+    the gate; on rank 0 the unsharded gradient leaves and loss, else
+    None, None)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.models import api
+    from repro_torch.train.steps import loss_and_grads
+
+    rank = dist.get_rank()
+    want = loss_u = None
+    if rank == 0:
+        params = api.init_params(SEED, cfg, device=device)
+        loss_u, _, want = loss_and_grads(params, cfg, batch)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    row = {}
+    with sharding.use_mesh(mesh):
+        lay = sharding.lm_layout(cfg)
+        params = lay.shard(api.init_params(SEED, cfg, device=device))
+        keys = [k for k, _ in sharding.flat_tree(params)]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss_s, _, grads = loss_and_grads(params, cfg, batch)
+        launches, coll = _count_now()
+        row.update(f32_ms=(time.perf_counter() - t0) * 1e3,
+                   f32_loss=float(loss_s), f32_launches=launches,
+                   f32_collectives=coll,
+                   f32_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   kept=sorted(lay._kept.get("layers", ({}, set()))[1]
+                               | lay._kept.get("dec_layers", ({}, set()))[1]))
+        if launches != want_launches:
+            faults.append(f"rank {rank}: {tag} gradient launched "
+                          f"{launches}, not {want_launches}")
+        gate = _sharded_grad_gate(tag, lay, keys, grads, want, faults)
+        if rank == 0:
+            err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+            row["f32"] = dict(gate, loss_sharded=float(loss_s),
+                              loss_unsharded=float(loss_u),
+                              loss_rel_err=err)
+            if not err <= TRAIN_LOSS_RTOL:
+                faults.append(f"{tag}: f32 loss {float(loss_s)} vs "
+                              f"unsharded {float(loss_u)}")
+        del params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return row, want, loss_u
+
+
+def _k11_held(kept, faults, tag, device):
+    """The kept K11 launches of a context-parallel rank (``kept_calls``'
+    {"fwd": ..., "bwd": ...}) against their plain versions on the same
+    inputs: the forward's output within one bf16 ulp (2^-7·|plain| +
+    1e-6), the backward's dq/dk/dv within ``flash_bwd_row``'s bf16 bound
+    (2^-7·|plain| + 1e-4·max|plain|); each launch timed alone (CUDA
+    events, median of 5).  Returns its rows."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    dev = lambda ts: tuple(t.to(device) for t in ts)
+    rows = []
+    for n, (args, kw, out) in sorted(kept["fwd"].items()):
+        (q, k, v), out = dev(args), dev(out)
+        mask = {x: kw[x] for x in ("causal", "window", "prefix",
+                                   "logit_cap")}
+        want = fa_ref.flash_attention(q, k, v, **mask).float()
+        d = (out[0].float() - want).abs()
+        if bool((d > BF16_ULP * want.abs() + 1e-6).any()):
+            faults.append(f"{tag}: K11 forward launch {n} (Sq {q.shape[1]}"
+                          f", Sk {k.shape[1]}) {float(d.max())} off plain")
+        rows.append(dict(kernel="flash_attention", launch=n,
+                         sq=q.shape[1], sk=k.shape[1], **mask,
+                         max_abs_err=float(d.max()),
+                         ms=cuda_ms(lambda: flash_attention_cuda(
+                             q, k, v, **mask), reps=5)))
+        del want, d
+    for n, (args, kw, out) in sorted(kept["bwd"].items()):
+        (q, k, v, o, do, lse), out = dev(args), dev(out)
+        mask = {x: kw[x] for x in ("causal", "window", "prefix",
+                                   "logit_cap")}
+        want = fa_ref.flash_attention_bwd(q, k, v, o, do, **mask)
+        err = 0.0
+        for name, x, w in zip(("dq", "dk", "dv"), out, want):
+            w = w.float()
+            d = (x.float() - w).abs()
+            err = max(err, float(d.max()))
+            if bool((d > BF16_ULP * w.abs()
+                     + 1e-4 * float(w.abs().max())).any()):
+                faults.append(f"{tag}: K11 backward launch {n} {name} "
+                              f"(Sq {q.shape[1]}, Sk {k.shape[1]}) "
+                              f"{float(d.max())} off plain")
+        rows.append(dict(kernel="flash_attention_bwd", launch=n,
+                         sq=q.shape[1], sk=k.shape[1], **mask,
+                         max_abs_err=err,
+                         ms=cuda_ms(lambda: flash_attention_bwd_cuda(
+                             q, k, v, o, do, lse, **mask), reps=5)))
+        del want
+    return rows
+
+
+def llm_sharded_hymba(device, mesh, faults):
+    """hymba-1.5b at full width, ``HYMBA_SHARDED_LAYERS`` layers, B 2 × S
+    2,048, on ``mesh``: attention context-parallel (its 25 heads do not
+    divide model; each model rank its 1,088 q rows, keys to the block's
+    end), the Mamba mixer on 25 of its 50 SSM heads, the MLP on half its
+    d_ff.  The f32 loss and gradients against the unsharded ones
+    (``_f32_gate``); the config's bf16 steps, 3 from the seed twice, the
+    losses bitwise across the runs, the first run's steps counted (K11
+    8 forward + 4 backward launches a step a rank: 2 + 1 a layer under
+    remat), each K11 launch's (Sq, Sk) recorded, the collectives, ms
+    and peak GB a step; a windowed layer's K11 forward and backward
+    launch of the first step kept and held against the plain versions,
+    and timed alone on each rank in turn.  Returns this rank's row."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_windows
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(get_config(HYMBA_SHARDED_ARCH),
+                              n_layers=HYMBA_SHARDED_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = train_batch(cfg, device, TRAIN_BATCH, TRAIN_SEQ)
+    row = dict(rank=rank, layers=cfg.n_layers, windows=layer_windows(cfg))
+    want = k11_launches(cfg)
+    f32, _, _ = _f32_gate(f"{HYMBA_SHARDED_ARCH} f32", cfg32, mesh, device,
+                          batch, faults, want)
+    row.update(f32)
+    dist.barrier()
+
+    def run(spy=None):
+        with sharding.use_mesh(mesh):
+            params, opt = init_train_state(SEED, cfg, device=device)
+            step = make_train_step(cfg, lr=TRAIN_LR)
+            losses, ms, counts = [], [], []
+            for i in range(LLM_SHARDED_STEPS):
+                _reset_counts()
+                t0 = time.perf_counter()
+                if spy is not None and i == 0:
+                    with spy[0] as kf, spy[1] as kb:
+                        params, opt, m = step(params, opt, batch)
+                    kept.update(fwd=kf, bwd=kb)
+                else:
+                    params, opt, m = step(params, opt, batch)
+                counts.append(_count_now())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].item())
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, ms, counts
+
+    # forward launches 0 and 2 (the global layer 0, windowed layer 2) and
+    # backward launches 0 and 2 (windowed layers 3 and 1: the recompute
+    # and the backward walk the layers from the last)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    shapes, kept = {"fwd": [], "bwd": []}, {}
+    spy = (kept_calls(fa_ops, "flash_attention_cuda", (0, 2),
+                      shapes["fwd"]),
+           kept_calls(fa_ops, "flash_attention_bwd_cuda", (0, 2),
+                      shapes["bwd"]))
+    torch.cuda.reset_peak_memory_stats()
+    first = run(spy)
+    row["bf16_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    second = run()
+    bits = [np.asarray(r[0], np.float32).view(np.int32).tolist()
+            for r in (first, second)]
+    row.update(bf16_losses=first[0], bf16_losses_bitwise_equal=bits[0]
+               == bits[1], step_ms=first[1] + second[1],
+               step_launches=first[2][0][0],
+               step_collectives=first[2][0][1],
+               k11_fwd_sq_sk=[(a[0][1], a[1][1]) for a in shapes["fwd"]],
+               k11_bwd_sq_sk=[(a[0][1], a[1][1]) for a in shapes["bwd"]])
+    if bits[0] != bits[1]:
+        faults.append(f"rank {rank}: hymba bf16 losses differ between two "
+                      f"runs: {first[0]}, {second[0]}")
+    for launches, _ in first[2] + second[2]:
+        if launches != want:
+            faults.append(f"rank {rank}: a hymba bf16 step launched "
+                          f"{launches}, not {want}")
+            break
+    m = sharding.mesh_axis(mesh, "model")
+    sk = HYMBA_CP_SK[m.rank]
+    ran = set(row["k11_fwd_sq_sk"] + row["k11_bwd_sq_sk"])
+    if ran != {(HYMBA_CP_SQ, sk)}:
+        faults.append(f"rank {rank}: K11 ran at (Sq, Sk) {sorted(ran)}, "
+                      f"not ({HYMBA_CP_SQ}, {sk})")
+    # each rank in turn holds and times its kept launches, the card free
+    # of the others' work
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            row["k11_held"] = _k11_held(kept, faults, f"rank {rank}",
+                                        device)
+        dist.barrier()
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def llm_sharded_generic(device, mesh, faults):
+    """mamba2-1.3b, internvl2-1b and whisper-large-v3 at full width, 2
+    layers (whisper: 2 encoder and 2 decoder layers, 448 decoder tokens
+    over its 1,500 frames), B 2, f32, on ``mesh``: one loss and gradient
+    each against the unsharded one (``_f32_gate``): the Mamba mixer on
+    32 of its 64 SSM heads; internvl2's attention on 7 of its 14 q heads
+    and its MLP on half its d_ff; whisper's self- and cross-attention on
+    10 of their 20 heads, its GELU MLPs on half their d_ff.  Returns
+    this rank's rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    rows = {}
+    for arch, layers, seq in GENERIC_SHARDED:
+        cfg = get_config(arch)
+        over = dict(n_layers=layers, dtype="float32")
+        if cfg.family == "audio":
+            over["enc_layers"] = layers
+        cfg = dataclasses.replace(cfg, **over)
+        batch = train_batch(cfg, device, TRAIN_BATCH, seq)
+        row, _, _ = _f32_gate(f"{arch} f32", cfg, mesh, device, batch,
+                              faults, k11_launches(cfg))
+        rows[arch] = dict(row, layers=layers, seq=seq)
+    return rows
+
+
 def llm_sharded_rank(device, shape, profile, parts):
     """One rank of the LLM mesh phase: ``parts`` ("dense", "moe") on a
     ``shape`` mesh over the world under ``profile``.  Returns (rows,
@@ -4968,10 +5293,13 @@ def llm_sharded_rank(device, shape, profile, parts):
     sharding.set_profile(profile)
     mesh = make_train_mesh(*shape)
     faults, rows = [], {}
-    if "dense" in parts:
-        rows["dense"] = llm_sharded_dense(device, mesh, faults)
-    if "moe" in parts:
-        rows["moe"] = llm_sharded_moe(device, mesh, faults)
+    for part, fn in (("dense", llm_sharded_dense), ("moe", llm_sharded_moe),
+                     ("hymba", llm_sharded_hymba),
+                     ("generic", llm_sharded_generic)):
+        if part in parts:
+            t0 = time.perf_counter()
+            rows[part] = fn(device, mesh, faults)
+            rows[part + "_s"] = time.perf_counter() - t0
     return rows, faults
 
 
@@ -4990,8 +5318,8 @@ def llm_sharded_phase(dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    worlds = [("gloo-2x2", 4, LLM_SHARDED_MESH, ("dense", "moe"),
-               default_backend(4))]
+    worlds = [("gloo-2x2", 4, LLM_SHARDED_MESH,
+               ("dense", "moe", "hymba", "generic"), default_backend(4))]
     n = torch.cuda.device_count()
     if n >= 2:
         shape = (2, 2) if n >= 4 else (1, 2)
@@ -5011,6 +5339,7 @@ def llm_sharded_phase(dev, smi):
                    nvidia_smi=smi, world_s=time.perf_counter() - t0)
         for part in parts:
             row[part] = [r[0][part] for r in per_rank]
+            row[part + "_s"] = [r[0][part + "_s"] for r in per_rank]
         for r in per_rank:
             faults += [f"{name}: {f}" for f in r[1]]
         emit(row)

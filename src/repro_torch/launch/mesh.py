@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["make_production_mesh", "make_data_mesh", "make_train_mesh",
-           "make_host_mesh", "default_backend", "run_ranks"]
+           "make_pod_mesh", "make_host_mesh", "default_backend", "run_ranks"]
 
 
 def _mesh(shape, names):
@@ -87,6 +87,18 @@ def make_train_mesh(data: int, model: int):
     ``data * model`` ranks: ``make_data_mesh(data * model,
     model=model)``."""
     return make_data_mesh(data * model, model=model)
+
+
+def make_pod_mesh(pod: int, data: int, model: int):
+    """A ``(pod, data, model)`` train mesh over the first ``pod * data *
+    model`` ranks, named as the reference's multi-pod production mesh:
+    batch rows over ``pod`` and ``data``, params replicated over
+    ``pod`` (``sharding.LMLayout``)."""
+    n = pod * data * model
+    if n > dist.get_world_size():
+        raise ValueError(f"requested {n} devices, have "
+                         f"{dist.get_world_size()}")
+    return _mesh((pod, data, model), ("pod", "data", "model"))
 
 
 def make_host_mesh():

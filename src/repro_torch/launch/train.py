@@ -8,12 +8,15 @@
 
 The reference places params with its sharding rules under ``use_mesh``
 and runs its step there; so does the port, on ``torch.distributed``
-(``sharding``).  The mesh: ``--mesh D,M`` a ``(data, model)`` mesh over
-the world the process is a rank of (D·M its size), else with
-``--reduced`` the host mesh (``make_host_mesh``, the reference's), else
-``(world, 1)`` over a world, and one device where there is none (the
-reference's ``make_production_mesh``, a TPU pod's, waits with
-``launch/specs`` and ``launch/dryrun``: ROADMAP.md queue 7d).  A process
+(``sharding``).  The mesh: ``--mesh D,M`` a ``(data, model)`` mesh, or
+``--mesh P,D,M`` a ``(pod, data, model)`` one (batch rows over pod and
+data), over the world the process is a rank of (D·M or P·D·M its
+size), else with ``--reduced`` the host mesh (``make_host_mesh``, the
+reference's), else ``(world, 1)`` over a world, and one device where
+there is none.  The reference's ``make_production_mesh`` (a TPU pod's
+(16, 16), or (2, 16, 16)) is ``launch.mesh.make_production_mesh``; it
+needs a world of 256 or 512 ranks, which ``--mesh 16,16`` or
+``--mesh 2,16,16`` names.  A process
 started by ``torchrun`` joins its world from the environment; one
 started by ``launch.mesh.run_ranks`` is already in one.  Each rank runs
 on its own card (``cuda:LOCAL_RANK``, or the one ``run_ranks`` set)
@@ -26,6 +29,7 @@ on the device; ``--ckpt`` saves the whole params after the last step
 (rank 0 writes).  Rank 0 prints the log lines.
 """
 import argparse
+import math
 import os
 import time
 
@@ -37,7 +41,7 @@ def _mesh(args, device):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import (default_backend, make_host_mesh,
-                                         make_train_mesh)
+                                         make_pod_mesh, make_train_mesh)
 
     started = False
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -48,12 +52,16 @@ def _mesh(args, device):
                                 init_method="env://")
         started = True
     if args.mesh:
-        d, m = (int(v) for v in args.mesh.split(","))
-        if not dist.is_initialized() or dist.get_world_size() != d * m:
+        sizes = [int(v) for v in args.mesh.split(",")]
+        if len(sizes) not in (2, 3):
+            raise ValueError(f"--mesh {args.mesh}: give D,M or P,D,M")
+        n = math.prod(sizes)
+        if not dist.is_initialized() or dist.get_world_size() != n:
             have = dist.get_world_size() if dist.is_initialized() else 1
-            raise ValueError(f"--mesh {args.mesh} needs a world of {d * m} "
+            raise ValueError(f"--mesh {args.mesh} needs a world of {n} "
                              f"ranks, this one has {have}")
-        return make_train_mesh(d, m), started
+        make = make_train_mesh if len(sizes) == 2 else make_pod_mesh
+        return make(*sizes), started
     if args.reduced or not dist.is_initialized():
         return make_host_mesh(), started
     return make_train_mesh(dist.get_world_size(), 1), started
@@ -87,7 +95,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default="",
-                    help="D,M: a (data, model) mesh over the world")
+                    help="D,M: a (data, model) mesh over the world; "
+                         "P,D,M: a (pod, data, model) one")
     args = ap.parse_args(argv)
 
     import torch

@@ -24,13 +24,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense_init, softcap
+from repro_torch.models.layers import dense_init, rotary_embed, softcap
 
 __all__ = ["NEG_INF", "init_attention", "local_heads", "project",
            "qkv_project",
            "out_project", "full_attention", "chunked_attention", "attend",
-           "use_form",
+           "use_form", "layer_attention", "context_attention",
            "init_cache", "cache_slot", "cache_update", "cache_fill",
            "decode_attention"]
 
@@ -61,21 +62,24 @@ def local_heads(params, cfg: ArchConfig, axis):
     either its block of the kv heads, where they divide ``model``, or all
     of them.  Returns the params the rank's heads read: the biases' rows
     of its heads and, for whole kv heads, those its q heads use (GQA:
-    q head h reads kv head h // (H/KV)), each through ``copy_to_model``,
-    since every rank uses such a replicated param in part."""
-    from repro_torch.sharding import copy_to_model
+    q head h reads kv head h // (H/KV)), each through ``copy_to_model``
+    (one collective for all of them in the backward), since every rank
+    uses such a replicated param in part."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     hl = params["wq"].shape[1]
     q0, g = axis.rank * hl, h // kv
-    out = dict(params)
-    if "bq" in params:
-        out["bq"] = copy_to_model(params["bq"], axis)[q0:q0 + hl]
     kvl = params["wk"].shape[1]
+    names = ("bq", "bk", "bv") + (("wk", "wv") if kvl == kv else ())
+    rep = sharding.copy_params_to_model(
+        {n: params[n] for n in names if n in params}, axis)
+    out = dict(params)
+    if "bq" in rep:
+        out["bq"] = rep["bq"][q0:q0 + hl]
     if kvl != kv:                 # kv heads sharded with the q heads
         k0 = axis.rank * kvl
         for name in ("bk", "bv"):
-            if name in params:
-                out[name] = copy_to_model(params[name], axis)[k0:k0 + kvl]
+            if name in rep:
+                out[name] = rep[name][k0:k0 + kvl]
         return out
     if hl % g == 0:               # whole groups: their kv heads
         idx = slice(q0 // g, q0 // g + hl // g)
@@ -84,10 +88,10 @@ def local_heads(params, cfg: ArchConfig, axis):
     else:                         # one kv head for each q head
         idx = torch.arange(q0, q0 + hl, device=params["wk"].device) // g
     for name in ("wk", "wv"):
-        out[name] = copy_to_model(params[name], axis)[:, idx]
+        out[name] = rep[name][:, idx]
     for name in ("bk", "bv"):
-        if name in params:
-            out[name] = copy_to_model(params[name], axis)[idx]
+        if name in rep:
+            out[name] = rep[name][idx]
     return out
 
 
@@ -236,6 +240,92 @@ def use_form(form: Optional[str]):
         yield
     finally:
         _FORM = outer
+
+
+# ------------------------------------------------------ under a mesh
+
+def layer_attention(params, x, cfg: ArchConfig, *, positions, causal=True,
+                    window: int = 0, prefix: int = 0, rope: bool = False,
+                    kv_x=None, kv_positions=None, impl: Optional[str] = None):
+    """A layer's attention with its output projection: self-attention
+    of x (B,S,D), or cross-attention against ``kv_x`` (B,Skv,D) at
+    ``kv_positions``, rotary on q and k where ``rope``.  Returns (y
+    (B,S,D), k, v).  Under the active layout (``sharding.lm_layout``)
+    by its ``attention_route`` over x's S positions:
+
+    - ``"tp"``, tensor parallel (``params`` holds the rank's q heads):
+      x and ``kv_x`` through ``copy_to_model``, the rank's heads
+      (``local_heads``, its K11 launch on them), ``wo`` row-parallel
+      and summed over ``model``;
+    - ``"cp"``, context parallel (the whole params):
+      ``context_attention``;
+    - else the whole attention, replicated over ``model``."""
+    lay = sharding.lm_layout(cfg)
+    route, axis = (None, None) if lay is None else \
+        lay.attention_route(x.shape[1])
+    if route == "cp":
+        return context_attention(
+            params, x, cfg, axis, positions=positions, causal=causal,
+            window=window, prefix=prefix, rope=rope, kv_x=kv_x,
+            kv_positions=kv_positions, impl=impl)
+    tp = axis if route == "tp" else None
+    if tp is not None:
+        x = sharding.copy_to_model(x, tp)
+        kv_x = None if kv_x is None else sharding.copy_to_model(kv_x, tp)
+        params = local_heads(params, cfg, tp)
+    k_pos = positions if kv_x is None else kv_positions
+    q, k, v = qkv_project(params, x, kv_x)
+    if rope:
+        q = rotary_embed(q, positions, cfg.rope_theta)
+        k = rotary_embed(k, k_pos, cfg.rope_theta)
+    out = attend(q, k, v, q_pos=positions, k_pos=k_pos, causal=causal,
+                 window=window, prefix=prefix,
+                 logit_cap=cfg.attn_logit_softcap, kernel_impl=impl)
+    return sharding.reduce_sum(out_project(params, out), tp), k, v
+
+
+def context_attention(params, x, cfg: ArchConfig, axis, *, positions,
+                      causal=True, window: int = 0, prefix: int = 0,
+                      rope: bool = False, kv_x=None, kv_positions=None,
+                      impl: Optional[str] = None):
+    """``layer_attention`` context-parallel over ``axis`` (the
+    reference's sequence-sharded ``shard_attn_act``), with the whole
+    params: the rank takes its block of the q rows, [r0, r1) of S in
+    the reference's plain contiguous split, every head.  Self-attention
+    truncates its keys and values to the end of that block (causal:
+    no later key is visible), so the rank's rows sit at their true
+    positions under K11's suffix alignment (query row r at Sk - Sq + r,
+    with any prefix and window); cross-attention and non-causal
+    attention keep every key.  The rank applies ``wo`` to its own rows,
+    which are then gathered along the sequence (``gather_dim``).  x,
+    ``kv_x`` and the params go through ``copy_to_model``: each rank
+    uses them in part, so their gradients (the keys' and values' over
+    the whole sequence among them) are summed over ``axis``."""
+    s = x.shape[1]
+    n = s // axis.size
+    r0, r1 = axis.rank * n, (axis.rank + 1) * n
+    self_attn = kv_x is None
+    end = r1 if causal and self_attn else (s if self_attn
+                                            else kv_x.shape[1])
+    if (causal or window or prefix) and end - n != r0:
+        # K11 reads no positions: its mask is right only where the q
+        # rows are the suffix of the keys
+        raise ValueError(f"context-parallel attention: q rows [{r0}, {r1}) "
+                         f"are not the suffix of keys [0, {end}) under a "
+                         "mask that reads positions")
+    x = sharding.copy_to_model(x, axis)
+    kv_x = x if self_attn else sharding.copy_to_model(kv_x, axis)
+    kv_positions = positions if self_attn else kv_positions
+    params = sharding.copy_params_to_model(params, axis)
+    q_pos, k_pos = positions[r0:r1], kv_positions[:end]
+    q, k, v = qkv_project(params, x[:, r0:r1], kv_x[:, :end])
+    if rope:
+        q = rotary_embed(q, q_pos, cfg.rope_theta)
+        k = rotary_embed(k, k_pos, cfg.rope_theta)
+    out = attend(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                 window=window, prefix=prefix,
+                 logit_cap=cfg.attn_logit_softcap, kernel_impl=impl)
+    return sharding.gather_dim(out_project(params, out), axis, 1), k, v
 
 
 # ----------------------------------------------------------------- KV caches

@@ -87,13 +87,17 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig):
 # ----------------------------------------------------------------- encoder
 
 def _enc_block(lp, x, cfg: ArchConfig, positions, impl):
+    """One encoder layer; under a mesh its attention tensor- or
+    context-parallel (``attention.layer_attention``) and its MLP
+    tensor-parallel where the layout kept their ``model`` shards."""
     eps = cfg.norm_eps
     h = layernorm(lp["attn_norm"], x, eps)
-    q, k, v = attn_mod.qkv_project(lp["attn"], h)
-    a = attn_mod.attend(q, k, v, q_pos=positions, k_pos=positions,
-                        causal=False, kernel_impl=impl)
-    x = x + attn_mod.out_project(lp["attn"], a)
-    return x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps))
+    a, _, _ = attn_mod.layer_attention(lp["attn"], h, cfg,
+                                       positions=positions, causal=False,
+                                       impl=impl)
+    x = x + a
+    return x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps),
+                        cfg.d_ff)
 
 
 def _run_layers(block, stack, n: int, x, remat: bool, *args, lay=None,
@@ -135,18 +139,22 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor, *,
 
 def _dec_block(lp, x, memory, cfg: ArchConfig, positions, mem_positions,
                impl):
+    """One decoder layer: causal self-attention, cross-attention to the
+    encoder memory, the GELU MLP, each parallel as ``_enc_block``'s."""
     eps = cfg.norm_eps
     h = layernorm(lp["attn_norm"], x, eps)
-    q, k, v = attn_mod.qkv_project(lp["attn"], h)
-    a = attn_mod.attend(q, k, v, q_pos=positions, k_pos=positions,
-                        causal=True, kernel_impl=impl)
-    x = x + attn_mod.out_project(lp["attn"], a)
+    a, _, _ = attn_mod.layer_attention(lp["attn"], h, cfg,
+                                       positions=positions, causal=True,
+                                       impl=impl)
+    x = x + a
     hc = layernorm(lp["cross_norm"], x, eps)
-    qc, kc, vc = attn_mod.qkv_project(lp["cross_attn"], hc, kv_x=memory)
-    c = attn_mod.attend(qc, kc, vc, q_pos=positions, k_pos=mem_positions,
-                        causal=False, kernel_impl=impl)
-    x = x + attn_mod.out_project(lp["cross_attn"], c)
-    return x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps))
+    c, _, _ = attn_mod.layer_attention(lp["cross_attn"], hc, cfg,
+                                       positions=positions, causal=False,
+                                       kv_x=memory,
+                                       kv_positions=mem_positions, impl=impl)
+    x = x + c
+    return x + gelu_mlp(lp["mlp"], layernorm(lp["mlp_norm"], x, eps),
+                        cfg.d_ff)
 
 
 def _logits(params, cfg: ArchConfig, x):
@@ -177,10 +185,11 @@ def forward_encdec(params, cfg: ArchConfig, tokens, frames, *,
     """Full encoder-decoder forward: (decoder tokens, encoder frames) ->
     logits; ``remat`` recomputes each layer in the backward.  Under an
     active mesh ``params`` are this rank's blocks and the inputs its
-    rows: every param is gathered whole (the non-layer ones once, each
-    layer's inside its checkpoint) and the model runs replicated over
-    ``model``; tensor parallelism for this family is queued (ROADMAP.md
-    queue 6)."""
+    rows: the non-layer params are gathered whole once, each layer's
+    inside its checkpoint, but for the ``model`` shards tensor
+    parallelism keeps (``sharding.LMLayout``: the attention heads, the
+    MLPs' d_ff); attention whose heads do not divide ``model`` runs
+    context-parallel where the sequence does."""
     lay = sharding.lm_layout(cfg)
     if lay is not None:
         params = lay.gather_top(params)

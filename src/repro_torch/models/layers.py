@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
+
 __all__ = ["dtype_of", "dense_init", "embed_init", "stacked", "layer_of",
            "layers_of", "init_rmsnorm", "rmsnorm", "init_layernorm",
            "layernorm", "rotary_embed", "sinusoidal_positions", "silu",
@@ -110,11 +112,20 @@ def init_rmsnorm(dim: int, dtype=torch.float32, device=None):
     return {"scale": torch.zeros((dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Gemma-style ``(1 + scale)`` RMS norm, in f32, cast back."""
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5,
+            axis=None) -> torch.Tensor:
+    """Gemma-style ``(1 + scale)`` RMS norm, in f32, cast back.  With
+    ``axis`` (tensor parallelism: x and ``scale`` hold this rank's block
+    of the channels) it normalises over the whole width: the sum of
+    squares in f32, summed over ``axis`` (``sharding.psum``, its
+    cotangent's too in the backward)."""
     dt = x.dtype
     x = x.float()
-    var = (x * x).mean(-1, keepdim=True)
+    if axis is None:
+        var = (x * x).mean(-1, keepdim=True)
+    else:
+        var = (sharding.psum((x * x).sum(-1, keepdim=True), axis)
+               / (x.shape[-1] * axis.size))
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + params["scale"].float())).to(dt)
 
@@ -184,12 +195,19 @@ def init_glu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
             "wo": dense_init(gen, d_ff, d_model, dtype)}
 
 
-def glu_mlp(params, x: torch.Tensor, activation: str = "silu"
-            ) -> torch.Tensor:
+def glu_mlp(params, x: torch.Tensor, activation: str = "silu",
+            d_ff: Optional[int] = None) -> torch.Tensor:
+    """The gated MLP.  Where ``params`` hold the rank's block of the
+    ``d_ff`` hidden units (tensor parallelism: ``wo`` has fewer rows,
+    ``sharding.tp_axis``) x goes through ``copy_to_model`` and the
+    row-parallel product is summed over ``model``."""
     act = {"silu": silu, "gelu": _gelu_tanh}[activation]
+    axis = None if d_ff is None else sharding.tp_axis(params["wo"].shape[0],
+                                                      d_ff)
+    x = sharding.copy_to_model(x, axis)
     gate = act(x @ params["wi_gate"].to(x.dtype))
     up = x @ params["wi_up"].to(x.dtype)
-    return (gate * up) @ params["wo"].to(x.dtype)
+    return sharding.reduce_sum((gate * up) @ params["wo"].to(x.dtype), axis)
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
@@ -199,9 +217,18 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
             "bo": torch.zeros((d_model,), dtype=dtype, device=gen.device)}
 
 
-def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params, x: torch.Tensor,
+             d_ff: Optional[int] = None) -> torch.Tensor:
+    """The GELU MLP with biases.  Where ``params`` hold the rank's block
+    of the ``d_ff`` hidden units (``wi``, ``bi`` and ``wo``) x goes
+    through ``copy_to_model``, the row-parallel product is summed over
+    ``model`` and the replicated ``bo`` is added once, after the sum."""
+    axis = None if d_ff is None else sharding.tp_axis(params["wo"].shape[0],
+                                                      d_ff)
+    x = sharding.copy_to_model(x, axis)
     h = _gelu_tanh(x @ params["wi"].to(x.dtype) + params["bi"].to(x.dtype))
-    return h @ params["wo"].to(x.dtype) + params["bo"].to(x.dtype)
+    return (sharding.reduce_sum(h @ params["wo"].to(x.dtype), axis)
+            + params["bo"].to(x.dtype))
 
 
 # -------------------------------------------------------------------- softcap

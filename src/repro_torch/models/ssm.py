@@ -18,6 +18,11 @@ so the training path passes ``impl="ref"`` here (``train/steps``), as
 the reference's train path runs its jnp ``ssd_chunked``.  The
 reference's ``REPRO_SSD_CHUNK`` environment override of the chunk is
 not ported: the chunk is ``min(ssm.chunk, S)``.
+
+Under a mesh whose layout keeps the mixer's ``model`` shards
+(``sharding.LMLayout``: a rank's block of d_inner is whole SSM heads)
+the mixer runs on the rank's heads (``_mamba_core``): Megatron's pair
+around it, one extra collective for the gated norm's sum of squares.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import SSMConfig
 from repro_torch.models.layers import dense_init, init_rmsnorm, rmsnorm, silu
 
@@ -142,12 +148,42 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, run
 
 
+def _local_heads(params, ssm: SSMConfig, axis):
+    """A tensor-parallel rank's mixer params: ``params`` holds its block
+    of d_inner (``wz``/``wx`` columns, ``conv_x`` channels, ``out_proj``
+    rows, ``gate_norm``), whole SSM heads.  Returns the params its heads
+    read: ``wB``/``wC`` whole, ``wdt``'s columns and ``A_log``/``D``/
+    ``dt_bias`` of its heads, each through ``copy_to_model`` (one
+    collective for all of them in the backward), since every rank uses
+    such a replicated param in part."""
+    nhl = params["wz"].shape[-1] // ssm.head_dim
+    h0 = axis.rank * nhl
+    rep = sharding.copy_params_to_model(
+        {k: params[k] for k in ("wB", "wC", "wdt", "A_log", "D", "dt_bias")},
+        axis)
+    out = dict(params, wB=rep["wB"], wC=rep["wC"],
+               wdt=rep["wdt"][:, h0:h0 + nhl])
+    for k in ("A_log", "D", "dt_bias"):
+        out[k] = rep[k][h0:h0 + nhl]
+    return out
+
+
 def _mamba_core(params, x_in: torch.Tensor, ssm: SSMConfig,
                 impl: Optional[str] = None):
+    """The mixer; under tensor parallelism (``params`` holds the rank's
+    block of d_inner, ``LMLayout``) on the rank's SSM heads: x_in through
+    ``copy_to_model``, the conv on its channels, the scan on its heads,
+    the gated norm over the whole d_inner (``rmsnorm`` over ``model``),
+    ``out_proj`` row-parallel and summed over ``model``."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    d_model = x_in.shape[-1]
-    di, nh = dims(d_model, ssm)
+    di_whole, _ = dims(x_in.shape[-1], ssm)
+    tp = sharding.tp_axis(params["wz"].shape[-1], di_whole)
+    if tp is not None:
+        x_in = sharding.copy_to_model(x_in, tp)
+        params = _local_heads(params, ssm, tp)
+    di = params["wz"].shape[-1]
+    nh = di // ssm.head_dim
     dt_raw = x_in @ params["wdt"].to(x_in.dtype)
     z = x_in @ params["wz"].to(x_in.dtype)
     xr_raw = x_in @ params["wx"].to(x_in.dtype)
@@ -163,8 +199,8 @@ def _mamba_core(params, x_in: torch.Tensor, ssm: SSMConfig,
                                       chunk=min(ssm.chunk, s), impl=impl)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(b, s, di).to(x_in.dtype)
-    y = rmsnorm(params["gate_norm"], y * silu(z))
-    out = y @ params["out_proj"].to(x_in.dtype)
+    y = rmsnorm(params["gate_norm"], y * silu(z), axis=tp)
+    out = sharding.reduce_sum(y @ params["out_proj"].to(x_in.dtype), tp)
     return out, final_state, xr_raw
 
 

@@ -126,44 +126,24 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig):
 
 # --------------------------------------------------------------- block fwd
 
-def _tp_axis(local: int, whole: int):
-    """The ``model`` axis where a param holds ``local`` of ``whole``
-    columns (tensor parallelism under a mesh), else None."""
-    return sharding.mesh_axis(sharding.active_mesh(), "model") \
-        if local != whole else None
-
-
 def _attention_path(lp, x_norm, cfg: ArchConfig, positions, window, prefix,
                     impl):
-    """Attention with rotary; under tensor parallelism (``lp`` holds the
-    rank's q heads) on the rank's heads, its K11 launch on them, ``wo``
-    row-parallel and summed over ``model``."""
-    tp = _tp_axis(lp["wq"].shape[1], cfg.n_heads)
-    if tp is not None:
-        x_norm = sharding.copy_to_model(x_norm, tp)
-        lp = attn_mod.local_heads(lp, cfg, tp)
-    q, k, v = attn_mod.qkv_project(lp, x_norm)
-    q = rotary_embed(q, positions, cfg.rope_theta)
-    k = rotary_embed(k, positions, cfg.rope_theta)
-    out = attn_mod.attend(
-        q, k, v, q_pos=positions, k_pos=positions, causal=True,
-        window=window, prefix=prefix, logit_cap=cfg.attn_logit_softcap,
-        kernel_impl=impl)
-    return sharding.reduce_sum(attn_mod.out_project(lp, out), tp), k, v
+    """Causal self-attention with rotary, tensor- or context-parallel
+    under a mesh (``attention.layer_attention``)."""
+    return attn_mod.layer_attention(
+        lp, x_norm, cfg, positions=positions, causal=True, window=window,
+        prefix=prefix, rope=True, impl=impl)
 
 
 def _ffn_path(lp, x, cfg: ArchConfig):
     """The dense/moe block's second half: x + (post-norm'd) GLU MLP or
-    MoE; the MLP column- then row-parallel where ``lp`` holds the rank's
-    d_ff block.  Returns (x, aux_loss or None)."""
+    MoE.  Returns (x, aux_loss or None)."""
     h = rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
     aux = None
     if cfg.moe is not None:
         m, aux = moe_mod.moe_forward(lp["moe"], h, cfg.moe)
     else:
-        tp = _tp_axis(lp["mlp"]["wi_gate"].shape[-1], cfg.d_ff)
-        m = glu_mlp(lp["mlp"], sharding.copy_to_model(h, tp), cfg.mlp_act)
-        m = sharding.reduce_sum(m, tp)
+        m = glu_mlp(lp["mlp"], h, cfg.mlp_act, cfg.d_ff)
     if cfg.sandwich_norms:
         m = rmsnorm(lp["post_mlp_norm"], m, cfg.norm_eps)
     return x + m, aux
@@ -176,7 +156,7 @@ def _hybrid_mix(lp, x, a, s, cfg: ArchConfig):
     x = x + 0.5 * (rmsnorm(lp["attn_out_norm"], a, eps)
                    + rmsnorm(lp["ssm_out_norm"], s, eps))
     return x + glu_mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, eps),
-                       cfg.mlp_act)
+                       cfg.mlp_act, cfg.d_ff)
 
 
 def block_forward(lp, x, cfg: ArchConfig, positions, window: int,
@@ -211,7 +191,7 @@ def _embed_tokens(params, cfg: ArchConfig, tokens):
     rank's rows: ids outside them read zeros, the ranks' rows summed."""
     dt = dtype_of(cfg.dtype)
     emb = params["embed"]
-    tp = _tp_axis(emb.shape[0], cfg.vocab_padded)
+    tp = sharding.tp_axis(emb.shape[0], cfg.vocab_padded)
     if tp is None:
         x = emb[tokens.long()].to(dt)
     else:
@@ -250,7 +230,7 @@ def lm_logits(params, cfg: ArchConfig, x):
     block of the logits, gathered over ``model``."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    tp = _tp_axis(head.shape[-1], cfg.vocab_padded)
+    tp = sharding.tp_axis(head.shape[-1], cfg.vocab_padded)
     logits = sharding.copy_to_model(x, tp) @ head.to(x.dtype)
     logits = sharding.gather_dim(logits, tp, -1)
     return softcap(logits.float(), cfg.final_logit_softcap)

@@ -28,23 +28,30 @@ device).  ``COLLECTIVES`` counts the collectives a process made, the
 ones it staged and their bytes.
 
 The LLM half (the second part of this module) lays a model's params
-out by the reference's rules and trains it on a ``(data, model)`` mesh:
-``_RULES``, ``spec_for_param``, ``filter_spec``, ``check_divisible``,
-``param_shardings`` and ``batch_shardings`` give the reference's
-``PartitionSpec``s entry for entry (as tuples), on a ``DeviceMesh`` or
-any object with ``mesh_dim_names`` and ``shape`` (``MeshShape``: no
-world needed).  GSPMD's ``with_sharding_constraint`` has no PyTorch
-counterpart, so ``shard_act``/``shard_attn_act`` change nothing and the
-layout is explicit (``LMLayout``): params rest as each rank's block of
-their spec; a layer gathers its ``data``-sharded blocks in one flat
-collective just before it runs (backward: the sum reduce-scatter); under
-the ``"2d"`` profile the dense and MoE families keep their ``model``
-shards (Megatron's pair ``copy_to_model``/``reduce_sum`` around
-the attention heads, the MLP's ``d_ff``, the vocab; the experts through
-``models.moe.moe_forward_ep``'s ``all_to_all``); every other block is
-gathered whole and runs replicated over ``model``.  Batch rows shard
-over the profile's batch axes; the gradients of params replicated over a
-batch axis are summed over it after the backward.
+out by the reference's rules and trains it on a ``(data, model)`` or
+``(pod, data, model)`` mesh: ``_RULES``, ``spec_for_param``,
+``filter_spec``, ``check_divisible``, ``param_shardings`` and
+``batch_shardings`` give the reference's ``PartitionSpec``s entry for
+entry (as tuples), on a ``DeviceMesh`` or any object with
+``mesh_dim_names`` and ``shape`` (``MeshShape``: no world needed).
+GSPMD's ``with_sharding_constraint`` has no PyTorch counterpart, so
+``shard_act``/``shard_attn_act`` change nothing and the layout is
+explicit (``LMLayout``): params rest as each rank's block of their spec;
+a layer gathers its ``data``-sharded blocks in one flat collective just
+before it runs (backward: the sum reduce-scatter); under the ``"2d"``
+profile every family keeps the ``model`` shards the model code runs on
+(Megatron's pair ``copy_to_model``/``reduce_sum`` around attention's
+heads, an MLP's ``d_ff``, the Mamba mixer's SSM heads, the vocab; the
+experts through ``models.moe.moe_forward_ep``'s ``all_to_all``), and
+attention whose q heads do not divide ``model`` runs context-parallel
+over the sequence where the sequence divides it (``LMLayout.attention_route``,
+the reference's ``shard_attn_act`` rule).  A block whose ``model`` shards
+the code cannot run on (a Mamba mixer whose rank block splits an SSM
+head, attention in neither case) is gathered whole and runs replicated
+over ``model``.  Batch rows shard over the profile's batch axes (``pod``
+and ``data``, and ``model`` under ``"fsdp"``); the gradients of params
+replicated over a batch axis (every param over ``pod``) are summed over
+it after the backward.
 """
 from __future__ import annotations
 
@@ -68,7 +75,8 @@ __all__ = ["COLLECTIVES", "reset_collectives", "shard_axis_name",
            "param_shardings", "param_specs_abstract", "replicated",
            "batch_shardings", "flat_tree", "flat_specs", "mesh_axis",
            "all_to_all", "copy_to_model", "reduce_sum", "gather_dim",
-           "split_dim", "flat_gather", "LMLayout", "lm_layout"]
+           "split_dim", "flat_gather", "copy_params_to_model", "psum",
+           "tp_axis", "LMLayout", "lm_layout"]
 
 #: collectives this process made: all of them, the ones staged through
 #: host memory (a CUDA tensor on a gloo group), and the bytes each rank
@@ -410,8 +418,10 @@ def shard_act(x, *entries):
 def shard_attn_act(x, *, head_axis: int = 2, seq_axis: int = 1):
     """The reference's attention-activation constraint (heads over
     ``model``, else context parallelism over the sequence): a layout
-    only, so ``x`` unchanged.  Where the heads do not divide ``model``
-    the port's rank computes every head (``LMLayout``)."""
+    only, so ``x`` unchanged.  The port runs the same rule explicitly:
+    a rank's q heads where the heads divide ``model`` (``LMLayout``'s
+    kept shards), else its block of the q rows where the sequence does
+    (``LMLayout.attention_route``, ``models.attention.context_attention``)."""
     return x
 
 
@@ -566,20 +576,6 @@ class _ReduceSum(torch.autograd.Function):
         return g, None
 
 
-class _CopyTo(torch.autograd.Function):
-    """Identity forward, sum over ``axes`` backward (Megatron's f): a
-    value every rank holds whole, used by each for its own part."""
-
-    @staticmethod
-    def forward(ctx, x, axes):
-        ctx.axes = axes
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _sum_f32(g, ctx.axes), None
-
-
 def reduce_sum(x: torch.Tensor, *axes: Optional[MeshAxis]) -> torch.Tensor:
     """``_ReduceSum`` over the axes given (None ones skipped): over
     ``model``, Megatron's g, the row-parallel output summed."""
@@ -587,10 +583,60 @@ def reduce_sum(x: torch.Tensor, *axes: Optional[MeshAxis]) -> torch.Tensor:
     return _ReduceSum.apply(x, axes) if axes else x
 
 
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f of one or several tensors: identity forward; backward
+    their cotangents summed over ``axis`` in one flat f32 all-reduce,
+    each returned in its own dtype (values every rank holds whole, used
+    by each for its own part)."""
+
+    @staticmethod
+    def forward(ctx, axis, *xs):
+        ctx.axis = axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.float().reshape(-1) for g in gs])
+        all_reduce_sum(flat, ctx.axis)
+        out, off = [], 0
+        for g in gs:
+            out.append(flat[off:off + g.numel()].view_as(g).to(g.dtype))
+            off += g.numel()
+        return (None,) + tuple(out)
+
+
 def copy_to_model(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
     """Megatron's f over ``model``: the input of a column-parallel
     product, or a replicated param each rank uses in part."""
-    return x if axis is None else _CopyTo.apply(x, (axis,))
+    return x if axis is None else _CopyTo.apply(axis, x)[0]
+
+
+def copy_params_to_model(params: Dict[str, torch.Tensor],
+                         axis: Optional[MeshAxis]) -> Dict[str, torch.Tensor]:
+    """``copy_to_model`` of every tensor of ``params`` (a flat dict of
+    params replicated over ``model`` that each rank uses in part: its
+    heads' rows, its q rows), their gradients summed in one collective."""
+    if axis is None or not params:
+        return dict(params)
+    keys = list(params)
+    return dict(zip(keys, _CopyTo.apply(axis, *(params[k]
+                                                for k in keys))))
+
+
+def psum(x: torch.Tensor, axis: Optional[MeshAxis]) -> torch.Tensor:
+    """``x`` summed over ``axis`` in f32, and the cotangent summed the
+    same way in the backward: a value each rank computes a part of and
+    every rank then uses whole, each for its own part of what follows
+    (the gated RMS norm's sum of squares over a Mamba mixer's channels):
+    ``reduce_sum`` then ``copy_to_model``."""
+    return copy_to_model(reduce_sum(x, axis), axis)
+
+
+def tp_axis(local: int, whole: int) -> Optional[MeshAxis]:
+    """The active mesh's ``model`` axis where a param holds ``local`` of
+    ``whole`` columns (tensor parallelism: ``LMLayout`` kept its
+    ``model`` shard), else None."""
+    return mesh_axis(active_mesh(), "model") if local != whole else None
 
 
 def _gather_along(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
@@ -734,20 +780,38 @@ def _cast_before_gather(path: str, t: torch.Tensor) -> bool:
             and not path.endswith("router"))
 
 
-def _model_kept(specs: Dict[str, tuple]) -> set:
-    """The leaves of one dense or MoE layer (paths within the layer) that
-    keep their ``model`` shards under tensor parallelism: attention's
-    when its q heads shard (and k/v where the kv heads do too), the MLP's
-    when d_ff does, the experts when they do (expert parallelism)."""
+#: a Mamba mixer's leaves that hold d_inner channels, sharded over
+#: ``model`` together (``models.ssm``)
+_MAMBA_TP = ("mamba/wz", "mamba/wx", "mamba/conv_x", "mamba/out_proj",
+             "mamba/gate_norm/scale")
+
+
+def _model_kept(specs: Dict[str, tuple], cfg, model: int,
+                heads: bool) -> set:
+    """The leaves of one layer (paths within the layer) that keep their
+    ``model`` shards under tensor parallelism, on a ``model`` axis of
+    size ``model``: attention's and cross-attention's where ``heads``
+    (``LMLayout.attention_route`` gives each rank its q heads; k/v where
+    the kv heads shard too), an MLP's when d_ff does (GLU: both input
+    matrices and ``wo``; GELU: ``wi``, ``bi`` and ``wo``, its ``bo``
+    replicated), the experts when they do (expert parallelism), the
+    Mamba mixer's d_inner leaves when a rank's block of d_inner is whole
+    SSM heads."""
     sharded = lambda p: "model" in specs.get(p, ())
     keep = set()
-    if sharded("attn/wq") and sharded("attn/wo"):
-        keep |= {"attn/wq", "attn/wo"}
-        keep |= {p for p in ("attn/wk", "attn/wv") if sharded(p)}
+    for attn in ("attn", "cross_attn"):
+        if heads and f"{attn}/wq" in specs:
+            keep |= {f"{attn}/wq", f"{attn}/wo"}
+            keep |= {p for p in (f"{attn}/wk", f"{attn}/wv") if sharded(p)}
     for group in (("mlp/wi_gate", "mlp/wi_up", "mlp/wo"),
+                  ("mlp/wi", "mlp/bi", "mlp/wo"),
                   ("moe/wi_gate", "moe/wi_up", "moe/wo")):
         if all(sharded(p) for p in group):
             keep |= set(group)
+    if cfg.ssm is not None and all(sharded(p) for p in _MAMBA_TP):
+        d_inner = cfg.ssm.expand * cfg.d_model
+        if (d_inner // model) % cfg.ssm.head_dim == 0:
+            keep |= set(_MAMBA_TP)
     return keep
 
 
@@ -761,20 +825,20 @@ class LMLayout:
     params: every ``data`` shard gathered (one flat collective a dtype,
     the matrices cast to the compute dtype first), every ``model`` shard
     too except those tensor parallelism keeps (``tp``: profile ``"2d"``,
-    the dense and MoE families; the vocab for every decoder-only
+    every family, ``_model_kept``; the vocab for every decoder-only
     family).  Batch rows split over ``batch`` (the profile's batch axes
-    the mesh has), rank-major.  Only ``data`` and ``model`` dims run
-    (``pod`` meshes are ``make_production_mesh``'s, ROADMAP queue 7d)."""
+    the mesh has: ``pod`` and ``data``, rank-major, as the reference's
+    ``("pod", "data")``).  No rule names ``pod``: every param is
+    replicated over it, and ``sync_grads`` sums its gradient there."""
 
     def __init__(self, cfg, mesh):
         from repro_torch.models import api
         from repro_torch.models.layers import dtype_of
 
-        extra = set(mesh.mesh_dim_names) - {"data", "model"}
+        extra = set(mesh.mesh_dim_names) - {"pod", "data", "model"}
         if extra:
             raise ValueError(f"mesh dims {sorted(extra)}: the port trains on "
-                             "(data, model) meshes; the pod meshes wait for "
-                             "make_production_mesh (ROADMAP queue 7d)")
+                             "meshes of pod, data and model dims")
         self.cfg, self.mesh = cfg, mesh
         self.data = mesh_axis(mesh, "data")
         self.model = mesh_axis(mesh, "model")
@@ -783,7 +847,7 @@ class LMLayout:
         self.dtype = dtype_of(cfg.dtype)
         self.specs = flat_specs(param_specs_abstract(api.param_shapes(cfg),
                                                      mesh))
-        self.tp = profile() == "2d" and cfg.family in ("dense", "moe")
+        self.tp = profile() == "2d"
         self._kept = {}
 
     # ------------------------------------------------------------ specs
@@ -799,6 +863,25 @@ class LMLayout:
 
     def _axis(self, name) -> Optional[MeshAxis]:
         return {"data": self.data, "model": self.model}.get(name)
+
+    def attention_route(self, seq: Optional[int] = None
+                        ) -> Tuple[Optional[str], Optional[MeshAxis]]:
+        """How an attention block over ``seq`` q positions runs on this
+        layout, the reference's ``shard_attn_act`` rule: ``("tp",
+        model)`` under ``"2d"`` where the q heads divide ``model`` (each
+        rank its heads; ``gather_layer`` keeps their shards), else
+        ``("cp", model)`` where ``seq`` does (each rank its block of the
+        q rows, ``models.attention.context_attention``), else ``(None,
+        None)``: replicated over ``model``, as always under ``"fsdp"``.
+        With no ``seq``, only the heads are asked."""
+        m = self.model
+        if not self.tp or m is None:
+            return None, None
+        if self.cfg.n_heads % m.size == 0:
+            return "tp", m
+        if seq is not None and seq % m.size == 0:
+            return "cp", m
+        return None, None
 
     # ------------------------------------------------------------ blocks
     def block(self, spec: tuple, t: torch.Tensor) -> torch.Tensor:
@@ -898,8 +981,11 @@ class LMLayout:
         if stack not in self._kept:
             layer = {k[len(stack) + 1:]: s[1:] for k, s in self.specs.items()
                      if k.startswith(stack + "/")}
-            self._kept[stack] = (layer, _model_kept(layer) if self.tp
-                                 and stack == "layers" else set())
+            keep = set()
+            if self.tp and self.model is not None:
+                keep = _model_kept(layer, self.cfg, self.model.size,
+                                   self.attention_route()[0] == "tp")
+            self._kept[stack] = (layer, keep)
         layer, keep = self._kept[stack]
         inside = ()
         if stack == "layers" and self.cfg.moe is not None:

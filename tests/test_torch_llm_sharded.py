@@ -353,26 +353,46 @@ def _flat_ref(tree):
             jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _check_train(got, want):
-    """``got`` (a world's rank 0) against ``want`` (the reference's):
-    metrics, first gradients, params after two steps."""
+def _check_metrics_and_grads(got, want):
+    """``got``'s metrics and first gradients against ``want``'s; returns
+    ``want``'s flat gradients and its largest gradient element."""
     for g, w in zip(got["metrics"], want["metrics"]):
         for k in ("loss", "ce", "aux"):
             np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-7,
                                        err_msg=k)
-    wg, wp = _flat_ref(want["grads"]), _flat_ref(want["params"])
+    wg = _flat_ref(want["grads"])
     assert sorted(got["grads"]) == sorted(wg)
     top = max(float(np.abs(w).max()) for w in wg.values())
-    n_noise = 0
     for k, w in wg.items():
         np.testing.assert_allclose(
-            got["grads"][k], w, rtol=1e-4,
-            atol=1e-4 * float(np.abs(w).max()) + 1e-6 * top,
+            got["grads"][k], w, rtol=1e-4, atol=_grad_atol(w, top),
             err_msg=f"gradient {k}")
+    return wg, top
+
+
+def _grad_atol(w, top):
+    """The first gradients' atol for leaf ``w`` (``top``: the largest
+    gradient element of any leaf)."""
+    return 1e-4 * float(np.abs(w).max()) + 1e-6 * top
+
+
+def _check_train(got, want, wide: float = 0.0):
+    """``got`` (a world's rank 0) against ``want`` (the reference's):
+    metrics, first gradients, params after two steps.  ``wide`` > 0
+    widens the param rule from the gradient tolerance: an element whose
+    first gradient lies within ``wide`` times its leaf's gradient atol
+    of zero is held within ``LR``, one Adam step, of ``want``'s."""
+    wg, top = _check_metrics_and_grads(got, want)
+    wp = _flat_ref(want["params"])
+    n_noise = 0
+    for k, w in wg.items():
         p, q = got["params"][k], wp[k].astype(np.float64)
         noise = (np.abs(w) <= max(1e-5 * np.abs(w).max(), 1e-6 * top)
                  ) & (w != 0)
         lim = np.where(noise, 4 * LR, 1e-4 + 1e-3 * np.abs(q))
+        if wide:
+            near = ~noise & (np.abs(w) <= wide * _grad_atol(w, top))
+            lim = np.where(near, np.maximum(lim, LR), lim)
         err = np.abs(p - q)
         assert bool((err <= lim).all()), (k, float((err - lim).max()))
         n_noise += int(noise.sum())
