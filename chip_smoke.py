@@ -12,6 +12,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only long-context     # build K11/K12, long_500k
     python3 chip_smoke.py --only sharded          # the VFL kernels, mesh=
     python3 chip_smoke.py --only llm-sharded      # build K11, LLM on a mesh
+    python3 chip_smoke.py --only analysis         # the gate's census, smem
 
 Phases, each printing JSON lines:
 
@@ -377,6 +378,20 @@ Phases, each printing JSON lines:
               2,048) and whisper-large-v3 (448 decoder tokens over its
               1,500 frames), full width, 2 layers (whisper 2 + 2), f32:
               one loss and gradient each against the unsharded run.
+22. analysis — the engine-contract gate's layers on the card
+              (``repro_torch.analysis``): the census of every
+              single-device program of ``analysis.check`` with the
+              kernels on — kernel launches a call (and a step) as
+              ``ANALYSIS_LAUNCHES`` has them and equal to the reference's
+              ``pallas_calls`` in ``experiments/bench/static_contract.json``
+              (one K6 launch over both sides stands for its two PRF calls),
+              zero host syncs inside a train step (counted, and read by
+              ``torch.cuda.set_sync_debug_mode``) and exactly the epoch's
+              one outside them, zero f64, the contract's counters; every
+              ``ok`` row of ``analysis.blocks.smem_report`` launched at its
+              shape and held against its plain version; K11's forward and
+              K7/K8's static shared memory equal to ptxas's; K1 at
+              d = o = 128 refused before launch.
 
 The line before the last two is the ``{"kernels": [...]}`` summary; the
 line before the last is nvidia-smi's name and power limit; the last line
@@ -5398,6 +5413,288 @@ def spilled(report: str):
     return out
 
 
+#: the reference's own contract: its ``pallas_calls`` of each program
+#: (structural: a kernel in a loop counts once), under ``+pallas`` where
+#: the port says ``+kernel``
+REFERENCE_CONTRACT = os.path.join(ROOT, "experiments", "bench",
+                                  "static_contract.json")
+
+#: the port's kernel launches a call, and a step where the program loops,
+#: of each single-device program on the card (the ``+kernel`` rows on the
+#: kernels; the ``+ref`` rows take the plain versions everywhere)
+ANALYSIS_LAUNCHES = {
+    "psi.prf": ({"psi_prf": 1}, {}),
+    "psi.merge": ({"sorted_intersect": 1}, {}),
+    "psi.single": ({"psi_prf": 1, "sorted_intersect": 1}, {}),
+    "psi.union": ({"sorted_intersect": 1}, {}),
+    "serve.score.lr+ref": ({}, {}),
+    "serve.score.lr-int8+ref": ({}, {}),
+    "serve.score.mlp+kernel": ({"splitnn_bottom": 1}, {}),
+    "serve.score.mlp-int8+kernel": ({"splitnn_bottom_int8": 1}, {}),
+    "train.epoch.lr+ref": ({}, {}),
+    "train.epoch.lr-int8+ref": ({}, {}),
+    "train.epoch.lr-fp8+ref": ({}, {}),
+    "train.epoch.mlp+kernel": ({"splitnn_bottom_gather": 1},
+                               {"splitnn_bottom_gather": 1}),
+    "train.epoch.mlp-int8+kernel": ({"splitnn_bottom_int8_gather": 1},
+                                    {"splitnn_bottom_int8_gather": 1}),
+    "kmeans.fit+ref": ({}, {}),
+    "kmeans.fit+kernel": ({"kmeans_update": 1, "kmeans_assign": 1},
+                          {"kmeans_update": 1}),
+}
+
+#: the reference's PRF calls that one launch stands for: K6 tags both
+#: sides of every pair in one launch over 2B rows, where the reference
+#: makes one call a side; every other launch stands for one call
+REFERENCE_CALLS_A_LAUNCH = {"psi_prf": 2}
+
+
+def reference_pallas_calls() -> dict:
+    """{engine: pallas_calls} of the reference's single-device rows."""
+    with open(REFERENCE_CONTRACT) as f:
+        rows = json.load(f)["rows"]
+    return {r["engine"].replace("+pallas", "+kernel"):
+            r["counters"]["pallas_calls"] for r in rows if r["mesh"] == "1"}
+
+
+def ptxas_static_smem(report: str) -> dict:
+    """{entry function: static shared memory in bytes} of a ``-Xptxas -v``
+    report (no "bytes smem" on its line: 0)."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        hit = re.search(r"entry function '([^']+)'", ln)
+        if hit:
+            name = hit[1]
+        if name and re.search(r"Used \d+ registers", ln):
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name] = int(smem[1]) if smem else 0
+    return out
+
+
+def analysis_census(dev):
+    """The census of every single-device program of the gate
+    (``repro_torch.analysis.check``) on the card, the ``+kernel`` rows on
+    the kernels: kernel launches a call (and a step) against the
+    reference's ``pallas_calls``, zero host syncs inside a train step
+    (also read by ``torch.cuda.set_sync_debug_mode``) and exactly the
+    epoch's one outside them, zero f64, and the contract's counters."""
+    from repro_torch.analysis import check
+    from repro_torch.analysis.contracts import diff_rows, load_contract
+    rows = check.census_rows(dev, {"1": None}, sync_debug=True)
+    reference = reference_pallas_calls()
+    faults, out = [], []
+    for (engine, mesh), c in sorted(rows.items()):
+        want, want_loop = ANALYSIS_LAUNCHES[engine]
+        pallas = reference[engine]
+        got = {k: v for k, v in c.kernel_launches.items() if v}
+        calls = sum(n * REFERENCE_CALLS_A_LAUNCH.get(k, 1)
+                    for k, n in got.items())
+        if got != want or calls != pallas:
+            faults.append(f"{engine}: launches {got} ({calls} reference "
+                          f"calls), want {want} (the reference's "
+                          f"pallas_calls {pallas})")
+        if c.kernel_launches_in_loop != want_loop:
+            faults.append(f"{engine}: launches a step "
+                          f"{c.kernel_launches_in_loop}, want {want_loop}")
+        if c.f64_values or c.f64_widenings:
+            faults.append(f"{engine}: f64 in the program")
+        if c.host_syncs_in_loop or c.sync_warnings_in_loop:
+            faults.append(f"{engine}: host syncs inside a step "
+                          f"({c.host_syncs_in_loop} counted, "
+                          f"{c.sync_warnings_in_loop} sync warnings)")
+        if engine.startswith("train.") and c.round_syncs != 1:
+            faults.append(f"{engine}: {c.round_syncs} syncs an epoch "
+                          "outside the steps, want the epoch's one")
+        out.append(dict(engine=engine, mesh=mesh, launches=got,
+                        launches_a_step=c.kernel_launches_in_loop,
+                        reference_calls=calls, pallas_calls=pallas,
+                        steps=c.steps,
+                        host_syncs=c.host_syncs,
+                        host_syncs_in_step=c.host_syncs_in_loop,
+                        epoch_syncs=c.round_syncs,
+                        sync_warnings=c.sync_warnings,
+                        sync_warnings_in_step=c.sync_warnings_in_loop,
+                        f64=c.f64_values + c.f64_widenings))
+    contract = {k: v for k, v in load_contract(check.DEFAULT_CONTRACT,
+                                               check.KEY).items()
+                if k[1] == "1"}
+    diff_rows(contract, check.pinned({k: c.counters()
+                                      for k, c in rows.items()}),
+              "the card's census", faults)
+    return out, faults
+
+
+def analysis_block_row(dev, rng, r):
+    """Launch one ``ok`` row of ``smem_report`` at its shape and hold the
+    kernel against its plain version; returns its max abs error."""
+    from repro_torch.kernels.kmeans_assign.kernel import kmeans_assign_cuda
+    from repro_torch.kernels.kmeans_update import ref as ku_ref
+    from repro_torch.kernels.kmeans_update.kernel import (
+        kmeans_update_cuda, kmeans_update_gather_cuda)
+    from repro_torch.kernels.psi_prf import ref as prf_ref
+    from repro_torch.kernels.psi_prf.kernel import prf_tags_cuda
+    from repro_torch.kernels.sorted_intersect import ref as si_ref
+    from repro_torch.kernels.sorted_intersect.kernel import \
+        sorted_intersect_cuda
+    from repro_torch.kernels.splitnn_bottom import kernel as sbk
+    from repro_torch.kernels.splitnn_bottom import ref as sb_ref
+    from repro_torch.kernels.splitnn_bottom.ops import int8_rows
+
+    kernel, p = r["kernel"], r["params"]
+    tag = f"analysis {kernel} [{r['shape']}]"
+    f32 = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    if kernel.startswith("splitnn_bottom"):
+        m, n, d, o = p["m"], p["n"], p["d"], p["o"]
+        x, w, b = f32(m, n, d), f32(m, d, o), f32(m, o)
+        idx = (torch.from_numpy(rng.integers(0, n, p["b"]).astype(
+            np.int32)).to(dev) if "b" in p else None)
+        if p["quant"] == "int8":
+            xq, sx = int8_rows(x)
+            got = (sbk.splitnn_bottom_int8_wire_cuda(x, w, b, True)[0]
+                   if idx is None else
+                   sbk.splitnn_bottom_int8_wire_gather_cuda(
+                       idx, xq, sx, w, b, True)[0])
+            want = sb_ref.splitnn_bottom_int8_wire(xq, sx, w, b, True,
+                                                   idx)[0]
+            differ(tag, "the wire values of the kernel and the plain "
+                   "composition", got, want)
+            return 0.0
+        got = (sbk.splitnn_bottom_cuda(x, w, b, True) if idx is None
+               else sbk.splitnn_bottom_gather_cuda(idx, x, w, b, True))
+        xs = x if idx is None else x.index_select(1, idx)
+        want = sb_ref.splitnn_bottom(xs, w, b, True)
+        scale = torch.bmm(xs.abs(), w.abs()) + b.abs()[:, None, :]
+        return check_close(tag, got, want, scale, rtol=1e-5, atol=1e-6)
+    if kernel.startswith("kmeans"):
+        m, n, d, k = p["m"], p["n"], p["d"], p["k"]
+        pts = f32(m, n, d)
+        cents = pts[:, :k].contiguous()
+        if kernel == "kmeans_assign":
+            return check_assign(tag, pts, cents,
+                                kmeans_assign_cuda(pts, cents))[0]
+        if kernel == "kmeans_update":
+            return check_update(tag, pts, cents,
+                                kmeans_update_cuda(pts, cents),
+                                ku_ref.kmeans_update(pts, cents))[0]
+        idx = torch.from_numpy(rng.integers(0, n, (m, p["b"])).astype(
+            np.int32)).to(dev)
+        rows = torch.gather(pts, 1, idx.long()[..., None].expand(-1, -1, d))
+        return check_update(tag, rows, cents,
+                            kmeans_update_gather_cuda(pts, cents, idx),
+                            ku_ref.kmeans_update(rows, cents))[0]
+    if kernel == "psi_prf":
+        ids = torch.from_numpy(rng.integers(0, 2 ** 62, (p["rows"], p["p"]),
+                                            dtype=np.int64)).to(dev)
+        seeds = torch.from_numpy(rng.integers(0, 2 ** 32, (p["rows"], 2),
+                                              dtype=np.int64)).to(dev)
+        if not torch.equal(prf_tags_cuda(ids, seeds),
+                           prf_ref.prf_tags(ids, seeds)):
+            raise AssertionError(f"{tag}: tags differ")
+        return 0.0
+    if kernel.startswith("sorted_intersect"):
+        n_side = p["p"] * 3 // 4
+        a, b = merge_operands(rng, p["p"], n_side, n_side // 2, dev,
+                              p["pairs"])
+        for part, g, w in zip(("sel", "rank", "merged"),
+                              sorted_intersect_cuda(a, b),
+                              si_ref.sorted_intersect(a, b)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{tag}: {part} differs")
+        return 0.0
+    dtype = torch.float32 if p.get("dtype") == "f32" else torch.bfloat16
+    if kernel == "flash_attention":
+        return flash_row(dev, rng, 1, 256, 256, 4, 2, p["dh"], dtype,
+                         check_only=tag)["max_abs_err"]
+    if kernel == "flash_attention_bwd":
+        return flash_bwd_row(dev, rng, 1, 256, 256, 4, 2, p["dh"], dtype,
+                             check_only=tag)["max_abs_err"]
+    if kernel == "ssd_scan":
+        return ssd_row(dev, rng, 1, p["s"], p["h"], p["p"], p["n"],
+                       p["chunk"], check_only=tag)["max_abs_err"]
+    raise AssertionError(f"{tag}: no launch for this kernel")
+
+
+def analysis_blocks(dev):
+    """Every ``ok`` row of ``smem_report`` launched at its shape and held
+    against its plain version; the static shared memory of K11's forward
+    and K7/K8 against ptxas's; a row that is not ``ok`` (K1 at d = o =
+    128, past ``SMEM_CAP``) refused by its wrapper before launch."""
+    from repro_torch.analysis import blocks
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.kernel import smem_bytes
+    from repro_torch.kernels.sorted_intersect.kernel import merge_smem_bytes
+    from repro_torch.kernels.splitnn_bottom.kernel import splitnn_bottom_cuda
+
+    rng = np.random.default_rng(SEED + 20)
+    faults, out = [], []
+    for r in (b.as_row() for b in blocks.smem_report()):
+        if not r["ok"]:
+            faults.append(f"smem row not ok: {r}")
+            continue
+        before = sum(build.LAUNCHES.values())
+        err = analysis_block_row(dev, rng, r)
+        out.append(dict(kernel=r["kernel"], shape=r["shape"],
+                        smem_bytes=r["smem_bytes"], limit=r["limit"],
+                        max_abs_err=err,
+                        launched=sum(build.LAUNCHES.values()) > before))
+        if not out[-1]["launched"]:
+            faults.append(f"{r['kernel']} [{r['shape']}]: no launch")
+        torch.cuda.empty_cache()
+    static = {}
+    for source in ("flash_attention", "sorted_intersect"):
+        report = build.PTXAS_REPORT.get(source)
+        if not report:
+            raise AssertionError(f"no ptxas report of {source}: the "
+                                 "analysis phase needs a fresh build")
+        static.update(ptxas_static_smem(report))
+    for fn, got in sorted(static.items()):
+        hit = re.search(r"flash_attention_kernel(_bf16_mma)?ILi(\d+)E", fn)
+        if hit:
+            want = 0 if hit[1] else smem_bytes(int(hit[2]), torch.float32)
+        else:
+            hit = re.search(r"merge_path_kernelILi(\d+)E", fn)
+            if not hit:
+                continue
+            want = merge_smem_bytes(int(hit[1]))
+        if got != want:
+            faults.append(f"{fn}: ptxas reports {got} B of static shared "
+                          f"memory, the kernel module {want}")
+    bad = blocks.splitnn_bottom_blocks(512, 128, 128)
+    x = torch.zeros((3, 512, 128), device=dev)
+    w = torch.zeros((3, 128, 128), device=dev)
+    before = dict(build.LAUNCHES)
+    try:
+        splitnn_bottom_cuda(x, w, torch.zeros((3, 128), device=dev), True)
+        faults.append(f"{bad.shape}: K1 launched a block of "
+                      f"{bad.smem_bytes} B past {bad.limit} B")
+    except ValueError:
+        pass
+    if build.LAUNCHES != before or bad.ok:
+        faults.append(f"{bad.shape}: not refused before launch")
+    return out, {k: v for k, v in static.items()
+                 if "flash_attention" in k or "merge_path" in k}, faults
+
+
+def analysis_phase(dev):
+    """The gate's layers on the card (``--only analysis``): the census of
+    every single-device program with the kernels on (``analysis_census``)
+    and the shared-memory rows launched (``analysis_blocks``)."""
+    t0 = time.perf_counter()
+    census, faults = analysis_census(dev)
+    t1 = time.perf_counter()
+    rows, static, block_faults = analysis_blocks(dev)
+    row = dict(phase="analysis", census=census, blocks=rows,
+               ptxas_static_smem=static, census_seconds=t1 - t0,
+               blocks_seconds=time.perf_counter() - t1,
+               seconds=time.perf_counter() - t0,
+               faults=faults + block_faults)
+    emit(row)
+    if row["faults"]:
+        raise AssertionError(f"analysis: {row['faults']}")
+    return [row]
+
+
 ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
                         "ssd_scan"],
         "sharded": ["psi_prf", "sorted_intersect", "kmeans_update",
@@ -5408,7 +5705,8 @@ ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
         "llm-sharded": ["flash_attention", "flash_attention_bwd"],
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
         "bottom-kernels": ["splitnn_bottom"],
-        "psi-kernels": ["psi_prf", "sorted_intersect"]}
+        "psi-kernels": ["psi_prf", "sorted_intersect"],
+        "analysis": None}
 
 
 def main(argv) -> int:
@@ -5419,7 +5717,7 @@ def main(argv) -> int:
         print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
               "...]|llm-train|long-context|kmeans-kernels|bottom-kernels|"
               "psi-kernels|"
-              "sharded|llm-sharded]", file=sys.stderr)
+              "sharded|llm-sharded|analysis]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5508,6 +5806,14 @@ def main(argv) -> int:
         # to the LLM half of sharding, the models' mesh paths or
         # launch/train (not the contract run)
         llm_sharded_phase(dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
+    if only == "analysis":
+        # the gate's census and shared-memory rows on the card: the quick
+        # check of an edit to analysis/ or an engine program (not the
+        # contract run)
+        analysis_phase(dev)
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
@@ -5623,6 +5929,9 @@ def main(argv) -> int:
     # LLM training on a (data, model) mesh: its own launch counts (each
     # rank's K11 forward and backward a step)
     pipe_rows += llm_sharded_phase(dev, smi)
+    # the gate's census (launches a call against the reference's
+    # pallas_calls, syncs, f64) and shared-memory rows on the card
+    pipe_rows += analysis_phase(dev)
     kernels = []
     for r in rows:
         if "check_only" in r or "timed_at" in r:

@@ -79,6 +79,50 @@ def bwd_tiles(dh: int) -> BwdTiles:
                     passes=2 + 2 * dsplit + 9)
 
 
+def _dp(dh: int, ladder: Tuple[int, ...]) -> int:
+    return next(d for d in ladder if dh <= d)
+
+
+def smem_bytes(dh: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one forward CTA at head dim ``dh``, as
+    ``flash_attention.cu`` lays it out.  f32 (``flash_attention_kernel``,
+    static ``__shared__``): K and V tiles of ``TILE_FLOATS`` = 4,096
+    floats each, whatever DP.  bf16 (``flash_attention_kernel_bf16_mma``,
+    dynamic, ``TcShape::SMEM``): Q's 64 rows and two buffers each of K
+    and V tiles of BK keys (64 up to DP 128, else 32), rows of DP + 8
+    bf16."""
+    if dtype == torch.float32:
+        return 2 * 4096 * 4
+    dp = _dp(dh, (32, 64, 128, 160, 256))
+    bk = 64 if dp <= 128 else 32
+    return (64 + 4 * bk) * (dp + 8) * 2
+
+
+def bwd_smem_bytes(dh: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> Tuple[int, int]:
+    """Shared memory of one CTA of the backward's dq and dk/dv kernels at
+    head dim ``dh`` (all dynamic), as ``flash_attention_bwd.cu`` lays it
+    out.  f32 (``Tiles``): BM query rows and BN keys staged at a stride
+    of DP + 1 floats (q, do, k, v), p (and ds) at BN + 1, and the dk/dv
+    kernel's two row statistics.  bf16 (``BwdShape``, ``bwd_tiles``):
+    the dq CTA's 64 q and do rows and two buffers each of k and v tiles
+    of ``bk`` keys, rows of DP + 8 bf16, plus two f32 row statistics;
+    the dk/dv CTA's ``bn`` k and v rows and two buffers each of q and do
+    tiles of ``bm`` rows, plus four f32 per query row.  The bf16 sum
+    kernel takes none."""
+    dp = _dp(dh, (32, 64, 128, 160, 256))
+    if dtype == torch.float32:
+        bm = 64 if dp <= 160 else 32
+        bn = 64 if dp <= 128 else 32
+        staged = (2 * bm + 2 * bn) * (dp + 1)
+        return (4 * (staged + bm * (bn + 1)),
+                4 * (staged + 2 * bm * (bn + 1) + 2 * bm))
+    t = bwd_tiles(dh)
+    ld = t.dp + 8
+    return ((2 * 64 + 4 * t.bk) * ld * 2 + 2 * 64 * 4,
+            (2 * t.bn + 4 * t.bm) * ld * 2 + 4 * t.bm * 4)
+
+
 #: the dk/dv CTAs the bf16 backward aims at: the heads of a kv head are
 #: split over up to G CTAs (each its own chunk, summed in order by a third
 #: kernel) until there are about this many, so the longest causal key

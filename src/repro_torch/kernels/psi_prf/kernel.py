@@ -7,6 +7,12 @@ import torch
 from repro_torch.kernels import build
 
 
+def smem_bytes() -> int:
+    """Shared memory of one CTA: none.  ``prf_kernel`` tags one id a
+    thread (256 a CTA) in registers, its five round keys constants."""
+    return 0
+
+
 def prf_tags_cuda(ids: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
     """ids (R, N) int64 and seeds (R, 2) int64 (u32 words) on one CUDA
     device -> tags (R, N) int64; bitwise equal to ``ref.prf_tags``."""

@@ -14,6 +14,10 @@ import torch
 from repro_torch.quant import (dequantize_row_blocks, pow2,
                                quantize_columns, quantize_row_blocks)
 
+#: int8 columns an f32 product of the int8 pass sums exactly (2^24 /
+#: 127² = 1,040)
+EXACT_K = 1024
+
 
 def splitnn_bottom(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    relu: bool, idx: Optional[torch.Tensor] = None
@@ -48,15 +52,23 @@ def splitnn_bottom_int8(xq: torch.Tensor, sx: torch.Tensor,
     wq (M, d, o) int8 with per-column scales sw (M, o), b (M, o) f32 ->
     (M, B, o) f32 ``relu?(i32(xq[m] @ wq[m]) * (sx·sw) + b)``.
 
-    The accumulator is a float64 ``bmm`` of the int8 values: every
-    product and partial sum is an integer below 2^53 (|acc| <= d·127²),
-    so it is exact in any summation order on any device, and equals the
-    reference's i32 accumulator.  (``torch.bmm`` has no integer path on
-    CUDA.)  The epilogue then rounds as the reference does: the scale
-    product, ``acc * scale``, ``+ b``, each its own f32 operation."""
+    The accumulator is f32 ``bmm``s of the int8 values over chunks of
+    ``EXACT_K`` = 1,024 of the d columns, summed in int32: a chunk's
+    products and partial sums are integers below 2^24 (|acc| <= 1,024 ·
+    127² < 2^24), so each chunk is exact in any summation order on any
+    device (TF32 is off: ``config.resolve_device``), and the sum equals
+    the reference's i32 accumulator.  (``torch.bmm`` has no integer path
+    on CUDA, and a float64 one would put f64 in the engines' programs.)
+    The epilogue then rounds as the reference does: the scale product,
+    ``acc * scale``, ``+ b``, each its own f32 operation."""
     if idx is not None:
         xq = xq.index_select(1, idx)
-    acc = torch.bmm(xq.double(), wq.double()).to(torch.int32)
+    d = xq.shape[2]
+    acc = torch.bmm(xq[..., :EXACT_K].float(),
+                    wq[:, :EXACT_K].float()).to(torch.int32)
+    for k in range(EXACT_K, d, EXACT_K):
+        acc += torch.bmm(xq[..., k:k + EXACT_K].float(),
+                         wq[:, k:k + EXACT_K].float()).to(torch.int32)
     out = acc.float() * (sx[:, :, None] * sw[:, None, :]) + b[:, None, :]
     return torch.relu(out) if relu else out
 

@@ -18,6 +18,26 @@ from repro_torch.kernels import build
 #: = 128); a chunk CTA then takes 104 KB of shared memory (two an SM), a
 #: C Bᵀ CTA 73 KB
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 128
+# the source's tile strides (floats): the 128-wide tiles' rows (``RS``)
+# and the P-wide tiles' (``XS``)
+_RS, _XS = 132, MAX_P + 8
+
+
+def smem_bytes(p: int, n: int, chunk: int) -> Tuple[int, int]:
+    """Shared memory of one CTA of each of K12's two kernels, (C Bᵀ,
+    chunk), as ``ssd_scan.cu`` lays it out: the tiles are sized for the
+    limits, so every (P, N, L) within them takes the same.  C Bᵀ
+    (``CB_SMEM``, dynamic): 16 C rows and L_MAX B rows at a stride of RS
+    floats.  Chunk (``CHUNK_SMEM``, dynamic, plus the static ticket
+    ``item_s``): L_MAX rows of x at XS, L_MAX rows of B at RS, and cum, dt
+    and the decays, L_MAX floats each.  Raises outside the limits, as
+    the wrapper does."""
+    if not (0 < p <= MAX_P and 0 < n <= MAX_N and 0 < chunk <= MAX_CHUNK):
+        raise ValueError(f"ssd_scan: (P={p}, N={n}, L={chunk}) is out of "
+                         f"the kernel's range")
+    cb = 4 * (16 + MAX_CHUNK) * _RS
+    chunk_cta = 4 * (MAX_CHUNK * _XS + MAX_CHUNK * _RS + 3 * MAX_CHUNK) + 4
+    return cb, chunk_cta
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

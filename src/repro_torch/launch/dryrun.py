@@ -26,12 +26,16 @@ device: ``FakeTensorMode``) can show:
 
 A step that needs the values of its data (a routing that reads them, an
 ``.item()``) fails on fake tensors; that is a ``failed`` record with its
-error, never a skip.  The reference's ``--save-hlo`` is not ported: there
-is no HLO.  Nothing here sets ``XLA_FLAGS`` or needs a card.
+error, never a skip.  The reference's ``--save-hlo`` becomes
+``--save-ops``: each record's run also writes its op table
+(``analysis.op_cost``) to ``<out>/<tag>.ops.jsonl``, which
+``python -m repro_torch.analysis.op_cost`` and ``analysis.breakdown``
+read.  Nothing here sets ``XLA_FLAGS`` or needs a card.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
-      --shape train_4k [--multi-pod] [--out experiments/dryrun_torch]
+      --shape train_4k [--multi-pod] [--out experiments/dryrun_torch] \\
+      [--save-ops]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 """
 from __future__ import annotations
@@ -108,11 +112,12 @@ def resident(cfg, shape, aargs, in_pl, out, mesh) -> dict:
 
 def run_one(arch: str, shape_name: str, *, multi_pod: bool,
             out_dir: str = "experiments/dryrun_torch",
-            variant: str = "") -> dict:
+            variant: str = "", save_ops: bool = False) -> dict:
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import sharding
+    from repro_torch.analysis.op_cost import OpRecorder, write_ops
     from repro_torch.analysis.roofline import (HW, model_flops_for,
                                                roofline_terms)
     from repro_torch.configs import INPUT_SHAPES, get_config
@@ -149,7 +154,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
         counter = FlopCounterMode(display=False)
         grad = (contextlib.nullcontext() if shape.kind == "train"
                 else torch.no_grad())
-        with mode, counter, grad:
+        ops = OpRecorder() if save_ops else contextlib.nullcontext()
+        with mode, counter, grad, ops:
             out = fn(*args)
         t_run = time.perf_counter() - t0
         flops = float(counter.get_total_flops())
@@ -183,6 +189,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
         notes=NOTES,
     )
     _save(out_dir, tag, record)
+    if save_ops:
+        write_ops(os.path.join(out_dir, f"{tag}.ops.jsonl"), ops.records())
     print(f"[dryrun] OK {tag}: run={t_run:.1f}s flops/dev={flops_dev:.3e} "
           f"resident/dev={bytes_dev / 2 ** 30:.2f}GiB "
           f"fits={record['fits_hbm']} dominant={terms['dominant']}")
@@ -210,6 +218,9 @@ def main() -> None:
                     help="skip combos whose record is already ok/skipped")
     ap.add_argument("--reverse", action="store_true",
                     help="reverse arch order (light archs first)")
+    ap.add_argument("--save-ops", action="store_true",
+                    help="also write each record's op table "
+                         "(<tag>.ops.jsonl)")
     args = ap.parse_args()
 
     from repro_torch.configs import ARCH_IDS, INPUT_SHAPES
@@ -217,7 +228,8 @@ def main() -> None:
         if not (args.arch and args.shape):
             ap.error("give --arch and --shape, or --all")
         rec = run_one(args.arch, args.shape, multi_pod=args.multi_pod,
-                      out_dir=args.out, variant=args.variant)
+                      out_dir=args.out, variant=args.variant,
+                      save_ops=args.save_ops)
         raise SystemExit(1 if rec.get("status") == "failed" else 0)
     n_fail = 0
     meshes = (True,) if args.multi_pod else (False, True)
@@ -232,7 +244,8 @@ def main() -> None:
                     print(f"[dryrun] CACHED {tag}")
                     continue
                 rec = run_one(arch, shape, multi_pod=multi_pod,
-                              out_dir=args.out, variant=args.variant)
+                              out_dir=args.out, variant=args.variant,
+                              save_ops=args.save_ops)
                 n_fail += rec.get("status") == "failed"
     raise SystemExit(1 if n_fail else 0)
 

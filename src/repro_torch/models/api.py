@@ -47,7 +47,7 @@ def init_params(key: Union[int, torch.Generator], cfg: ArchConfig, *,
     return transformer.init_lm(gen, cfg)
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=32)
 def param_specs(cfg: ArchConfig):
     """``init_params``' tree as ``TensorSpec``s: run on fake tensors,
     which hold no memory.  Do not modify the returned tree: it is

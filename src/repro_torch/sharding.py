@@ -25,7 +25,9 @@ error: NCCL takes CUDA tensors; gloo takes host tensors, so a CUDA
 tensor given to a gloo group is staged through host memory here, on
 purpose (several ranks on one card, where NCCL refuses two ranks a
 device).  ``COLLECTIVES`` counts the collectives a process made, the
-ones it staged and their bytes.
+ones it staged and their bytes, and each kind's calls and output bytes
+under the reference census's names (``COLLECTIVE_KINDS``: what the
+reference reads from a program's HLO, ``repro/analysis/hlo.py``).
 
 The LLM half (the second part of this module) lays a model's params
 out by the reference's rules and trains it on a ``(data, model)`` or
@@ -56,6 +58,7 @@ it after the backward.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -64,9 +67,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["COLLECTIVES", "reset_collectives", "shard_axis_name",
-           "padded_rows", "pad_batch_rows", "resolve_batch_mesh",
-           "resolve_train_mesh", "mesh_axis_size", "MeshAxis", "my_rows",
+__all__ = ["COLLECTIVES", "COLLECTIVE_KINDS", "reset_collectives",
+           "shard_axis_name", "padded_rows", "pad_batch_rows",
+           "resolve_batch_mesh", "resolve_train_mesh", "mesh_axis_size",
+           "MeshAxis", "my_rows",
            "all_gather_rows", "gather_rows", "reduce_scatter_rows",
            "all_reduce_sum", "DP", "set_profile", "profile", "batch_axes",
            "set_active_mesh", "active_mesh", "use_mesh", "MeshShape",
@@ -78,10 +82,21 @@ __all__ = ["COLLECTIVES", "reset_collectives", "shard_axis_name",
            "split_dim", "flat_gather", "copy_params_to_model", "psum",
            "tp_axis", "LMLayout", "lm_layout"]
 
+#: the collective kinds, by the reference census's names (``psum`` is the
+#: all-reduce; the port makes no ``ppermute``, counted all the same)
+COLLECTIVE_KINDS = ("all_gather", "psum", "reduce_scatter", "ppermute",
+                    "all_to_all")
+
 #: collectives this process made: all of them, the ones staged through
 #: host memory (a CUDA tensor on a gloo group), and the bytes each rank
-#: put in (read by chip_smoke.py's sharded phase)
-COLLECTIVES: Dict[str, int] = {"calls": 0, "staged": 0, "bytes": 0}
+#: put in (read by chip_smoke.py's sharded phase); and per kind, its
+#: calls (``<kind>``) and the bytes of its outputs (``<kind>_bytes``:
+#: an all-gather's is its group's size times its input's, as the
+#: reference's census counts a collective's output), read by
+#: ``analysis.census``
+COLLECTIVES: Dict[str, int] = {
+    "calls": 0, "staged": 0, "bytes": 0,
+    **{f"{k}{s}": 0 for k in COLLECTIVE_KINDS for s in ("", "_bytes")}}
 
 
 def reset_collectives() -> None:
@@ -216,10 +231,15 @@ def _host_staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _count(t: torch.Tensor, staged: bool) -> None:
+def _count(t: torch.Tensor, staged: bool, kind: str,
+           out: torch.Tensor) -> None:
+    """Count one collective of ``kind`` on input ``t`` with output
+    ``out``."""
     COLLECTIVES["calls"] += 1
-    COLLECTIVES["staged"] += int(staged)
+    COLLECTIVES["staged"] += staged
     COLLECTIVES["bytes"] += t.numel() * t.element_size()
+    COLLECTIVES[kind] += 1
+    COLLECTIVES[f"{kind}_bytes"] += out.numel() * out.element_size()
 
 
 def all_gather_rows(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
@@ -228,10 +248,11 @@ def all_gather_rows(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     device."""
     group = axis.group
     staged = _host_staged(t, group)
+    # lint-ok: host-sync (gloo moves host buffers: the transport's copy)
     src = (t.cpu() if staged else t).contiguous()
     out = src.new_empty((axis.size * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
-    _count(src, staged)
+    _count(src, staged, "all_gather", out)
     return out.to(t.device) if staged else out
 
 
@@ -240,10 +261,11 @@ def reduce_scatter_rows(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     the ranks summed, and this rank's block of n rows of the sum."""
     group = axis.group
     staged = _host_staged(t, group)
+    # lint-ok: host-sync (gloo moves host buffers: the transport's copy)
     src = (t.cpu() if staged else t).contiguous()
     out = src.new_empty((src.shape[0] // axis.size,) + tuple(src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
-    _count(src, staged)
+    _count(src, staged, "reduce_scatter", out)
     return out.to(t.device) if staged else out
 
 
@@ -254,9 +276,10 @@ def all_reduce_sum(t: torch.Tensor, *axes: MeshAxis) -> torch.Tensor:
     for axis in axes:
         group = axis.group
         staged = _host_staged(t, group)
+        # lint-ok: host-sync (gloo moves host buffers: the transport's copy)
         src = t.cpu() if staged else t
         dist.all_reduce(src, op=dist.ReduceOp.SUM, group=group)
-        _count(src, staged)
+        _count(src, staged, "psum", src)
         if staged:
             t.copy_(src)
     return t
@@ -691,10 +714,11 @@ def split_dim(x: torch.Tensor, axis: Optional[MeshAxis], dim: int
 def _all_to_all_raw(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     group = axis.group
     staged = _host_staged(t, group)
+    # lint-ok: host-sync (gloo moves host buffers: the transport's copy)
     src = (t.cpu() if staged else t).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
-    _count(src, staged)
+    _count(src, staged, "all_to_all", out)
     return out.to(t.device) if staged else out
 
 
@@ -757,7 +781,7 @@ class _FlatGather(torch.autograd.Function):
                 if ctx.reduce else buf[ctx.axis.rank])
         out, off = [], 0
         for shape, dt in ctx.meta:
-            k = int(np.prod(shape))
+            k = math.prod(shape)
             out.append(mine[off:off + k].reshape(shape).to(dt))
             off += k
         return (None, None, None, None) + tuple(out)
