@@ -8,6 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only kmeans-kernels   # build K3/K4/K5, their rows
     python3 chip_smoke.py --only bottom-kernels   # build K1/K2/K9/K10, rows
     python3 chip_smoke.py --only psi-kernels      # build K6/K7/K8, rows
+    python3 chip_smoke.py --only table2           # the VFL kernels, BA/MU/RI/BP
     python3 chip_smoke.py --only llm-train        # build K11/K12, training
     python3 chip_smoke.py --only long-context     # build K11/K12, long_500k
     python3 chip_smoke.py --only sharded          # the VFL kernels, mesh=
@@ -223,7 +224,25 @@ Phases, each printing JSON lines:
               bitwise under int8 and within one wire step of each other
               under fp8 (cuBLAS rounds the f32 pass apart), K9 (the fp8
               wire K1) launches = dispatches.
-12. llm_dense — LLM serving at full width: tinyllama-1.1b (22 layers,
+12. table2  — the paper's Table-2 jobs on the other four datasets at
+              full size (``data.table2.JOBS``): BA (10,000 × 11) lr and
+              mlp at k=12, MU (8,000 × 22) lr and mlp at k=10, RI (18,000
+              × 11, two modes a class, margin 3.5) lr, mlp and k-NN at
+              k=8, BP (13,000 × 11, 4 classes) mlp at k=12; 70/30, 3
+              clients (4/4/3 columns, MU 8/7/7), OPRF on the device,
+              Table-2's lr, batches of max(8, n_train_rows // 100), the
+              200-epoch cap or convergence.  Each job runs ``treecss``
+              with the kernels and with every plain version, compared as
+              phase 5 compares them (accuracy within 0.005, RI × k-NN
+              within 0.002, above 1 / n_classes; coresets that differ
+              need fits that part, and only at near ties: a Lloyd step's
+              or the final pass's assignments, or the final distances
+              within their f32 bound, ``fit_divergence``); MPSIStats
+              equal; K6, K7, K3 and K5 launched, K8 not (P <= 2^18), K2
+              once a step and K1 once an eval block (neither for k-NN);
+              one dispatch and one host sync an epoch; a line a job with
+              its stage walls, epochs, steps and launches.
+13. llm_dense — LLM serving at full width: tinyllama-1.1b (22 layers,
               d 2,048, GQA 32/4, bf16) with seeded ``torch.Generator``
               params on the card, 2 prompts of 2,048 seeded tokens,
               ``serve.engine.greedy_decode`` of 32 new tokens: K11
@@ -238,7 +257,7 @@ Phases, each printing JSON lines:
               bf16 runs must be finite, bitwise equal across the three
               kernel runs and equal to ``greedy_decode``; their
               kernel-vs-plain and bf16-vs-f32 gaps are recorded.
-13. llm_ssm — the same for mamba2-1.3b (48 Mamba2 layers, d_inner
+14. llm_ssm — the same for mamba2-1.3b (48 Mamba2 layers, d_inner
               4,096, 64 SSD heads, N=128, vocab padded to 50,432): K12
               launched 48 times a prefill; K12 on every layer's inputs
               of the f32 model within twice the plain f32 version's
@@ -246,14 +265,14 @@ Phases, each printing JSON lines:
               plain version; past the prefill a decode step's f32 logits
               beyond the bound pass only within a tenth of the plain
               run's distance to the model with float64 scans.
-14. llm_hybrid — the same for hymba-1.5b (32 layers of attention and
+15. llm_hybrid — the same for hymba-1.5b (32 layers of attention and
               Mamba2 side by side, 128 meta tokens pinned in windows of
               1,024, global layers 0, 15, 31): K11 and K12 launched 32
               times each a prefill (S=2,176); K12 on every Mamba2
               mixer's inputs as for mamba2; past the bound, the f32
               kernel run within twice the plain run's distance to the
               model with float64 prefill attention and scans.
-15. llm_moe — olmoe-1b-7b (16 layers, 64 experts, top-8): K11
+16. llm_moe — olmoe-1b-7b (16 layers, 64 experts, top-8): K11
               launched 16 times a prefill.  Every routing call of the
               two f32 runs is recorded: the logit bound holds at the
               positions before the chain's first route flip, each route
@@ -262,10 +281,10 @@ Phases, each printing JSON lines:
               C-th minus (C+1)-th gate), and so must every flip of each
               layer fed the plain run's input with K11 as the only
               difference; flips are counted.
-16. llm_vlm — internvl2-1b (24 layers, G=7) with 256 seeded patch
+17. llm_vlm — internvl2-1b (24 layers, G=7) with 256 seeded patch
               embeddings before each prompt: K11 launched 24 times a
               prefill (S=2,304).
-17. llm_audio — whisper-large-v3 (32 encoder and 32 decoder layers)
+18. llm_audio — whisper-large-v3 (32 encoder and 32 decoder layers)
               on seeded frames (2, 1,500, 1,280) and 2 prompts of 4
               tokens: K11 launched 32 times an encode and 32 times a
               decode step (the cross-attention), 1,184 a
@@ -273,7 +292,7 @@ Phases, each printing JSON lines:
               prompt through the decoder's cache.
               Between models the params are freed and the cache
               emptied; each LLM line carries its phase's seconds.
-18. llm_train — LLM training (``train.steps``): tinyllama-1.1b at full
+19. llm_train — LLM training (``train.steps``): tinyllama-1.1b at full
               width and depth, B=2, S=2,048, Eq.(2) weights 1 + rank/B,
               remat, Adam.  The f32 model's loss and every param leaf's
               gradient with the kernels (K11 forward and backward)
@@ -292,7 +311,7 @@ Phases, each printing JSON lines:
               tinyllama's params and Adam state after 3 steps, loaded
               into fresh tensors on the card: step 4 bitwise the
               uninterrupted run's.
-19. long_context — the long_500k serving shape (one request, a context
+20. long_context — the long_500k serving shape (one request, a context
               of 524,288) of mamba2-1.3b, hymba-1.5b and gemma2-9b at
               full width and depth in bf16, with ``force_window`` as
               ``launch.specs.build_decode`` sets it (every attention
@@ -316,7 +335,7 @@ Phases, each printing JSON lines:
               1e-3·(1 + max|logits|); every ring cache's ``pos`` as
               ``cache_slot`` maps it; CUDA's cos/sin of the rotary angles
               there within 1e-6 of float64's.
-20. sharded — the HI treecss × mlp pipeline with ``mesh=``
+21. sharded — the HI treecss × mlp pipeline with ``mesh=``
               (``repro_torch.sharding``), the kernels built once here
               before any rank starts: 2 ranks on ``("data",)`` and 4 on
               (data 2, model 2), f32 and int8, spawned by
@@ -336,12 +355,12 @@ Phases, each printing JSON lines:
               an eval block, and the profiler seeing K2's (K10's) kernel
               in one epoch; each stage's wall a rank and its collectives
               (calls, staged, bytes).
-21. llm_sharded — LLM training on a (data 2, model 2) mesh, profile
+22. llm_sharded — LLM training on a (data 2, model 2) mesh, profile
               "2d", 4 gloo ranks on the one card (every collective staged
               through host memory: no NCCL figure), K11 built here before
               the ranks start; again over NCCL, one rank a card, where the
-              host has 2 or more.  tinyllama-1.1b at full width and
-              depth (B 2 × S 2,048): the f32 loss within
+              host has 2 or more.  tinyllama-1.1b at full width, 4
+              layers (B 2 × S 2,048): the f32 loss within
               ``TRAIN_LOSS_RTOL`` and
               every gradient leaf, gathered whole, within ``grad_gate``'s
               bounds of the unsharded ones on the card (the worst leaf
@@ -350,8 +369,8 @@ Phases, each printing JSON lines:
               from the f32 one as the unsharded bf16 leaf is (plus
               ``TRAIN_GRAD_FLOOR``·max‖g‖), then 3 steps twice: losses
               bitwise across the runs and falling, the first within 0.1%
-              of the unsharded first loss; K11 launched 16 times and its
-              backward 8 times a step on every rank, both seen by the
+              of the unsharded first loss; K11 launched 8 times and its
+              backward 4 times a step on every rank, both seen by the
               profiler there; each rank's params and Adam moments at most 30% of
               the unsharded bytes; step ms, peak GB and collectives a step
               for each rank.  olmoe-1b-7b at full width, 2 layers (the
@@ -378,7 +397,7 @@ Phases, each printing JSON lines:
               2,048) and whisper-large-v3 (448 decoder tokens over its
               1,500 frames), full width, 2 layers (whisper 2 + 2), f32:
               one loss and gradient each against the unsharded run.
-22. analysis — the engine-contract gate's layers on the card
+23. analysis — the engine-contract gate's layers on the card
               (``repro_torch.analysis``): the census of every
               single-device program of ``analysis.check`` with the
               kernels on — kernel launches a call (and a step) as
@@ -393,9 +412,11 @@ Phases, each printing JSON lines:
               K7/K8's static shared memory equal to ptxas's; K1 at
               d = o = 128 refused before launch.
 
-The line before the last two is the ``{"kernels": [...]}`` summary; the
-line before the last is nvidia-smi's name and power limit; the last line
-is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+The line before the last three is ``{"phase_s": {...}}``, each phase's
+wall in seconds (the build's included); the line before the last two is
+the ``{"kernels": [...]}`` summary; the line before the last is
+nvidia-smi's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits
 non-zero without that line.  The script never imports jax or ``repro``.
 Full results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -2450,17 +2471,11 @@ def dataset(name: str):
 
 @functools.lru_cache(maxsize=None)
 def partitions(name: str = "HI"):
-    """A paper dataset's job as ``benchmarks/common.dataset_partitions(
-    name, quick=False)`` builds it: the full dataset, 70/30 split, 3
+    """A paper dataset's job at its full size, as
+    ``data.table2.dataset_partitions`` builds it: 70/30 split, 3
     clients."""
-    from repro_torch.data.synthetic import DATASETS
-    from repro_torch.data.vertical import partition_features
-    spec = DATASETS[name]
-    x, y = dataset(name)
-    order = np.random.default_rng(SEED + 1).permutation(spec.n_instances)
-    n_tr = int(spec.n_instances * 0.7)
-    return (partition_features(x[order[:n_tr]], y[order[:n_tr]], 3),
-            partition_features(x[order[n_tr:]], y[order[n_tr:]], 3))
+    from repro_torch.data.table2 import dataset_partitions
+    return dataset_partitions(name, seed=SEED, quick=False)
 
 
 def fit_divergence(tr, dev, k: int = 14, tag: str = "HI"):
@@ -2468,12 +2483,19 @@ def fit_divergence(tr, dev, k: int = 14, tag: str = "HI"):
     clients of ``tr`` part: both start from the same k-means++ centroids and run Lloyd
     steps side by side; at the first step whose assignments differ,
     every differing row must be a near tie of the kernel's centroids.
+    Where the steps agree, the final assignment pass (K5 against its
+    plain version, each on its own side's centroids, which differ in
+    the sums' last bits) must part only at near ties, and its distances
+    agree within ``check_close``'s f32 bound: two rows whose order a
+    coreset's weights or selection reads then swap only where their
+    distances lie within that bound of each other.
     Also: two kernel fits give the same bits (no atomics)."""
     from repro_torch import rng
     from repro_torch.config import AlignOptions
     from repro_torch.core.kmeans import (kmeans_fit, kmeans_pp_init,
                                          lloyd_step, pad_masks)
     from repro_torch.core.treecss import _align
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
     from repro_torch.kernels.padding import stack_padded
 
     aligned, *_ = _align(tr, "tree", seed=SEED, align=AlignOptions(
@@ -2489,6 +2511,8 @@ def fit_divergence(tr, dev, k: int = 14, tag: str = "HI"):
         raise AssertionError("two kernel fits differ")
     valid, n_pad = pad_masks(max(ns), ns, dev)
     ck = cr = kmeans_pp_init(keys, pts, k, ns)
+    final = dict(final_assign_rows=None, final_sqd_bitwise=None,
+                 final_sqd_max_abs_err=None)
     for it in range(25):
         nk, ak = lloyd_step(pts, ck, valid, n_pad, "kernel")
         nr, ar = lloyd_step(pts, cr, valid, n_pad, "ref")
@@ -2499,13 +2523,35 @@ def fit_divergence(tr, dev, k: int = 14, tag: str = "HI"):
             break
         ck, cr = nk, nr
     else:
-        out = dict(first_divergence_step=None, rows=0, beyond_near_tie=0,
-                   min_margin=None)
-    out = {"phase": "fit_divergence", "dataset": tag, **out}
+        ak, sk = kmeans_assign(pts, ck, impl="kernel")
+        ar, sr = kmeans_assign(pts, cr, impl="ref")
+        ar = torch.where(valid, ar, ak)          # padded rows are no one's
+        n_diff, n_bad, margin = near_tie_rows(pts, ck, ak, ar)
+        out = dict(first_divergence_step=None, rows=n_diff,
+                   beyond_near_tie=n_bad, min_margin=margin)
+        final = dict(final_assign_rows=n_diff,
+                     final_sqd_bitwise=torch.equal(sk[valid], sr[valid]),
+                     final_sqd_max_abs_err=check_close(
+                         f"{tag} final sqd", sk[valid], sr[valid],
+                         sqd_scale(pts, ck, ak)[valid]))
+    out = {"phase": "fit_divergence", "dataset": tag, **out, **final}
     emit(out)
     if out["beyond_near_tie"]:
         raise AssertionError("kernel and plain fits part beyond a near tie")
     return out
+
+
+def fits_part(divergence) -> bool:
+    """Whether ``fit_divergence`` found the two fits apart anywhere: a
+    Lloyd step's or the final pass's assignments, or the final
+    distances' last bits."""
+    return (divergence["first_divergence_step"] is not None
+            or bool(divergence["rows"])
+            or divergence["final_sqd_bitwise"] is False)
+
+
+# the kernels of alignment (K6, K7) and of the coreset fit (K3, K5)
+VFL_PATH = ("psi_prf", "sorted_intersect", "kmeans_update", "kmeans_assign")
 
 
 def pipeline_phase(dev):
@@ -2569,9 +2615,7 @@ def pipeline_phase(dev):
             raise AssertionError(f"{variant}: impl='ref' launched kernels")
         if not 0.5 < rk.metric <= 1.0 or rk.n_train <= 0:
             raise AssertionError(f"{variant}: implausible result")
-    on_path = {"treecss": ("psi_prf", "sorted_intersect", "kmeans_update",
-                           "kmeans_assign"),
-               "starall": ("psi_prf", "sorted_intersect")}
+    on_path = {"treecss": VFL_PATH, "starall": VFL_PATH[:2]}
     for variant, names in on_path.items():
         launches = runs[variant, "kernel"][1]["launches"]
         missing = [k for k in names if launches[k] == 0]
@@ -2589,69 +2633,77 @@ TRAIN_JOBS = (("treecss", "mlp", 0.01, 200), ("treecss", "lr", 0.05, 200),
               ("starall", "mlp", 0.01, 200))
 
 
-def train_cfg(model, lr, n_rows, max_epochs):
-    """The paper's Table-2 SplitNN settings for HI
+def train_cfg(model, lr, n_rows, max_epochs, n_classes=2):
+    """The paper's Table-2 SplitNN settings
     (``benchmarks/table2_framework.py``)."""
-    from repro_torch.core.splitnn import SplitNNConfig
-    return SplitNNConfig(model=model, n_classes=2, lr=lr,
-                         batch_size=max(8, n_rows // 100),
-                         max_epochs=max_epochs, seed=SEED)
+    from repro_torch.data.table2 import table2_config
+    return table2_config(model, n_classes, lr, n_rows, max_epochs, SEED)
 
 
-def drive_split(tr, te, dev, variant, cfg, impl, trace=None, quant=None):
+def drive_split(tr, te, dev, variant, cfg, impl, trace=None, quant=None,
+                k=14):
     from repro_torch.config import AlignOptions, EngineOptions
     from repro_torch.core.treecss import run_pipeline
     return run_pipeline(
-        tr, te, cfg, variant=variant, clusters_per_client=14,
+        tr, te, cfg, variant=variant, clusters_per_client=k,
         kmeans_impl=impl, seed=SEED,
         options=EngineOptions(device=dev, bottom_impl=impl, trace=trace,
                               quant=quant),
         align=AlignOptions(protocol="oprf", psi_backend="device", impl=impl))
 
 
-def split_job(tr, te, dev, variant, model, lr, cfg, impl, quant=None):
-    """One traced SplitNN ``run_pipeline`` with the launch counts set to
-    0 just before it and read just after: (report, JSON row)."""
+def split_job(tr, te, dev, variant, model, lr, cfg, impl, quant=None, k=14,
+              phase=None):
+    """One traced ``run_pipeline`` (a SplitNN job, or k-NN's vote) with
+    the launch counts set to 0 just before it and read just after:
+    (report, JSON row)."""
     from repro_torch.kernels.build import LAUNCHES, reset_launches
 
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rep = drive_split(tr, te, dev, variant, cfg, impl, trace=True,
-                      quant=quant)
+                      quant=quant, k=k)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    row = dict(phase="train" if quant is None else "quant", variant=variant,
-               model=model, impl=impl, quant=quant,
+    steps = rep.train.steps
+    row = dict(phase=phase or ("train" if quant is None else "quant"),
+               variant=variant, model=model, impl=impl, quant=quant, k=k,
                max_epochs=cfg.max_epochs, batch_size=cfg.batch_size, lr=lr,
                n_align=int(rep.mpsi.intersection.shape[0]),
                n_train=rep.n_train, metric=rep.metric,
-               epochs=rep.train.epochs, steps=rep.train.steps,
-               final_loss=rep.train.losses[-1],
+               epochs=rep.train.epochs, steps=steps,
+               final_loss=rep.train.losses[-1] if steps else None,
                comm_bytes=rep.train.comm_bytes,
                gather_payload_bytes=rep.train.engine_stats
-               .gather_payload_bytes,
+               .gather_payload_bytes if steps else None,
                align_wall_s=rep.align_wall_seconds,
                coreset_wall_s=rep.coreset_wall_seconds,
                train_wall_s=rep.train_wall_seconds,
                train_engine_s=rep.train.train_seconds,
-               ms_per_step=rep.train.train_seconds * 1e3 / rep.train.steps,
+               ms_per_step=(rep.train.train_seconds * 1e3 / steps
+                            if steps else None),
                eval_wall_s=rep.tracer.total_seconds("pipeline.serve"),
                total_wall_s=wall, launches=dict(LAUNCHES))
     emit(row)
     return rep, row
 
 
-def compare_jobs(tag, kernel_run, ref_run):
+def compare_jobs(tag, kernel_run, ref_run, n_classes=2, acc_tol=0.005):
     """A job's kernel run against its plain-version run: the same
-    alignment and n_train, steps and comm_bytes unless the convergence
-    window stopped at another epoch (reported), the loss at the last
-    common epoch within rtol 1e-3 (within 1e-3 of the first epoch's loss
-    where the two coreset fits parted at a near tie, fit_divergence),
-    accuracy within 0.005 and in (0.5, 1], no launch in the plain run."""
+    alignment, MPSIStats counters and n_train, steps and comm_bytes
+    unless the convergence window stopped at another epoch (reported),
+    the loss at the last common epoch within rtol 1e-3 (within 1e-3 of
+    the first epoch's loss where the two coreset fits parted at a near
+    tie, fit_divergence), accuracy within ``acc_tol`` and in
+    (1 / n_classes, 1], no launch in the plain run."""
     (rk, row_k), (rr, row_r) = kernel_run, ref_run
     if not np.array_equal(rk.mpsi.intersection, rr.mpsi.intersection):
         raise AssertionError(f"{tag}: intersections differ")
+    for f in ("rounds", "total_bytes", "total_messages", "schedule",
+              "device_dispatches"):
+        if getattr(rk.mpsi, f) != getattr(rr.mpsi, f):
+            raise AssertionError(f"{tag}: MPSIStats.{f} differs")
     if rk.n_train != rr.n_train:
         raise AssertionError(f"{tag}: n_train {rk.n_train} vs {rr.n_train}")
     common = min(rk.train.epochs, rr.train.epochs)
@@ -2668,14 +2720,15 @@ def compare_jobs(tag, kernel_run, ref_run):
         np.array_equal(rk.coreset.indices, rr.coreset.indices)
         and np.array_equal(rk.coreset.weights, rr.coreset.weights))
     row_k["same_train_data"] = same_data
-    lk, lr_ = rk.train.losses[common - 1], rr.train.losses[common - 1]
-    lim = 1e-3 * (abs(lr_) if same_data else rr.train.losses[0])
-    if abs(lk - lr_) > lim:
-        raise AssertionError(f"{tag}: loss {lk} vs {lr_} at epoch "
-                             f"{common} (same train data: {same_data})")
-    if abs(rk.metric - rr.metric) > 0.005:
+    if common:
+        lk, lr_ = rk.train.losses[common - 1], rr.train.losses[common - 1]
+        lim = 1e-3 * (abs(lr_) if same_data else rr.train.losses[0])
+        if abs(lk - lr_) > lim:
+            raise AssertionError(f"{tag}: loss {lk} vs {lr_} at epoch "
+                                 f"{common} (same train data: {same_data})")
+    if abs(rk.metric - rr.metric) > acc_tol:
         raise AssertionError(f"{tag}: accuracy {rk.metric} vs {rr.metric}")
-    if not 0.5 < rk.metric <= 1.0:
+    if not 1 / n_classes < rk.metric <= 1.0:
         raise AssertionError(f"{tag}: implausible accuracy {rk.metric}")
     if any(row_r["launches"].values()):
         raise AssertionError(f"{tag}: the plain run launched kernels")
@@ -2715,6 +2768,87 @@ def train_phase(dev):
             "splitnn_bottom_gather": rk.train.steps,
             "splitnn_bottom": n_eval_batches})
     return runs, rows
+
+
+TABLE2_DATASETS = ("BA", "MU", "RI", "BP")
+TABLE2_EPOCHS = 200            # the paper's cap; convergence stops most
+TABLE2_KNN_ACC = 0.002         # RI × k-NN: kernel vs plain accuracy
+
+
+def table2_phase(dev):
+    """The paper's Table-2 jobs on BA, MU, RI and BP at full size
+    (``data.table2.JOBS``): treecss with the kernels and with every
+    plain version, compared as ``compare_jobs`` compares them; where the
+    two coresets differ, ``fit_divergence`` must find the fits apart,
+    and only at near ties (``fits_part``).  The
+    kernel run launches K6, K7, K3 and K5, no K8 (P <= 2^18), K2 once a
+    step and K1 once an eval block (none for k-NN), one dispatch and one
+    host sync an epoch."""
+    from repro_torch.data.table2 import JOBS
+
+    # untimed: the first use of each dataset's GEMM shapes and of
+    # autograd would otherwise land in the first job's stage walls
+    tr, te = partitions("BA")
+    drive_split(tr, te, dev, "treecss", train_cfg("mlp", 0.01, tr.n_samples,
+                                                  2), None, k=12)
+    rows, divergences = [], {}
+    for ds, model, n_classes, lr, k in JOBS:
+        if ds not in TABLE2_DATASETS:
+            continue
+        tag = f"table2 {ds}/{model}"
+        tr, te = partitions(ds)
+        cfg = train_cfg(model, lr, tr.n_samples, TABLE2_EPOCHS, n_classes)
+        runs = {impl: split_job(tr, te, dev, "treecss", model, lr, cfg, impl,
+                                k=k, phase="table2")
+                for impl in ("kernel", "ref")}
+        (rk, row_k), (rr, row_r) = runs["kernel"], runs["ref"]
+        divergence = None
+        if not (np.array_equal(rk.coreset.indices, rr.coreset.indices)
+                and np.array_equal(rk.coreset.weights, rr.coreset.weights)):
+            if (ds, k) not in divergences:
+                divergences[ds, k] = fit_divergence(tr, dev, k=k, tag=ds)
+            divergence = divergences[ds, k]
+            if not fits_part(divergence):
+                raise AssertionError(f"{tag}: coresets differ, the fits "
+                                     "do not")
+        compare_jobs(tag, runs["kernel"], runs["ref"], n_classes=n_classes,
+                     acc_tol=TABLE2_KNN_ACC if model == "knn" else 0.005)
+        bottom = {"splitnn_bottom_gather": 0, "splitnn_bottom": 0}
+        if model != "knn":
+            bottom = {"splitnn_bottom_gather": rk.train.steps,
+                      "splitnn_bottom": -(-te.n_samples // 512)}
+            for run in (rk, rr):
+                st = run.train.engine_stats
+                if not st.dispatches == st.host_syncs == run.train.epochs:
+                    raise AssertionError(
+                        f"{tag}: {st.dispatches} dispatches and "
+                        f"{st.host_syncs} host syncs in "
+                        f"{run.train.epochs} epochs")
+        check_launches(tag, row_k["launches"],
+                       bottom | {"sorted_intersect_tiled": 0})
+        missing = [n for n in VFL_PATH if not row_k["launches"][n]]
+        if missing:
+            raise AssertionError(f"{tag}: kernels {missing} were not "
+                                 "launched on the path")
+        row = dict(phase="table2_job", job=f"{ds}/{model}", k=k,
+                   n_classes=n_classes, n_train_rows=tr.n_samples,
+                   n_test_rows=te.n_samples,
+                   columns=[f.shape[1] for f in tr.client_features],
+                   n_align=row_k["n_align"], n_train=rk.n_train,
+                   batch_size=cfg.batch_size, epochs=rk.train.epochs,
+                   epochs_ref=rr.train.epochs, steps=rk.train.steps,
+                   metric=rk.metric, metric_ref=rr.metric,
+                   same_train_data=row_k["same_train_data"],
+                   fit_divergence=divergence,
+                   **{key: row_k[key] for key in (
+                       "align_wall_s", "coreset_wall_s", "train_wall_s",
+                       "eval_wall_s", "total_wall_s")},
+                   total_wall_s_ref=row_r["total_wall_s"],
+                   launches={n: c for n, c in row_k["launches"].items()
+                             if c})
+        emit(row)
+        rows += [row_k, row_r, row]
+    return rows
 
 
 def serve_scale(params, feats):
@@ -4705,12 +4839,15 @@ def sharded_phase(dev, smi):
 
 # -------------------------------------------------------- llm_sharded phase
 
-#: the LLM mesh phase: tinyllama-1.1b at full width and depth and
+#: the LLM mesh phase: tinyllama-1.1b at full width, its depth cut to 4
+#: layers (at 22, 209 s of a script that ran past its 1,200 s on a slow
+#: host; every check a layer makes runs on each of the 4), and
 #: olmoe-1b-7b at full width, its depth cut to 2 layers (16 layers' f32
 #: params, grads and two moments, 6.9B × 16 B, exceed the card's 80 GB,
 #: which the ranks share), on a (data 2, model 2) mesh of 4 gloo ranks on
 #: the one card, profile "2d"
 LLM_SHARDED_MESH = (2, 2)
+LLM_SHARDED_DENSE_LAYERS = 4
 LLM_SHARDED_STEPS = 3          # bf16 steps a run, two runs
 LLM_SHARDED_TIMEOUT = 600      # seconds the world may take, spawn to join
 LLM_SHARDED_RESIDENT = 0.30    # a rank's params + moments / the unsharded
@@ -4775,7 +4912,8 @@ def _reset_counts():
 
 
 def llm_sharded_dense(device, mesh, faults):
-    """tinyllama-1.1b on ``mesh``: the f32 loss and gradients against the
+    """tinyllama-1.1b (``LLM_SHARDED_DENSE_LAYERS`` layers) on ``mesh``:
+    the f32 loss and gradients against the
     unsharded ones (rank 0 computes those on the card first), then the
     config's bf16 steps, twice, under the count, the clock and the
     profiler.  Returns this rank's row."""
@@ -4791,7 +4929,8 @@ def llm_sharded_dense(device, mesh, faults):
                                          make_train_step)
 
     rank = dist.get_rank()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=LLM_SHARDED_DENSE_LAYERS)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     batch = train_batch(cfg, device, TRAIN_BATCH, TRAIN_SEQ)
     want_launches = k11_launches(cfg)
@@ -5319,8 +5458,8 @@ def llm_sharded_rank(device, shape, profile, parts):
 
 
 def llm_sharded_phase(dev, smi):
-    """LLM training on a (data, model) mesh: tinyllama-1.1b (full width
-    and depth) and olmoe-1b-7b (full width, 2 layers) on 4 gloo ranks on
+    """LLM training on a (data, model) mesh: tinyllama-1.1b (full width,
+    4 layers) and olmoe-1b-7b (full width, 2 layers) on 4 gloo ranks on
     the one card, (2, 2), profile "2d" (``llm_sharded_rank``); where the
     host has 2 or more cards, tinyllama again over NCCL, one rank a
     card.  K11 was built here, before any rank starts; the ranks load
@@ -5706,6 +5845,8 @@ ONLY = {"llm-kernels": ["flash_attention", "flash_attention_bwd",
         "kmeans-kernels": ["kmeans_update", "kmeans_assign"],
         "bottom-kernels": ["splitnn_bottom"],
         "psi-kernels": ["psi_prf", "sorted_intersect"],
+        "table2": ["psi_prf", "sorted_intersect", "kmeans_update",
+                   "kmeans_assign", "splitnn_bottom"],
         "analysis": None}
 
 
@@ -5716,7 +5857,7 @@ def main(argv) -> int:
             or not set(phases) <= {p for p, _ in LLM_PHASES}):
         print("usage: chip_smoke.py [--only llm-kernels|llm-paths [PHASE "
               "...]|llm-train|long-context|kmeans-kernels|bottom-kernels|"
-              "psi-kernels|"
+              "psi-kernels|table2|"
               "sharded|llm-sharded|analysis]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5731,7 +5872,16 @@ def main(argv) -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "torch_name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    secs = build.build_all(ONLY.get(only))
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall added to ``phase_s[name]``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    secs = timed("build", build.build_all, ONLY.get(only))
     sass = ssd_sass = bwd_sass = None
     if only in (None, "llm-kernels", "llm-paths", "llm-train",
                 "long-context"):
@@ -5809,6 +5959,15 @@ def main(argv) -> int:
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
+    if only == "table2":
+        # the Table-2 jobs on BA, MU, RI and BP: the quick check of an
+        # edit to the VFL path at those datasets' shapes (not the
+        # contract run)
+        timed("table2", table2_phase, dev)
+        emit({"phase_s": phase_s})
+        print(smi, flush=True)
+        emit({"ok": True, "only": only, "device": device})
+        return 0
     if only == "analysis":
         # the gate's census and shared-memory rows on the card: the quick
         # check of an edit to analysis/ or an engine program (not the
@@ -5876,27 +6035,27 @@ def main(argv) -> int:
         print(smi, flush=True)
         emit({"ok": True, "only": only, "device": device})
         return 0
-    rows = kernel_phase(dev)
-    launches, pipe_rows = pipeline_phase(dev)
-    train_runs, train_rows = train_phase(dev)
+    rows = timed("kernels", kernel_phase, dev)
+    launches, pipe_rows = timed("pipeline", pipeline_phase, dev)
+    train_runs, train_rows = timed("train", train_phase, dev)
     rep, mlp_row = train_runs["treecss", "mlp", "kernel"]
     # K1 and K2 count on their own main path, the treecss-mlp job
     launches = launches | {k: mlp_row["launches"][k] for k in
                            ("splitnn_bottom", "splitnn_bottom_gather")}
     pipe_rows += train_rows
-    pipe_rows += serve_phase(dev, rep.train.params, train_cfg(
-        "mlp", 0.01, 70_000, 200))
-    pipe_rows += profile_phase(dev)
+    pipe_rows += timed("serve", serve_phase, dev, rep.train.params,
+                       train_cfg("mlp", 0.01, 70_000, 200))
+    pipe_rows += timed("profile", profile_phase, dev)
     # K8 counts on the YP rounds, K4 on the minibatch coreset
-    yp_launches, yp_rows = yp_phase(dev)
-    mb_launches, mb_rows = minibatch_phase(dev)
+    yp_launches, yp_rows = timed("yp", yp_phase, dev)
+    mb_launches, mb_rows = timed("minibatch", minibatch_phase, dev)
     launches = launches | {
         "sorted_intersect_tiled": yp_launches["sorted_intersect_tiled"],
         "kmeans_update_gather": mb_launches["kmeans_update_gather"]}
-    pipe_rows += yp_rows + mb_rows + delta_phase(dev)
+    pipe_rows += yp_rows + mb_rows + timed("delta", delta_phase, dev)
     # K9 and K10 count on their own main path, treecss × mlp under int8,
     # K1 and K2's fp8 wire form on treecss × mlp under fp8
-    quant_runs, quant_rows = quant_phase(dev, train_runs)
+    quant_runs, quant_rows = timed("quant", quant_phase, dev, train_runs)
     pipe_rows += quant_rows
     for quant, names in (("int8", ("splitnn_bottom_int8",
                                    "splitnn_bottom_int8_gather")),
@@ -5904,13 +6063,16 @@ def main(argv) -> int:
                                   "splitnn_bottom_fp8_gather"))):
         qrep, qrow = quant_runs["treecss", "mlp", quant, "kernel"]
         launches = launches | {k: qrow["launches"][k] for k in names}
-        pipe_rows += serve_phase(dev, qrep.train.params, train_cfg(
-            "mlp", 0.01, 70_000, 200), quant=quant)
+        pipe_rows += timed("serve", serve_phase, dev, qrep.train.params,
+                           train_cfg("mlp", 0.01, 70_000, 200), quant)
+    # the Table-2 jobs on BA, MU, RI and BP: their own launch counts
+    pipe_rows += timed("table2", table2_phase, dev)
     # K11 and K12 count on their own main paths, one greedy_decode each:
     # the K11/K12 rows on tinyllama and mamba2, a ``path`` row on its own
-    llm = {phase: llm_phase(dev, phase, arch) for phase, arch in LLM_PHASES}
+    llm = {phase: timed(phase, llm_phase, dev, phase, arch)
+           for phase, arch in LLM_PHASES}
     # K11's backward counts on its own path, a tinyllama train step
-    train = llm_train_phase(dev)
+    train = timed("llm_train", llm_train_phase, dev)
     launches = (launches | llm["llm_dense"]["launches"]
                 | llm["llm_ssm"]["launches"] | train["launches"])
     for phase, arch in LLM_PHASES[1:3]:
@@ -5923,15 +6085,15 @@ def main(argv) -> int:
             plain_vs_f64=worst["y_plain_vs_f64"]))
     pipe_rows += list(llm.values()) + [train]
     # long_500k serving: its own launch counts (K11/K12 a prefill layer)
-    pipe_rows += long_context_phase(dev)
+    pipe_rows += timed("long_context", long_context_phase, dev)
     # the sharded pipeline: its own path, its own launch counts (each rank's)
-    pipe_rows += sharded_phase(dev, smi)
+    pipe_rows += timed("sharded", sharded_phase, dev, smi)
     # LLM training on a (data, model) mesh: its own launch counts (each
     # rank's K11 forward and backward a step)
-    pipe_rows += llm_sharded_phase(dev, smi)
+    pipe_rows += timed("llm_sharded", llm_sharded_phase, dev, smi)
     # the gate's census (launches a call against the reference's
     # pallas_calls, syncs, f64) and shared-memory rows on the card
-    pipe_rows += analysis_phase(dev)
+    pipe_rows += timed("analysis", analysis_phase, dev)
     kernels = []
     for r in rows:
         if "check_only" in r or "timed_at" in r:
@@ -5951,7 +6113,9 @@ def main(argv) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"nvidia_smi": smi, "build_seconds": secs,
-                   "kernels": rows, "pipeline": pipe_rows}, f, indent=1)
+                   "phase_s": phase_s, "kernels": rows,
+                   "pipeline": pipe_rows}, f, indent=1)
+    emit({"phase_s": phase_s})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

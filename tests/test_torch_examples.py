@@ -53,3 +53,41 @@ def test_torch_coreset_lm_runs():
     assert lines[0].startswith("coreset: ") and "/128 sequences" in lines[0]
     losses = [float(ln.split()[-1]) for ln in lines[1:]]
     assert len(losses) == 2 and all(0 < x < 20 for x in losses)
+
+
+def _vfl_train_lines(out):
+    """``vfl_train.py``'s printout as {label: value text}."""
+    return {k.strip(): v.strip() for k, v in (
+        ln.split(":", 1) for ln in out.splitlines() if ":" in ln)}
+
+
+@pytest.mark.parametrize("dataset,model", [("BP", "mlp"), ("RI", "knn")])
+def test_torch_vfl_train_matches_reference(dataset, model):
+    """``torch_vfl_train.py`` at the quick sizes against the reference's
+    ``run_pipeline`` on ``examples/vfl_train.py``'s arguments: the same
+    aligned samples, MPSI rounds and MB, training set and CT-groups, and
+    the accuracy within one test row (plus the printout's rounding)."""
+    from benchmarks.common import dataset_partitions
+    from repro.config import AlignOptions
+    from repro.core import SplitNNConfig, run_pipeline
+
+    out = run_example("torch_vfl_train.py", "--dataset", dataset,
+                      "--model", model)
+    got = _vfl_train_lines(out)
+    assert f"=== TREECSS on {dataset} ({model}) ===" in out
+    tr, te = dataset_partitions(dataset)
+    n_classes = {"BP": 4, "RI": 2}[dataset]
+    rep = run_pipeline(tr, te, SplitNNConfig(
+        model=model, n_classes=n_classes,
+        lr=0.05 if model != "mlp" else 0.01,
+        batch_size=max(8, tr.n_samples // 100), max_epochs=200, seed=0),
+        variant="treecss", clusters_per_client=12, seed=0,
+        align=AlignOptions(protocol="oprf"))
+    assert got["aligned samples"] == str(rep.mpsi.intersection.size)
+    assert got["MPSI rounds"] == (f"{rep.mpsi.rounds} "
+                                  f"({rep.mpsi.total_bytes/1e6:.2f} MB)")
+    assert got["training set"] == (f"{rep.n_train} (coreset, "
+                                   f"{rep.coreset.n_groups} CT-groups)")
+    assert ("train epochs" in got) == bool(rep.train.epochs)
+    acc = float(got["test accuracy"])
+    assert abs(acc - rep.metric) <= 1 / te.n_samples + 5e-5
