@@ -1,0 +1,15 @@
+"""``train_grads_ms``: a training step's forward and gradients, the
+``train.grads`` spans (``train/vfl.train_scan``'s ``step_grads``: the
+forward, K2 and ``autograd.grad``, inside ``train.epoch``) summed over
+the jobs outside the profiler, over their steps
+(``TrainReport.steps``)."""
+from perfbench.harness.readers import unprofiled
+
+
+def read(t):
+    jobs = unprofiled(t)
+    spans = [s for j in jobs for s in j.spans if s.name == "train.grads"]
+    steps = sum(j.steps for j in jobs)
+    if not spans or not steps:
+        return None
+    return 1e3 * sum(s.duration for s in spans) / steps

@@ -103,29 +103,34 @@ def select_coreset(local: Sequence[ClientClustering], labels: np.ndarray, *,
 
     Regression labels (float) are quantile-binned so "split S_ct^j by
     label" stays meaningful."""
-    cts = np.stack([c.assign for c in local], axis=1)          # (N, M)
-    ed = np.stack([np.sqrt(np.maximum(c.sq_dist, 0.0)) for c in local],
-                  axis=1)                                      # (N, M)
-    w = np.stack([c.weight for c in local], axis=1)            # (N, M)
+    with span("coreset.groups", rows=int(labels.shape[0])) as groups_sp:
+        cts = np.stack([c.assign for c in local], axis=1)      # (N, M)
+        ed = np.stack([np.sqrt(np.maximum(c.sq_dist, 0.0)) for c in local],
+                      axis=1)                                  # (N, M)
+        w = np.stack([c.weight for c in local], axis=1)        # (N, M)
 
-    if np.issubdtype(labels.dtype, np.floating):
-        qs = np.quantile(labels, np.linspace(0, 1, regression_bins + 1)[1:-1])
-        lab = np.searchsorted(qs, labels).astype(np.int64)
-    else:
-        lab = labels.astype(np.int64)
+        if np.issubdtype(labels.dtype, np.floating):
+            qs = np.quantile(labels,
+                             np.linspace(0, 1, regression_bins + 1)[1:-1])
+            lab = np.searchsorted(qs, labels).astype(np.int64)
+        else:
+            lab = labels.astype(np.int64)
 
-    keys = np.concatenate([cts, lab[:, None]], axis=1)         # (N, M+1)
-    _, group_ids = np.unique(keys, axis=0, return_inverse=True)
-    group_ids = group_ids.reshape(-1)
-    agg_ed = ed.sum(axis=1)
+        keys = np.concatenate([cts, lab[:, None]], axis=1)     # (N, M+1)
+        _, group_ids = np.unique(keys, axis=0, return_inverse=True)
+        group_ids = group_ids.reshape(-1)
+        n_groups = int(group_ids.max()) + 1 if group_ids.size else 0
+        groups_sp.set(n_groups=n_groups)
 
-    n_groups = int(group_ids.max()) + 1 if group_ids.size else 0
-    # argmin aggregated distance per group
-    order = np.lexsort((agg_ed, group_ids))
-    first = np.ones(len(order), bool)
-    first[1:] = group_ids[order][1:] != group_ids[order][:-1]
-    chosen = np.sort(order[first])
-    weights = w[chosen].sum(axis=1)
+    with span("coreset.pick") as pick_sp:
+        agg_ed = ed.sum(axis=1)
+        # argmin aggregated distance per group
+        order = np.lexsort((agg_ed, group_ids))
+        first = np.ones(len(order), bool)
+        first[1:] = group_ids[order][1:] != group_ids[order][:-1]
+        chosen = np.sort(order[first])
+        weights = w[chosen].sum(axis=1)
+        pick_sp.set(n_coreset=int(chosen.shape[0]))
     return chosen.astype(np.int64), weights.astype(np.float32), n_groups
 
 
@@ -160,13 +165,15 @@ def local_cluster_weights(features: np.ndarray, k: int, *, seed: int = 0,
     fit_client`` picks Lloyd or mini-batch as the reference does)."""
     dev = resolve_device(device)
     k_eff = int(min(k, features.shape[0]))
-    pts = torch.as_tensor(np.asarray(features, np.float32), device=dev)
-    cents, assign, sqd = fit_client(rng.PRNGKey(seed), pts, k_eff,
-                                    iters=iters, impl=impl, algo=algo)
-    assign = assign.cpu().numpy()
-    sqd = sqd.cpu().numpy()
-    return ClientClustering(assign, sqd, rank_weights(assign, sqd, k_eff),
-                            cents)
+    with span("coreset.kmeans"):
+        pts = torch.as_tensor(np.asarray(features, np.float32), device=dev)
+        cents, assign, sqd = fit_client(rng.PRNGKey(seed), pts, k_eff,
+                                        iters=iters, impl=impl, algo=algo)
+        assign = assign.cpu().numpy()
+        sqd = sqd.cpu().numpy()
+    with span("coreset.rank", rows=int(assign.shape[0])):
+        weight = rank_weights(assign, sqd, k_eff)
+    return ClientClustering(assign, sqd, weight, cents)
 
 
 def clients_batchable(features: Sequence[np.ndarray], *,
@@ -199,30 +206,32 @@ def _fit_clients(features: Sequence[np.ndarray], k: int, seeds: Sequence[int],
     ds = [int(f.shape[1]) for f in features]
     k_eff = int(min(k, min(ns)))
     mine = my_rows(m, axis)
-    keys = np.stack([rng.PRNGKey(seeds[i]) for i in mine])
-    stacked = stack_padded([torch.as_tensor(np.asarray(features[i],
-                                                       np.float32),
-                                            device=device)
-                            for i in mine], max(ns), max(ds))
-    cents, assign, sqd = kmeans_fit(keys, stacked, k_eff, iters=iters,
-                                    impl=impl, n_valid=[ns[i] for i in mine],
-                                    clients=m)
-    if axis is not None:
-        # one all-gather of each client's (centroids, assign bits, sqd)
-        ml = len(mine)
-        block = torch.cat([cents.reshape(ml, -1),
-                           assign.view(torch.float32), sqd], 1)
-        every = all_gather_rows(block, axis)[:m]
-        cents = every[:, :k_eff * max(ds)].reshape(m, k_eff, max(ds))
-        assign = every[:, k_eff * max(ds):-max(ns)].contiguous().view(
-            torch.int32)
-        sqd = every[:, -max(ns):]
-    assign = assign.cpu().numpy()
-    sqd = sqd.cpu().numpy()
-    return [ClientClustering(assign[i, :ns[i]],
-                             sqd[i, :ns[i]],
-                             rank_weights(assign[i, :ns[i]], sqd[i, :ns[i]],
-                                          k_eff),
+    with span("coreset.kmeans"):
+        keys = np.stack([rng.PRNGKey(seeds[i]) for i in mine])
+        stacked = stack_padded([torch.as_tensor(np.asarray(features[i],
+                                                           np.float32),
+                                                device=device)
+                                for i in mine], max(ns), max(ds))
+        cents, assign, sqd = kmeans_fit(keys, stacked, k_eff, iters=iters,
+                                        impl=impl,
+                                        n_valid=[ns[i] for i in mine],
+                                        clients=m)
+        if axis is not None:
+            # one all-gather of each client's (centroids, assign bits, sqd)
+            ml = len(mine)
+            block = torch.cat([cents.reshape(ml, -1),
+                               assign.view(torch.float32), sqd], 1)
+            every = all_gather_rows(block, axis)[:m]
+            cents = every[:, :k_eff * max(ds)].reshape(m, k_eff, max(ds))
+            assign = every[:, k_eff * max(ds):-max(ns)].contiguous().view(
+                torch.int32)
+            sqd = every[:, -max(ns):]
+        assign = assign.cpu().numpy()
+        sqd = sqd.cpu().numpy()
+    with span("coreset.rank", rows=sum(ns)):
+        weights = [rank_weights(assign[i, :ns[i]], sqd[i, :ns[i]], k_eff)
+                   for i in range(m)]
+    return [ClientClustering(assign[i, :ns[i]], sqd[i, :ns[i]], weights[i],
                              cents[i, :, :ds[i]])
             for i in range(m)]
 

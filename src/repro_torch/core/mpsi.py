@@ -91,12 +91,15 @@ def _broadcast_result(inter: np.ndarray, n_clients: int, *, use_he: bool,
     """
     n = len(inter)
     if use_he:
-        pk, sk = he.keygen(256, seed=7)  # small key: relay fidelity only
-        t0 = time.perf_counter()
-        sample = [he.encrypt(pk, int(x) % pk.n) for x in inter[:64]]
-        if sample:
-            _ = [he.decrypt(sk, c) for c in sample]
-        t_he = (time.perf_counter() - t0) * (max(n, 1) / max(len(sample), 1))
+        with span("align.he") as he_sp:
+            pk, sk = he.keygen(256, seed=7)  # small key: relay fidelity
+            t0 = time.perf_counter()
+            sample = [he.encrypt(pk, int(x) % pk.n) for x in inter[:64]]
+            if sample:
+                _ = [he.decrypt(sk, c) for c in sample]
+            t_he = ((time.perf_counter() - t0)
+                    * (max(n, 1) / max(len(sample), 1)))
+            he_sp.set(samples=len(sample))
         per_id = pk.ciphertext_bytes()
     else:
         t_he, per_id = 0.0, ID_BYTES
@@ -187,8 +190,9 @@ def tree_mpsi(id_sets: Sequence[np.ndarray], *,
     options = options or AlignOptions()
     protocol, backend = options.protocol, options.psi_backend
     m = len(id_sets)
-    holdings: Dict[int, np.ndarray] = {i: canonical_ids(s) for i, s in
-                                       enumerate(id_sets)}
+    with span("align.canon"):
+        holdings: Dict[int, np.ndarray] = {i: canonical_ids(s) for i, s in
+                                           enumerate(id_sets)}
     active = list(range(m))
     total_bytes = total_msgs = 0
     compute = 0.0
@@ -283,7 +287,8 @@ def path_mpsi(id_sets: Sequence[np.ndarray], *,
     options = options or AlignOptions()
     protocol, backend = options.protocol, options.psi_backend
     m = len(id_sets)
-    cur = canonical_ids(id_sets[0])
+    with span("align.canon"):
+        cur = canonical_ids(id_sets[0])
     total_bytes = total_msgs = 0
     compute = 0.0
     per_round: List[float] = []
@@ -330,7 +335,8 @@ def star_mpsi(id_sets: Sequence[np.ndarray], *,
     options = options or AlignOptions()
     protocol, backend = options.protocol, options.psi_backend
     m = len(id_sets)
-    cur = canonical_ids(id_sets[center])
+    with span("align.canon"):
+        cur = canonical_ids(id_sets[center])
     total_bytes = total_msgs = 0
     compute = 0.0
     center_busy = 0.0

@@ -20,6 +20,7 @@ k-NN vote.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -101,7 +102,8 @@ def _align(partition: VerticalPartition, topology: str, *,
     Returns (aligned, stats, simulated_seconds, wall_seconds)."""
     n = partition.n_samples
     m = partition.n_clients
-    sets, _core = make_id_universe(m, n, align.overlap, seed=seed)
+    with span("align.ids"):
+        sets, _core = make_id_universe(m, n, align.overlap, seed=seed)
     sp = span("align.mpsi", topology=topology, protocol=align.protocol,
               backend=align.psi_backend, n_clients=m, n_ids=n)
     t0 = now()
@@ -111,13 +113,15 @@ def _align(partition: VerticalPartition, topology: str, *,
     sp.set(comm_bytes=stats.total_bytes, rounds=stats.rounds,
            n_align=int(stats.intersection.shape[0]))
     inter = stats.intersection
-    # id -> row: invert the label owner's id list (ids are unique, and
-    # inter ⊆ sets[0] because it intersects every client's set)
-    row_ids = np.asarray(sets[0], np.int64)
-    order = np.argsort(row_ids)
-    pos = np.searchsorted(row_ids, inter, sorter=order)
-    rows = np.sort(order[pos])
-    return partition.take(rows), stats, stats.simulated_seconds, align_wall
+    with span("align.rows", rows=int(inter.shape[0])):
+        # id -> row: invert the label owner's id list (ids are unique,
+        # and inter ⊆ sets[0] because it intersects every client's set)
+        row_ids = np.asarray(sets[0], np.int64)
+        order = np.argsort(row_ids)
+        pos = np.searchsorted(row_ids, inter, sorter=order)
+        rows = np.sort(order[pos])
+        aligned = partition.take(rows)
+    return aligned, stats, stats.simulated_seconds, align_wall
 
 
 def run_pipeline(train_part: VerticalPartition,
@@ -166,7 +170,10 @@ def run_pipeline(train_part: VerticalPartition,
         Tracer() if trace else None)
 
     with use_tracer(tracer), span("pipeline.run", variant=variant,
-                                  model=cfg.model, seed=seed):
+                                  model=cfg.model, seed=seed) as run_sp:
+        # traced, the job's root span also records its thread's CPU
+        # seconds (``cpu_s``)
+        cpu0 = time.thread_time() if tracer is not None else 0.0
         with span("pipeline.align", topology=topology,
                   protocol=align.protocol, backend=align.psi_backend):
             aligned, mpsi_stats, align_secs, align_wall = _align(
@@ -233,6 +240,8 @@ def run_pipeline(train_part: VerticalPartition,
                                   block_b=options.block_b,
                                   bottom_impl=eval_impl,
                                   quant=options.quant)
+        if tracer is not None:
+            run_sp.set(cpu_s=time.thread_time() - cpu0)
 
     return PipelineReport(
         variant=variant, mpsi=mpsi_stats, coreset=coreset_res,

@@ -498,14 +498,20 @@ def train_scan(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
         # or not
         with span("train.epoch", epoch=epoch, engine="scan",
                   steps=steps_per_epoch, comm_bytes=per_epoch_bytes) as sp:
-            idx_d, mask_d = _to_device(idx, device), _to_device(mask, device)
+            with span("train.copy"):
+                idx_d = _to_device(idx, device)
+                mask_d = _to_device(mask, device)
             acc = torch.zeros((), dtype=torch.float32, device=device)
             for s in range(steps_per_epoch):
-                loss, grads = step_grads(idx_d[s, cols], mask_d[s, cols])
-                params, opt = adam_update(params, grads, opt, lr=cfg.lr)
+                with span("train.grads"):
+                    loss, grads = step_grads(idx_d[s, cols],
+                                             mask_d[s, cols])
+                with span("train.adam"):
+                    params, opt = adam_update(params, grads, opt, lr=cfg.lr)
                 acc = acc + loss.detach()
             stats.dispatches += 1
-            losses.append(float(acc / steps_per_epoch))  # the one sync
+            with span("train.sync"):
+                losses.append(float(acc / steps_per_epoch))  # the one sync
             stats.host_syncs += 1
             sp.set(loss=losses[-1])
         total_steps += steps_per_epoch
@@ -578,12 +584,15 @@ def train_loop(partition, cfg, *, sample_weights: Optional[np.ndarray] = None,
         with span("train.epoch", epoch=epoch, engine="loop") as sp:
             for s in range(0, n, bs):
                 idx = torch.as_tensor(order[s:s + bs], device=device)
-                xs = [x.index_select(0, idx) for x in xs_all]
-                w = w_all.index_select(0, idx) if w_all is not None else None
-                loss = models._loss_fn(params, cfg, xs,
-                                       y_all.index_select(0, idx), w)
-                grads = torch.autograd.grad(loss, leaves)
-                params, opt = adam_update(params, grads, opt, lr=cfg.lr)
+                with span("train.grads"):
+                    xs = [x.index_select(0, idx) for x in xs_all]
+                    w = (w_all.index_select(0, idx) if w_all is not None
+                         else None)
+                    loss = models._loss_fn(params, cfg, xs,
+                                           y_all.index_select(0, idx), w)
+                    grads = torch.autograd.grad(loss, leaves)
+                with span("train.adam"):
+                    params, opt = adam_update(params, grads, opt, lr=cfg.lr)
                 stats.dispatches += 1
                 ep_loss += float(loss.detach())  # blocking sync EVERY step
                 stats.host_syncs += 1
