@@ -13,7 +13,15 @@ Step 1 runs on the device: all M clients in one zero-padded
 iteration (``core/kmeans.kmeans_fit``).  The beyond-paper mini-batch
 fit (``kmeans_algo="minibatch"``) fits the clients one after another,
 as the reference, one gather-fused update launch per Sculley step.
-Steps 2-5 are host numpy at the label owner, copied from the reference.
+Steps 2-5 are host numpy at the label owner, with the reference's
+values, ties and precision.  Their three sorts by composite keys (a
+client's rows by cluster and distance, the rows' groups, each group's
+least summed distance) sort one integer word a row where the key fits
+one: a mixed-radix group code numbered through a dense table or a 1-D
+``np.unique``, and 64-bit words of (major key, f32 distance bits, row)
+under one ``np.sort``.  Each falls back to the reference's row-wise
+``np.unique`` or ``lexsort`` where its word would not fit or a distance
+is not finite; the spans record which form ran.
 Per-client keys follow the reference's ``PRNGKey(seed + 17*m)``.
 
 With a mesh (``cluster_coreset(mesh=, shard_axis=)``) the batched fit's
@@ -28,6 +36,7 @@ every rank, byte-identical to the unsharded coreset.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -76,24 +85,110 @@ class CoresetResult:
                 + self.select_seconds + self.he_seconds)
 
 
+#: bits of a finite f32 >= +0.0 read as uint32, which orders like its
+#: value; so does 0x7FFFFFFF less it, descending
+_F32_BITS = 31
+#: a group code's dense table may hold this many entries a row, or
+#: ``_DENSE_MIN`` whatever the row count
+_DENSE_PER_ROW, _DENSE_MIN = 4, 1 << 16
+
+
+def _bits(n: int) -> int:
+    """Bits that hold 0 ... n - 1."""
+    return max(n - 1, 0).bit_length()
+
+
+def _sorted_rows(major: np.ndarray, major_bits: int, x: np.ndarray, *,
+                 descending: bool = False) -> Tuple[np.ndarray, bool]:
+    """The rows sorted by ``major`` (ints under 2**major_bits), then by
+    ``x`` >= 0, ties by row: ``np.lexsort((±x, major))``'s order, and
+    whether it came from packed words.  Where ``x`` is finite f32 and
+    ``major << (31 + b) | bits(x) << b | row`` fits 64 bits (``b`` the
+    bits of a row index; a descending ``x`` as 0x7FFFFFFF less its
+    bits), one ``np.sort`` of those words gives it: the row makes every
+    word unique, so the sort needs no stability."""
+    n = major.shape[0]
+    b = _bits(n)
+    if (x.dtype != np.float32 or major_bits + _F32_BITS + b > 64
+            or not np.isfinite(x).all()):
+        return np.lexsort((-x if descending else x, major)), False
+    bits = (x + np.float32(0)).view(np.uint32)           # -0.0 as +0.0
+    if descending:
+        bits = np.uint32(0x7FFFFFFF) - bits
+    key = major.astype(np.uint64)
+    key <<= np.uint64(_F32_BITS)
+    key |= bits
+    key <<= np.uint64(b)
+    key |= np.arange(n, dtype=np.uint64)
+    key.sort()
+    key &= np.uint64((1 << b) - 1)
+    return key.view(np.int64), True
+
+
+def _rank_weights(assign: np.ndarray, sq_dist: np.ndarray,
+                  k: int) -> Tuple[np.ndarray, bool]:
+    """``rank_weights``, and whether its order came from packed words
+    (else from ``lexsort``)."""
+    n = assign.shape[0]
+    if n == 0:
+        return np.zeros(0, np.float32), False
+    ed = np.sqrt(np.maximum(sq_dist, 0.0))
+    sizes = np.bincount(assign, minlength=k)
+    # by cluster, then by descending distance (stable ties)
+    order, packed = _sorted_rows(assign, _bits(sizes.shape[0]), ed,
+                                 descending=True)
+    # the order runs cluster by cluster, so the sorted rows' clusters
+    # are each cluster's index repeated its size
+    starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
+    pos = np.arange(1, n + 1) - np.repeat(starts, sizes)   # 1-based in-group
+    weight = np.empty(n, np.float32)
+    weight[order] = pos / np.repeat(sizes, sizes)
+    return weight, packed
+
+
 def rank_weights(assign: np.ndarray, sq_dist: np.ndarray,
                  k: int) -> np.ndarray:
     """Step-2 weights: w_i = pos(ed_i, DeSort({ed_j})) / |S_c| — the
     closest sample of a cluster gets weight 1, the farthest 1/|S_c|;
     ties break by original index (stable lexsort)."""
-    n = assign.shape[0]
+    return _rank_weights(assign, sq_dist, k)[0]
+
+
+def _rows_group_ids(cols: Sequence[np.ndarray]) -> np.ndarray:
+    """Each row's group: the rank of its key (``cols`` read left to
+    right) among the distinct keys, from a row-wise ``np.unique``."""
+    keys = np.stack([c.astype(np.int64) for c in cols], axis=1)
+    _, group_ids = np.unique(keys, axis=0, return_inverse=True)
+    return group_ids.reshape(-1)
+
+
+def _group_ids(cols: Sequence[np.ndarray]) -> Tuple[np.ndarray, int, str]:
+    """``_rows_group_ids``, the group count, and the tier that numbered
+    them.  Each column shifted to start at 0 is one digit of a
+    mixed-radix code that orders like the key; under 2**63 the code is
+    numbered by a dense table of its values (``dense``, where the table
+    is small next to the rows) or by ``np.unique`` of the 1-D code
+    (``code``); past it, by rows (``rows``)."""
+    n = cols[0].shape[0]
     if n == 0:
-        return np.zeros(0, np.float32)
-    ed = np.sqrt(np.maximum(sq_dist, 0.0))
-    # primary key: cluster; secondary: descending distance (stable ties)
-    order = np.lexsort((-ed, assign))
-    sizes = np.bincount(assign, minlength=k)
-    starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
-    sorted_assign = assign[order]
-    pos = np.arange(1, n + 1) - starts[sorted_assign]      # 1-based in-group
-    weight = np.zeros(n, np.float64)
-    weight[order] = pos / sizes[sorted_assign]
-    return weight.astype(np.float32)
+        return np.zeros(0, np.int64), 0, "dense"
+    lo = [int(c.min()) for c in cols]
+    radix = [int(c.max()) - l + 1 for c, l in zip(cols, lo)]
+    size = math.prod(radix)
+    if size >= 1 << 63:
+        group_ids = _rows_group_ids(cols)
+        return group_ids, int(group_ids.max()) + 1, "rows"
+    code = np.zeros(n, np.int64)
+    for c, l, r in zip(cols, lo, radix):
+        code *= r
+        code += c
+        code -= l
+    if size <= max(_DENSE_PER_ROW * n, _DENSE_MIN):
+        present = np.bincount(code, minlength=size) > 0
+        remap = np.cumsum(present) - 1
+        return remap[code], int(remap[-1]) + 1, "dense"
+    values, group_ids = np.unique(code, return_inverse=True)
+    return group_ids.reshape(-1), int(values.shape[0]), "code"
 
 
 def select_coreset(local: Sequence[ClientClustering], labels: np.ndarray, *,
@@ -104,7 +199,6 @@ def select_coreset(local: Sequence[ClientClustering], labels: np.ndarray, *,
     Regression labels (float) are quantile-binned so "split S_ct^j by
     label" stays meaningful."""
     with span("coreset.groups", rows=int(labels.shape[0])) as groups_sp:
-        cts = np.stack([c.assign for c in local], axis=1)      # (N, M)
         ed = np.stack([np.sqrt(np.maximum(c.sq_dist, 0.0)) for c in local],
                       axis=1)                                  # (N, M)
         w = np.stack([c.weight for c in local], axis=1)        # (N, M)
@@ -116,21 +210,20 @@ def select_coreset(local: Sequence[ClientClustering], labels: np.ndarray, *,
         else:
             lab = labels.astype(np.int64)
 
-        keys = np.concatenate([cts, lab[:, None]], axis=1)     # (N, M+1)
-        _, group_ids = np.unique(keys, axis=0, return_inverse=True)
-        group_ids = group_ids.reshape(-1)
-        n_groups = int(group_ids.max()) + 1 if group_ids.size else 0
-        groups_sp.set(n_groups=n_groups)
+        group_ids, n_groups, tier = _group_ids([c.assign for c in local]
+                                               + [lab])
+        groups_sp.set(n_groups=n_groups, tier=tier)
 
     with span("coreset.pick") as pick_sp:
         agg_ed = ed.sum(axis=1)
-        # argmin aggregated distance per group
-        order = np.lexsort((agg_ed, group_ids))
+        # argmin aggregated distance per group, ties to the lowest row
+        order, packed = _sorted_rows(group_ids, _bits(n_groups), agg_ed)
+        sorted_groups = group_ids[order]
         first = np.ones(len(order), bool)
-        first[1:] = group_ids[order][1:] != group_ids[order][:-1]
+        first[1:] = sorted_groups[1:] != sorted_groups[:-1]
         chosen = np.sort(order[first])
         weights = w[chosen].sum(axis=1)
-        pick_sp.set(n_coreset=int(chosen.shape[0]))
+        pick_sp.set(n_coreset=int(chosen.shape[0]), packed=packed)
     return chosen.astype(np.int64), weights.astype(np.float32), n_groups
 
 
@@ -171,8 +264,9 @@ def local_cluster_weights(features: np.ndarray, k: int, *, seed: int = 0,
                                         iters=iters, impl=impl, algo=algo)
         assign = assign.cpu().numpy()
         sqd = sqd.cpu().numpy()
-    with span("coreset.rank", rows=int(assign.shape[0])):
-        weight = rank_weights(assign, sqd, k_eff)
+    with span("coreset.rank", rows=int(assign.shape[0])) as rank_sp:
+        weight, packed = _rank_weights(assign, sqd, k_eff)
+        rank_sp.set(packed=int(packed))
     return ClientClustering(assign, sqd, weight, cents)
 
 
@@ -228,9 +322,11 @@ def _fit_clients(features: Sequence[np.ndarray], k: int, seeds: Sequence[int],
             sqd = every[:, -max(ns):]
         assign = assign.cpu().numpy()
         sqd = sqd.cpu().numpy()
-    with span("coreset.rank", rows=sum(ns)):
-        weights = [rank_weights(assign[i, :ns[i]], sqd[i, :ns[i]], k_eff)
-                   for i in range(m)]
+    with span("coreset.rank", rows=sum(ns)) as rank_sp:
+        ranked = [_rank_weights(assign[i, :ns[i]], sqd[i, :ns[i]], k_eff)
+                  for i in range(m)]
+        weights = [w for w, _ in ranked]
+        rank_sp.set(packed=sum(p for _, p in ranked))
     return [ClientClustering(assign[i, :ns[i]], sqd[i, :ns[i]], weights[i],
                              cents[i, :, :ds[i]])
             for i in range(m)]

@@ -4,7 +4,8 @@ job's root span carries its thread's CPU seconds.
 Tiny traced ``treecss`` jobs on the CPU through ``run_pipeline`` (HI × mlp
 on the scan engine and on the loop engine, YP × linreg, 900 rows, 3
 clients): every phase span sits under the parent it names, the counts
-the spans record match the stage results, the host accounting is within
+the spans record match the stage results, the coreset's sorts record
+the forms the inputs' shapes imply, the host accounting is within
 the span's wall time, a job's results are bitwise the same traced or not,
 and an untraced job reads no thread clock.
 """
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.config import AlignOptions, EngineOptions
+from repro_torch.core import coreset
 from repro_torch.core.splitnn import SplitNNConfig
 from repro_torch.core.treecss import run_pipeline
 from repro_torch.data.synthetic import DATASETS, make_dataset
@@ -114,6 +116,19 @@ def test_phase_counts_match_the_stages(jobs, job):
         64, rep.mpsi.intersection.shape[0])
     assert by["coreset.rank"][0].attrs["rows"] == (
         rep.mpsi.intersection.shape[0] * 3)
+    # the sorts' forms follow from the shapes: 3 clients of k clusters,
+    # 2 classes or 16 label bins, one word a row where it fits 64 bits
+    n = rep.mpsi.intersection.shape[0]
+    k, bins = (12, 16) if job == "linreg" else (14, 2)
+    size = k ** 3 * bins
+    assert groups.attrs["tier"] == (
+        "dense" if size <= max(coreset._DENSE_PER_ROW * n, coreset._DENSE_MIN)
+        else "code" if size < 1 << 63 else "rows")
+    row_bits = coreset._F32_BITS + coreset._bits(n)
+    assert by["coreset.rank"][0].attrs["packed"] == (
+        3 if coreset._bits(k) + row_bits <= 64 else 0)
+    assert pick.attrs["packed"] is (coreset._bits(rep.coreset.n_groups)
+                                    + row_bits <= 64)
     assert len(by["train.grads"]) == len(by["train.adam"]) == rep.train.steps
     assert rep.train.steps > 0
     if not job.endswith("loop"):
